@@ -1,0 +1,218 @@
+"""Neo-Hookean stencil kernels on structured hex8 grids: wrappers and plain versions.
+
+Counterpart of ``fenris_tpu/ops/structured_stencil.py``.  Two functions
+carry the structured Newton–Krylov solve:
+
+* :func:`neo_hookean_residual` — internal forces of a Neo-Hookean solid
+  on a uniform hex8 grid (replaces ``neo_hookean_residual_pallas``);
+* :func:`neo_hookean_hvp` — their closed-form Hessian action (replaces
+  ``neo_hookean_hvp_pallas``).
+
+Both take ``[3, nz, ny, nx]`` node grids and return a grid of the same
+shape, with the basis-gradient table ``gp [8, 8, 3]`` and the weights
+``wdet [8]`` from :func:`gp_table` (host numpy arrays, so the quadrature
+order is the JAX package's).  On a CUDA tensor each wrapper launches its
+hand-written kernel (``csrc/structured_stencil.cu``; f32, contiguous) or
+raises; on a CPU tensor it runs the plain PyTorch version beside it.  Each
+wrapper counts its kernel launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..assembly.local import tabulate
+from ..quadrature import canonical_stiffness
+from ..reference_elements import HEX8
+from ._build import check, load_library
+
+__all__ = [
+    "gp_table",
+    "neo_hookean_residual",
+    "neo_hookean_hvp",
+    "neo_hookean_residual_plain",
+    "neo_hookean_hvp_plain",
+    "corner_views",
+    "scatter_corners",
+]
+
+# local hex8 node -> (di, dj, dk) grid offsets (the reference hex node order)
+_OFFSETS = ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
+            (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1))
+
+
+def gp_table(spacing: float):
+    """Physical basis gradients ``gp[q, n, d]`` and weights ``wdet[q]`` (float64)."""
+    tab = tabulate(HEX8, canonical_stiffness("hex8"))
+    h = float(spacing)
+    # affine geometry: J = (h/2) I for every cell and quadrature point
+    return tab.dphi * (2.0 / h), tab.weights * (h / 2.0) ** 3
+
+
+def corner_views(g: torch.Tensor):
+    """The 8 cell-corner views ``[s, ncz, ncy, ncx]`` of a ``[s, z, y, x]`` grid."""
+    _, nz, ny, nx = g.shape
+    return [g[:, dk : dk + nz - 1, dj : dj + ny - 1, di : di + nx - 1] for di, dj, dk in _OFFSETS]
+
+
+def scatter_corners(f_el: torch.Tensor, node_shape) -> torch.Tensor:
+    """Sum ``f_el [8, s, ncz, ncy, ncx]`` into its cells' nodes, corner order fixed."""
+    nz, ny, nx = node_shape
+    out = f_el.new_zeros((f_el.shape[1], nz, ny, nx))
+    for n, (di, dj, dk) in enumerate(_OFFSETS):
+        out[:, dk : dk + nz - 1, dj : dj + ny - 1, di : di + nx - 1] += f_el[n]
+    return out
+
+
+# -- plain PyTorch versions (vectorised over cells) ---------------------------
+
+
+def _tables(gp, wdet, like):
+    return (
+        torch.as_tensor(np.asarray(gp), dtype=like.dtype, device=like.device),
+        torch.as_tensor(np.asarray(wdet), dtype=like.dtype, device=like.device),
+    )
+
+
+def _grad(gpt, g):
+    """G[q][d][s] as [q, ncz, ncy, ncx] tensors: sum_n gp[q, n, d] g_n[s]."""
+    U = torch.stack(corner_views(g))  # [n, s, z, y, x]
+    G = torch.einsum("qnd,nszyx->dsqzyx", gpt, U)
+    return [[G[d, s] for s in range(3)] for d in range(3)]
+
+
+def _kinematics(G, mu, lam):
+    """F = I + Gᵀ, its cofactors, 1/det and α = −μ + λ log J (log1p-stable)."""
+    F = [[G[j][i] + (1.0 if i == j else 0.0) for j in range(3)] for i in range(3)]
+    a, b, c = G[0][0], G[1][0], G[2][0]
+    d, e, f = G[0][1], G[1][1], G[2][1]
+    g, h, i = G[0][2], G[1][2], G[2][2]
+    gamma = (
+        (a + e + i)
+        + (a * e - b * d + a * i - c * g + e * i - f * h)
+        + (a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g))
+    )
+    inv_det = 1.0 / (1.0 + gamma)
+    alpha = -mu + lam * torch.log1p(torch.clamp(gamma, min=-0.999999))
+    cof = [[None] * 3 for _ in range(3)]
+    for r in range(3):
+        for k in range(3):
+            r1, r2, k1, k2 = (r + 1) % 3, (r + 2) % 3, (k + 1) % 3, (k + 2) % 3
+            cof[r][k] = F[r1][k1] * F[r2][k2] - F[r1][k2] * F[r2][k1]
+    return F, cof, inv_det, alpha
+
+
+def _contract(gpt, wt, P, node_shape):
+    """f_el[n, s] = sum_q w_q sum_d gp[q, n, d] P[s][d], scattered to nodes."""
+    Pt = torch.stack([torch.stack(row) for row in P])  # [s, d, q, z, y, x]
+    f_el = torch.einsum("q,qnd,sdqzyx->nszyx", wt, gpt, Pt)
+    return scatter_corners(f_el, node_shape)
+
+
+def neo_hookean_residual_plain(u_grid, gp, wdet, mu, lam):
+    """Plain PyTorch version of :func:`neo_hookean_residual` (any float dtype)."""
+    gpt, wt = _tables(gp, wdet, u_grid)
+    G = _grad(gpt, u_grid)
+    F, cof, inv_det, alpha = _kinematics(G, mu, lam)
+    # P = α F⁻ᵀ + μ F, F⁻ᵀ = cof / det
+    P = [[alpha * cof[i][j] * inv_det + mu * F[i][j] for j in range(3)] for i in range(3)]
+    return _contract(gpt, wt, P, u_grid.shape[1:])
+
+
+def neo_hookean_hvp_plain(u_grid, v_grid, gp, wdet, mu, lam):
+    """Plain PyTorch version of :func:`neo_hookean_hvp` (any float dtype)."""
+    gpt, wt = _tables(gp, wdet, u_grid)
+    G = _grad(gpt, u_grid)
+    dG = _grad(gpt, v_grid)
+    F, cof, inv_det, alpha = _kinematics(G, mu, lam)
+    dF = [[dG[j][i] for j in range(3)] for i in range(3)]
+    ddet = sum(cof[i][j] * dF[i][j] for i in range(3) for j in range(3))
+    dalpha = lam * (ddet * inv_det)
+    beta = alpha * (ddet * inv_det) * inv_det  # α ddet / det²
+    dP = [[None] * 3 for _ in range(3)]
+    for i in range(3):
+        for j in range(3):
+            i1, i2, j1, j2 = (i + 1) % 3, (i + 2) % 3, (j + 1) % 3, (j + 2) % 3
+            dcof = (
+                dF[i1][j1] * F[i2][j2]
+                + F[i1][j1] * dF[i2][j2]
+                - dF[i1][j2] * F[i2][j1]
+                - F[i1][j2] * dF[i2][j1]
+            )
+            dP[i][j] = mu * dF[i][j] + (dalpha * cof[i][j] + alpha * dcof) * inv_det - beta * cof[i][j]
+    return _contract(gpt, wt, dP, u_grid.shape[1:])
+
+
+# -- kernel wrappers ------------------------------------------------------------
+
+
+def _check_grid(g: torch.Tensor, name: str) -> None:
+    if g.device.type != "cuda":
+        raise ValueError(f"{name}: the stencil kernels run on CUDA or CPU tensors, not {g.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"{name}: the stencil kernels are f32-only, got {g.dtype}")
+    if g.dim() != 4 or g.shape[0] != 3 or min(g.shape[1:]) < 2:
+        raise ValueError(f"{name}: expected a [3, nz, ny, nx] grid with >= 2 nodes per axis, got {tuple(g.shape)}")
+    if not g.is_contiguous():
+        raise ValueError(f"{name}: grid must be contiguous")
+
+
+def _host_tables(gp, wdet):
+    gp32 = np.ascontiguousarray(gp, dtype=np.float32)
+    w32 = np.ascontiguousarray(wdet, dtype=np.float32)
+    if gp32.shape != (8, 8, 3) or w32.shape != (8,):
+        raise ValueError(f"expected gp [8, 8, 3] and wdet [8], got {gp32.shape}, {w32.shape}")
+    return gp32, w32
+
+
+def neo_hookean_residual(u_grid, gp, wdet, mu, lam):
+    """Internal forces of a Neo-Hookean structured hex8 model, grid layout."""
+    if u_grid.device.type == "cpu":
+        return neo_hookean_residual_plain(u_grid, gp, wdet, mu, lam)
+    _check_grid(u_grid, "u_grid")
+    gp32, w32 = _host_tables(gp, wdet)
+    lib = load_library()
+    _, nz, ny, nx = u_grid.shape
+    out = torch.empty_like(u_grid)
+    scratch = u_grid.new_empty((8, 3, nz - 1, ny - 1, nx - 1))
+    with torch.cuda.device(u_grid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.fenris_nh_residual(
+            u_grid.data_ptr(), scratch.data_ptr(), out.data_ptr(), nz, ny, nx,
+            gp32.ctypes.data, w32.ctypes.data, float(mu), float(lam), stream,
+        )
+    check(lib, code, "neo_hookean_residual")
+    neo_hookean_residual.launches += 1
+    return out
+
+
+def neo_hookean_hvp(u_grid, v_grid, gp, wdet, mu, lam):
+    """Hessian action d/dε f(u + ε v) of the Neo-Hookean internal forces, grid layout.
+
+    ``v_grid`` is used as given: the caller applies the Dirichlet mask.
+    """
+    if u_grid.device.type == "cpu" and v_grid.device.type == "cpu":
+        return neo_hookean_hvp_plain(u_grid, v_grid, gp, wdet, mu, lam)
+    _check_grid(u_grid, "u_grid")
+    _check_grid(v_grid, "v_grid")
+    if v_grid.shape != u_grid.shape or v_grid.device != u_grid.device:
+        raise ValueError("u_grid and v_grid must have the same shape and device")
+    gp32, w32 = _host_tables(gp, wdet)
+    lib = load_library()
+    _, nz, ny, nx = u_grid.shape
+    out = torch.empty_like(u_grid)
+    scratch = u_grid.new_empty((8, 3, nz - 1, ny - 1, nx - 1))
+    with torch.cuda.device(u_grid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.fenris_nh_hvp(
+            u_grid.data_ptr(), v_grid.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            nz, ny, nx, gp32.ctypes.data, w32.ctypes.data, float(mu), float(lam), stream,
+        )
+    check(lib, code, "neo_hookean_hvp")
+    neo_hookean_hvp.launches += 1
+    return out
+
+
+neo_hookean_residual.launches = 0
+neo_hookean_hvp.launches = 0

@@ -1,0 +1,108 @@
+"""Preconditioned Conjugate Gradient (eager loop).
+
+Counterpart of ``fenris_tpu/sparse/cg.py`` (reference: fenris-sparse
+cg.rs): PCG with the relative-residual stopping criterion
+``||r_k|| <= rel_tolerance * ||b||`` on the recursively updated residual
+(cg.rs:107-125) and the failure taxonomy of ``SolveErrorKind`` (cg.rs:279)
+as ``CG_*`` codes.  The loop runs in Python; each iteration reads back
+one scalar (two with ``check_definiteness``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+__all__ = [
+    "conjugate_gradient",
+    "CgResult",
+    "CG_CONVERGED",
+    "CG_MAX_ITER",
+    "CG_INDEFINITE_OPERATOR",
+    "CG_INDEFINITE_PRECONDITIONER",
+]
+
+CG_CONVERGED = 0
+CG_MAX_ITER = 1
+CG_INDEFINITE_OPERATOR = 2
+CG_INDEFINITE_PRECONDITIONER = 3
+
+
+class CgResult(NamedTuple):
+    """Solution plus solve metadata (cf. ``CgOutput``, cg.rs:349)."""
+
+    x: torch.Tensor
+    num_iterations: int
+    status: int  # one of the CG_* codes
+    residual_norm: torch.Tensor  # 0-dim, of the recursive residual
+
+
+def _as_operator(op) -> Callable:
+    if callable(op):
+        return op
+    if isinstance(op, torch.Tensor) and op.dim() == 2:
+        return lambda v: op @ v
+    raise TypeError(f"unsupported operator type {type(op)}")
+
+
+def _dot(a, b):
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def conjugate_gradient(
+    operator,
+    rhs: torch.Tensor,
+    preconditioner=None,
+    rel_tolerance: float = 1e-8,
+    max_iter: Optional[int] = None,
+    check_definiteness: bool = True,
+) -> CgResult:
+    """Solve ``A x = b`` for SPD ``A`` with (optionally preconditioned) CG.
+
+    ``operator``/``preconditioner`` are callables ``v -> Av`` or 2-D tensors;
+    the iteration starts from ``x = 0``.
+    With ``check_definiteness``, a step with ``p·Ap <= 0`` stops with
+    ``CG_INDEFINITE_OPERATOR`` (keeping the previous iterate) and
+    ``r·z < 0`` stops with ``CG_INDEFINITE_PRECONDITIONER``.
+    """
+    A = _as_operator(operator)
+    M = _as_operator(preconditioner) if preconditioner is not None else (lambda r: r)
+    b = rhs
+    if max_iter is None:
+        max_iter = 10 * b.numel()
+    tol = rel_tolerance * torch.linalg.vector_norm(b)
+
+    x = torch.zeros_like(b)
+    r = b  # b - A(0) for a linear operator
+    r_norm = torch.linalg.vector_norm(r)
+    status = CG_CONVERGED if bool(r_norm <= tol) else -1
+    if status < 0:
+        z = M(r)
+        rz = _dot(r, z)
+        p = z
+    k = 0
+    while status < 0 and k < max_iter:
+        Ap = A(p)
+        pAp = _dot(p, Ap)
+        k += 1
+        if check_definiteness and bool(pAp <= 0.0) and bool(torch.linalg.vector_norm(p) > 0.0):
+            status = CG_INDEFINITE_OPERATOR  # keep the previous iterate
+            break
+        alpha = rz / pAp
+        x = x + alpha * p
+        r = r - alpha * Ap
+        r_norm = torch.linalg.vector_norm(r)
+        if bool(r_norm <= tol):
+            status = CG_CONVERGED
+            break
+        z = M(r)
+        rz1 = _dot(r, z)
+        if check_definiteness and bool(rz1 < 0.0):
+            status = CG_INDEFINITE_PRECONDITIONER
+            break
+        p = z + (rz1 / rz) * p
+        rz = rz1
+    if status < 0:
+        status = CG_MAX_ITER
+    return CgResult(x=x, num_iterations=k, status=status, residual_norm=r_norm)
