@@ -15,7 +15,12 @@ from .config import DEFAULT_DTYPE
 from .solid import LameParameters, NeoHookeanMaterial
 from .structured import StructuredHyperelasticModel
 
-__all__ = ["structured_model_from_arrays", "flat_to_grid", "grid_to_flat"]
+__all__ = [
+    "structured_model_from_arrays",
+    "hyperelastic_model_from_arrays",
+    "flat_to_grid",
+    "grid_to_flat",
+]
 
 
 def structured_model_from_arrays(
@@ -46,6 +51,43 @@ def structured_model_from_arrays(
         body_force=body_force if body_force is None or callable(body_force) else np.asarray(body_force),
         dtype=dtype,
         device=device,
+    )
+
+
+def hyperelastic_model_from_arrays(
+    points,
+    cells,
+    mu,
+    lam,
+    dirichlet_nodes=None,
+    body_force=None,
+    *,
+    dtype: torch.dtype = DEFAULT_DTYPE,
+    device="cpu",
+    **kwargs,
+):
+    """A Neo-Hookean unstructured port model with the given JAX model's fields.
+
+    ``points``/``cells`` as on the JAX model's hex8 mesh
+    (``np.asarray(jax_model.mesh.points)``, ``.cells``), ``mu``/``lam`` its
+    Lamé parameters, ``dirichlet_nodes`` its constrained nodes and
+    ``body_force`` a constant ``[3]`` array (a JAX callable is not carried
+    over).  Further keyword arguments (``chunk_size``, ``rule``) go to
+    :class:`~.elasticity.HyperelasticModel`.
+    """
+    from .elasticity import HyperelasticModel
+    from .mesh import Mesh
+    from .reference_elements import HEX8
+
+    return HyperelasticModel(
+        mesh=Mesh(np.asarray(points), np.asarray(cells), HEX8),
+        material=NeoHookeanMaterial(),
+        params=LameParameters(mu=float(mu), lam=float(lam)),
+        dirichlet_nodes=None if dirichlet_nodes is None else np.asarray(dirichlet_nodes),
+        body_force=None if body_force is None else np.asarray(body_force, dtype=np.float64),
+        dtype=dtype,
+        device=device,
+        **kwargs,
     )
 
 

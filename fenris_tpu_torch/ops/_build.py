@@ -2,10 +2,11 @@
 
 The kernels live in ``fenris_tpu_torch/csrc/*.cu`` and have a plain C
 interface, so they build with ``nvcc`` alone in seconds (no PyTorch
-headers).  The first call of :func:`load_library` compiles the sources
-into ``fenris_tpu_torch/_build/`` under a name keyed by a hash of the
-sources and flags, and later calls reuse the library.  Nothing is built
-or loaded at import time.
+headers).  The first call of :func:`load_library` compiles every source
+into an object file, all ``nvcc`` processes started together, links them
+into one shared library under ``fenris_tpu_torch/_build/`` named by a hash
+of the sources and flags, and loads it; later calls reuse the library.
+Nothing is built or loaded at import time.
 """
 
 from __future__ import annotations
@@ -23,20 +24,27 @@ __all__ = ["load_library", "check", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
-_SOURCES = (_PKG / "csrc" / "structured_stencil.cu",)
-_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+_SOURCES = tuple(
+    _PKG / "csrc" / name for name in ("structured_stencil.cu", "dia_sweep.cu", "stiffness_pairs.cu")
 )
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+_COMPILE = (*_ARCH, "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LINK = (*_ARCH, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     # u, scratch, out, nz, ny, nx, gp, wdet, mu, lam, stream
-    "fenris_nh_residual": (_P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P),
+    "fenris_nh_residual": ((_P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P), _I),
     # u, v, scratch, out, nz, ny, nx, gp, wdet, mu, lam, stream
-    "fenris_nh_hvp": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P),
+    "fenris_nh_hvp": ((_P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P), _I),
+    # bands, offsets, D, x, y, N, s, stream
+    "fenris_dia_sweep": ((_P, _P, _I, _P, _P, _L, _I, _P), _I),
+    # X, consts, out, E, m, n, q, d, s, sym, w_off, cf_off, wc_off, nconst, stream
+    "fenris_stiffness_pairs": ((_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
+    "fenris_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
 
@@ -54,41 +62,45 @@ def _nvcc() -> str:
 def _key() -> str:
     h = hashlib.sha256()
     for src in _SOURCES:
+        h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(_FLAGS).encode())
+    h.update(" ".join(_COMPILE + _LINK).encode())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds) -> None:
+    """Run the commands concurrently; log their output; raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    with open(BUILD_DIR / "build.log", "a") as log:
+        for cmd, out in zip(cmds, outs):
+            log.write(" ".join(cmd) + "\n" + out + "\n")
+    failed = [(c, o) for c, o, p in zip(cmds, outs, procs) if p.returncode != 0]
+    if failed:
+        cmd, out = failed[0]
+        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{out}")
 
 
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
-    out_dir = BUILD_DIR
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / f"libfenris_stencil_{_key()}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / f"libfenris_kernels_{_key()}.so"
     if not lib_path.exists():
-        # build into a temporary name and rename: concurrent builders never
-        # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *_FLAGS, "-o", tmp, *map(str, _SOURCES)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "build.log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, lib_path)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        # build in a private directory and rename the library into place:
+        # a concurrent build never loads a half-written one
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objs = [Path(tmp) / (src.stem + ".o") for src in _SOURCES]
+            _run_all([[nvcc, *_COMPILE, "-o", str(o), str(s)] for s, o in zip(_SOURCES, objs)])
+            so = Path(tmp) / "lib.so"
+            _run_all([[nvcc, *_LINK, "-o", str(so), *map(str, objs)]])
+            os.replace(so, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    lib.fenris_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.fenris_cuda_error_string.restype = ctypes.c_char_p
+        fn.restype = restype
     return lib
 
 

@@ -30,6 +30,11 @@ class ReferenceElement:
     def num_nodes(self) -> int:
         return self.nodes.shape[0]
 
+    @property
+    def geometry(self) -> "ReferenceElement":
+        """Element of the geometry map: the port's elements are isoparametric."""
+        return self
+
     def tabulate(self, points: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """``(phi[q, n], dphi[q, n, d])`` at ``points[q, d]``, float64."""
         pts = np.asarray(points, dtype=np.float64).reshape(-1, self.ref_dim)
