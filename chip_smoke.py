@@ -22,15 +22,34 @@ all started together) and drives the port's three paths at full size:
 * entry B, ``assemble_element_elliptic_matrices_pairs(kernel="auto")``
   (the JAX package's ``pallas="auto"``) on 970,299 hex8 cells (res 99),
   through the element-stiffness kernel, which is also held against its
-  plain version for linear elasticity, Laplace and a ragged element count.
+  plain version for linear elasticity, Laplace and a ragged element count;
+* path C, the matrix-free banded Neo-Hookean solve: C1 holds the banded
+  gather and scatter and the two fused element sweeps against their plain
+  versions at the res-149 padded layout (3,354,624 element rows) and on a
+  res-7 box and an RCM-reordered res-11 box, the gather also bitwise
+  against ``u[cells[perm]]``; C2 runs
+  ``HyperelasticModel(banded=True, fused_kernels=True).solve_mixed()`` on
+  path A's problem (10,125,000 dofs) with Jacobi from
+  ``hessian_diagonal``, checked by the independent f64 residual (<= 1e-10)
+  and against path A's solution; C3 RCM-reorders bench.py's unstructured
+  box (res 63, 786,432 dofs), runs the f32 ``solve()`` on the fused model
+  (||F|| / ||F0|| <= 1e-1) and holds one Hessian action of the unfused
+  banded model (``torch.func.jvp`` through the gather/scatter pair) against
+  the fused one (rel <= 5e-4).
 
 Every kernel check is ``max |kernel - plain| / max |plain| <= 1e-5`` (f32
 roundoff: FMA contraction and summation order) with two launches bitwise
 equal.  Each path runs with every launch counter set to 0 just before it
 and read just after, and fails if its kernels were not launched.  Every
-phase raises on failure.  The second-to-last line of standard output is
-the per-kernel JSON record, the last line the device record.  Without a
-CUDA device, or outside a checkout, it exits non-zero and prints no result.
+phase raises on failure.  Each kernel's record carries its time, its
+plain version's, one PyTorch library call's where one computes the same
+function (else null), and its bound: the larger of its bytes over 3.35
+TB/s and its f32 operations over 67 TFLOP/s (H100 SXM peaks), from this
+run's inputs.  The card's ``nvidia-smi`` name and power limit are
+printed on a line of their own; the second-to-last line of standard
+output is the per-kernel JSON record, the last line the device record.
+Without a CUDA device, or outside a checkout, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -55,11 +74,37 @@ BODY_A = (0.0, 0.0, -4.0)
 # entry B: the element-stiffness kernel at 970,299 hex8 cells
 RES_B = 99
 RAGGED_B = 11  # 1,331 cells: not a multiple of the 64-element block
+# path C: the matrix-free banded solve on path A's problem, kernel checks
+# also on a res-7 box and an RCM-reordered res-11 box (two owner blocks of
+# 1,024 nodes each), C3 at bench.py's unstructured size
+RAGGED_C = [(7, False), (11, True)]
+RES_C3 = 63
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per element (cell) and quadrature point, counted from the
+# kernels' source (a multiply and an add are two, a division, reciprocal,
+# comparison or log1p one): geometry J 135 + J^-1 and det 42 + basis
+# gradients 120 + weight 1 = 298; grad u 135; Neo-Hookean kinematics (F,
+# gamma, log1p, adjugate, det, F^-T, alpha) 78; stress P 27; tangent
+# (tr(F^-1 dF) 18, F^-T dF^T 45, dF^-T 54, dP 54) 171; contraction 168.
+# The structured stencils read a constant gradient table: grad u 135,
+# kinematics 62, alpha 2, 1/det 1, then P 36 (residual) or dP 152 plus a
+# second gradient 135 (Hessian action), contraction 168.
+OPS_PER_QP = {
+    "em_vector_sweep": 298 + 135 + 78 + 27 + 168,
+    "em_vector_tangent_sweep": 298 + 2 * 135 + 78 + 171 + 168,
+    "neo_hookean_residual": 135 + 62 + 2 + 1 + 36 + 168,
+    "neo_hookean_hvp": 2 * 135 + 62 + 2 + 1 + 152 + 168,
+}
 
 SOURCES = {
     "structured_stencil": "fenris_tpu_torch/csrc/structured_stencil.cu",
     "dia_sweep": "fenris_tpu_torch/csrc/dia_sweep.cu",
     "stiffness_pairs": "fenris_tpu_torch/csrc/stiffness_pairs.cu",
+    "banded": "fenris_tpu_torch/csrc/banded.cu",
+    "em_sweep": "fenris_tpu_torch/csrc/em_sweep.cu",
 }
 
 
@@ -106,6 +151,28 @@ def compare(name, shape_txt, got, again, ref):
     check(rel <= KERNEL_RTOL, f"{name} {shape_txt}: kernel vs plain rel {rel:.3e} > {KERNEL_RTOL:g}")
     check(same, f"{name} {shape_txt}: two launches on one input differ")
     return abs_err
+
+
+def set_bound(k, nbytes, ops):
+    """The least time the card could take: bytes over HBM bandwidth or f32 operations over peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    k["bound_ms"], k["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return f"bound {k['bound_ms']:.4f} ms by {k['bound_by']} ({nbytes / 1e9:.3f} GB, {ops / 1e9:.3f} GFLOP)"
+
+
+def timed(fn, times):
+    """``fn`` that appends its synchronised wall time to ``times``."""
+    import torch
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    return run
 
 
 def reset_counts(kernels):
@@ -188,7 +255,10 @@ def structured_phases(kernels, dev, smi):
         k["ms"], k["plain_ms"], txt = in_turns(
             lambda: k["fn"](*args, gp, w, MU, LAM), lambda: k["plain"](*args, gp, w, MU, LAM)
         )
-        log(f"time {name} cells={FULL}: {txt} ({smi})")
+        # inputs read and the output written once; no PyTorch call computes the stencils
+        bound_txt = set_bound(k, (k["nargs"] + 1) * u.numel() * 4, OPS_PER_QP[name] * 8 * FULL[0] * FULL[1] * FULL[2])
+        k["library_ms"] = None
+        log(f"time {name} cells={FULL}: {txt}; {bound_txt} ({smi})")
     del u, v
     torch.cuda.synchronize()
 
@@ -300,6 +370,35 @@ def sweep_compare(m, shape_txt, dev, seed=0):
     return err, x2
 
 
+def csr_library_ms(m, x2, ref, smi):
+    """Time of cuSPARSE's CSR product (``torch.sparse_csr_tensor @ x``) on the same operator.
+
+    The yardstick only: the port never calls it.  Every band entry becomes a
+    CSR entry (D*s per row, zero where the shifted column leaves [0, N)).
+    """
+    import torch
+
+    D, s, N = len(m.offsets), m.solution_dim, m.num_nodes
+    dev = x2.device
+    cols_n = torch.arange(N, device=dev)[None, :] + torch.tensor(m.offsets, device=dev)[:, None]  # [D, N]
+    inside = (cols_n >= 0) & (cols_n < N)
+    vals = (m.bands.reshape(D, s, s, N) * inside[:, None, None, :]).permute(1, 3, 0, 2).reshape(-1)  # (i, n, d, j)
+    cols = torch.arange(s, device=dev)[None, None, :] * N + cols_n.clamp(0, N - 1).T[:, :, None]  # [N, D, s]
+    cols = cols[None].expand(s, N, D, s).reshape(-1)
+    crow = torch.arange(s * N + 1, device=dev) * (D * s)
+    A = torch.sparse_csr_tensor(crow, cols, vals, size=(s * N, s * N))
+    del vals, cols, cols_n, inside
+    x = x2.reshape(-1, 1)
+    y = (A @ x).reshape(s, N)
+    torch.cuda.synchronize()
+    rel = float((y.double() - ref.double()).abs().max() / ref.double().abs().max())
+    ms = min(event_ms(lambda: A @ x, reps=10), event_ms(lambda: A @ x, reps=10))
+    log(f"library dia_sweep: cuSPARSE CSR product, nnz {A.values().numel()}: {ms:.4f} ms, rel vs kernel {rel:.3e} ({smi})")
+    del A, y, ref
+    free_memory()
+    return ms
+
+
 def path_a_setup(dev, smi):
     import torch
 
@@ -347,7 +446,9 @@ def band_sweep_phases(k, model, dev, smi):
         lambda: ds.dia_sweep(m.bands, m.offsets, x2), lambda: ds.dia_sweep_plain(m.bands, m.offsets, x2)
     )
     gbps = m.bands.numel() * 4 / (k["ms"] * 1e-3) / 1e9
-    log(f"time dia_sweep res={RES_A}: {txt}; bands streamed at {gbps:.1f} GB/s ({smi})")
+    bound_txt = set_bound(k, (m.bands.numel() + 2 * x2.numel()) * 4, 2 * m.bands.numel())
+    log(f"time dia_sweep res={RES_A}: {txt}; bands streamed at {gbps:.1f} GB/s; {bound_txt} ({smi})")
+    k["library_ms"] = csr_library_ms(m, x2, ds.dia_sweep(m.bands, m.offsets, x2), smi)
 
     # determinism: bands and residuals bitwise repeatable
     again = model.assemble_hessian_block_dia(u)
@@ -379,23 +480,12 @@ def band_sweep_phases(k, model, dev, smi):
 
 
 def path_a_solve(kernels, model, plan_s, dev, smi):
+    """Path A's solve and its independent f64 check; returns the f64 solution."""
     import torch
 
     from fenris_tpu_torch.optimize import NEWTON_CONVERGED
 
     asm_times, inner_times = [], []
-
-    def timed(fn, times):
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            return out
-
-        return run
-
     # instance attributes shadow the methods for this solve only
     model.assemble_hessian_block_dia = timed(model.assemble_hessian_block_dia, asm_times)
     model._assembled_cg = timed(model._assembled_cg, inner_times)
@@ -448,7 +538,243 @@ def path_a_solve(kernels, model, plan_s, dev, smi):
     log(f"path A independent f64 residual: {true_r:.6e} (r0 {r0:.6e}, rel {true_r / r0:.6e}, "
         f"tip uz min {uz_min:.6e}; {time.perf_counter() - t0:.3f} s)")
     check(true_r / r0 <= 1e-10, f"path A: independent relative residual {true_r / r0:.3e} > 1e-10")
+    del fresh
+    free_memory()
+    return x64
+
+
+# -- path C: the matrix-free banded solve -------------------------------------------------
+
+
+def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
+    """The four banded-path kernels against their plain versions on one fused model's layout.
+
+    With ``smi`` also times them (kernel, plain, library call) and sets
+    their bounds, from these inputs.
+    """
+    import torch
+
+    import fenris_tpu_torch.ops.banded as bd
+    import fenris_tpu_torch.ops.em_sweep as es
+    from fenris_tpu_torch.assembly.local_em import (
+        assemble_element_elliptic_tangent_vectors_em,
+        assemble_element_elliptic_vectors_em,
+    )
+
+    plan, X = model._plan, model._X_band
+    op, params, tab = model.operator, model.params, model.tab
+    N, n, pe = plan.num_nodes, plan.n, plan.padded_elements
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((N, 3), generator=g, device=dev)
+    valid = plan.valid_rows > 0
+    f_el = torch.randn((pe, n, 3), generator=g, device=dev) * valid.reshape(pe, n, 1)
+    u = displacement(model, seed).reshape(N, 3)
+    u_em = bd.banded_gather(plan, u).permute(1, 2, 0)  # the main path's layout: element-major rows
+    v_em = bd.banded_gather(plan, torch.randn((N, 3), generator=g, device=dev)).permute(1, 2, 0)
+    errs = {}
+
+    # gather: bitwise equal to the plain version and to u[cells[perm]] on valid rows
+    got, again, ref = bd.banded_gather(plan, w), bd.banded_gather(plan, w), bd.banded_gather_plain(plan, w)
+    errs["banded_gather"] = compare("banded_gather", shape_txt, got, again, ref)
+    cells_perm = torch.as_tensor(model.mesh.cells[plan.perm].reshape(-1), dtype=torch.int64, device=dev)
+    exact = bool(torch.equal(got, ref)) and bool(torch.equal(got.reshape(-1, 3)[valid], w[cells_perm]))
+    log(f"banded_gather {shape_txt}: bitwise equal to the plain version and to u[cells[perm]]: {exact}")
+    check(exact, f"banded_gather {shape_txt}: not bitwise equal to u[cells[perm]]")
+    del got, again, ref, cells_perm
+    got, again, ref = bd.banded_scatter(plan, f_el), bd.banded_scatter(plan, f_el), bd.banded_scatter_plain(plan, f_el)
+    errs["banded_scatter"] = compare("banded_scatter", shape_txt, got, again, ref)
+    log(f"banded_scatter {shape_txt}: bitwise equal to the plain version (same row order): {bool(torch.equal(got, ref))}")
+    del got, again, ref
+    # the main path's element-major rows; on the small shapes contiguous element-minor arrays too
+    layouts = [("element-major rows", u_em, v_em)]
+    if smi is None:
+        layouts.append(("element-minor", u_em.contiguous(), v_em.contiguous()))
+    for layout, ue, ve in layouts:
+        txt = f"{shape_txt} {layout}"
+        errs["em_vector_sweep"] = compare(
+            "em_vector_sweep", txt, es.em_vector_sweep(X, ue, op, params, tab),
+            es.em_vector_sweep(X, ue, op, params, tab), assemble_element_elliptic_vectors_em(X, ue, op, params, tab))
+        errs["em_vector_tangent_sweep"] = compare(
+            "em_vector_tangent_sweep", txt, es.em_vector_tangent_sweep(X, ue, ve, op, params, tab),
+            es.em_vector_tangent_sweep(X, ue, ve, op, params, tab),
+            assemble_element_elliptic_tangent_vectors_em(X, ue, ve, op, params, tab))
+    free_memory()
+    if smi is None:
+        return
+    for name, err in errs.items():
+        kernels[name]["max_abs_err"] = err
+    q = tab.num_points
+    idx = plan.nodes_padded.long()
+    runs = {
+        "banded_gather": (lambda: bd.banded_gather(plan, w), lambda: bd.banded_gather_plain(plan, w),
+                          lambda: torch.index_select(w, 0, idx),
+                          (pe * n * 3 + pe * n + N * 3) * 4, 0),
+        "banded_scatter": (lambda: bd.banded_scatter(plan, f_el), lambda: bd.banded_scatter_plain(plan, f_el),
+                           lambda: torch.zeros((N, 3), device=dev).index_add_(0, idx, f_el.reshape(-1, 3)),
+                           (pe * n * 3 + plan.row_ptr.numel() + plan.node_rows.numel() + N * 3) * 4,
+                           plan.node_rows.numel() * 3),
+        "em_vector_sweep": (lambda: es.em_vector_sweep(X, u_em, op, params, tab),
+                            lambda: assemble_element_elliptic_vectors_em(X, u_em, op, params, tab), None,
+                            (X.numel() + 2 * u_em.numel()) * 4, OPS_PER_QP["em_vector_sweep"] * q * pe),
+        "em_vector_tangent_sweep": (lambda: es.em_vector_tangent_sweep(X, u_em, v_em, op, params, tab),
+                                    lambda: assemble_element_elliptic_tangent_vectors_em(X, u_em, v_em, op, params,
+                                                                                          tab), None,
+                                    (X.numel() + 3 * u_em.numel()) * 4,
+                                    OPS_PER_QP["em_vector_tangent_sweep"] * q * pe),
+    }
+    for name, (run_k, run_p, run_lib, nbytes, ops) in runs.items():
+        k = kernels[name]
+        reps = 20 if name.startswith("banded") else 5
+        k["ms"], k["plain_ms"], txt = in_turns(run_k, run_p, reps=reps)
+        k["library_ms"] = None
+        if run_lib is not None:
+            k["library_ms"] = min(event_ms(run_lib, reps), event_ms(run_lib, reps))
+            txt += f", library {k['library_ms']:.4f} ms"
+        log(f"time {name} {shape_txt}: {txt}; {set_bound(k, nbytes, ops)} ({smi})")
+        free_memory()
+
+
+def path_c_kernels(kernels, model, dev, smi):
+    """C1: the kernels at the res-149 layout (timed), then on the ragged boxes."""
+    import torch
+
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+
+    plan = model._plan
+    banded_kernel_checks(kernels, model, f"res={RES_A} E_pad={plan.padded_elements} blocks={plan.k_blocks}", dev, 11,
+                         smi)
+    for res, rcm in RAGGED_C:
+        mesh = create_unit_box_uniform_hex_mesh_3d(res)
+        if rcm:
+            mesh, _ = reorder_mesh(mesh)
+        small = assembled_model(res, torch.float32, dev, None, mesh=mesh, banded=True, fused_kernels=True,
+                                banded_r_nodes=1024)
+        p = small._plan
+        banded_kernel_checks(kernels, small, f"res={res}{' rcm' if rcm else ''} E={small.mesh.num_cells} "
+                             f"E_pad={p.padded_elements} blocks={p.k_blocks}", dev, 12 + res)
+
+
+def path_c_solve(kernels, model, plan_s, x_a, dev, smi):
+    """C2: solve_mixed on the fused banded model at res 149; the independent f64 check."""
+    import torch
+
+    from fenris_tpu_torch.optimize import NEWTON_CONVERGED
+
+    inner_times, diag_times = [], []
+    # instance attributes shadow the methods for this solve only
+    model._matrix_free_cg = timed(model._matrix_free_cg, inner_times)
+    model.hessian_diagonal = timed(model.hessian_diagonal, diag_times)
+    history, cg_iters = [], []
+
+    def record(k, fn, cg):
+        history.append(fn)
+        if cg is not None:
+            cg_iters.append(cg.num_iterations)
+        cg_txt = "" if cg is None else (f" cg_iters={cg.num_iterations} cg_status={cg.status} "
+                                        f"diag={diag_times[-1]:.3f} s inner={inner_times[-1]:.3f} s")
+        log(f"  newton it {k}: |F|={fn:.6e}{cg_txt}")
+
+    path = ("banded_gather", "banded_scatter", "em_vector_tangent_sweep")
+    log(f"path C2: solve_mixed(banded=True, fused_kernels=True) res={RES_A} dofs={model.space.num_dofs}:")
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = model.solve_mixed(tolerance=1e-10, cg_rel_tolerance=1e-4, max_newton_iterations=30, callback=record)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: kernels[name]["fn"].launches for name in path}
+    for name in path:
+        kernels[name]["launches"] = launches[name]
+    del model._matrix_free_cg, model.hessian_diagonal
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t_inner, t_diag, iters = sum(inner_times), sum(diag_times), max(sum(cg_iters), 1)
+    log(f"path C2: status={res.status} newton_iters={res.iterations} cg_iters={cg_iters} wall={wall:.3f} s "
+        f"(plan {plan_s:.3f} s before it) |F|/|F0|={res.residual_norm / history[0]:.6e} launches={launches} "
+        f"em_vector_sweep launches={kernels['em_vector_sweep']['fn'].launches} peak memory {peak:.2f} GB ({smi})")
+    log(f"path C2 breakdown: Jacobi diagonals {t_diag:.3f} s, CG {t_inner - t_diag:.3f} s "
+        f"({(t_inner - t_diag) / iters * 1e3:.3f} ms per iteration), "
+        f"f64 residuals and Newton {wall - t_inner:.3f} s of {wall:.3f} s wall")
+    check(res.status == NEWTON_CONVERGED, f"path C2: status {res.status}")
+    check(bool(torch.isfinite(res.x).all()), "path C2: non-finite displacement")
+    for name in path:
+        check(launches[name] > 0, f"path C2: kernel {name} was not launched")
+    check(launches["em_vector_tangent_sweep"] >= sum(cg_iters),
+          f"path C2: {launches['em_vector_tangent_sweep']} tangent sweeps for {sum(cg_iters)} CG iterations")
+
+    x64 = res.x.detach().double()
+    del res
+    free_memory()
+    t0 = time.perf_counter()
+    fresh = assembled_model(RES_A, torch.float64, dev, 8192, mesh=model.mesh)
+    true_r = float(torch.linalg.vector_norm(fresh.residual(x64)))
+    r0 = float(torch.linalg.vector_norm(fresh.residual(torch.zeros_like(x64))))
+    diff = float(torch.linalg.vector_norm(x64 - x_a) / torch.linalg.vector_norm(x_a))
+    log(f"path C2 independent f64 residual: {true_r:.6e} (r0 {r0:.6e}, rel {true_r / r0:.6e}); "
+        f"relative difference from path A's solution {diff:.6e}; {time.perf_counter() - t0:.3f} s")
+    check(true_r / r0 <= 1e-10, f"path C2: independent relative residual {true_r / r0:.3e} > 1e-10")
     del fresh, x64
+    free_memory()
+
+
+def path_c3(kernels, dev, smi):
+    """C3: the f32 solve() on the RCM-reordered res-63 box; the unfused Hessian action."""
+    import torch
+
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+
+    t0 = time.perf_counter()
+    mesh, _ = reorder_mesh(create_unit_box_uniform_hex_mesh_3d(RES_C3))
+    t_reorder = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = assembled_model(RES_C3, torch.float32, dev, None, mesh=mesh, banded=True, fused_kernels=True)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    plan = model._plan
+    log(f"path C3 res={RES_C3}: {mesh.num_cells} hex8, {model.space.num_dofs} dofs; RCM {t_reorder:.3f} s; "
+        f"model with banded plan {t_model:.3f} s (blocks={plan.k_blocks}, E_pad={plan.padded_elements}, "
+        f"window {plan.wa} x 128 nodes)")
+    history = []
+
+    def record(k, fn, cg):
+        history.append(fn)
+        cg_txt = "" if cg is None else f" cg_iters={cg.num_iterations} cg_status={cg.status}"
+        log(f"  newton it {k}: |F|={fn:.6e}{cg_txt}")
+
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = model.solve(max_newton_iterations=4, cg_rel_tolerance=1e-4, callback=record)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k9 = kernels["em_vector_sweep"]
+    k9["launches"] = k9["fn"].launches
+    ratio = res.residual_norm / history[0]
+    log(f"path C3 solve(): status={res.status} newton_iters={res.iterations} wall={wall:.3f} s "
+        f"|F|/|F0|={ratio:.6e} em_vector_sweep launches={k9['launches']} ({smi})")
+    check(tuple(res.x.shape) == (model.space.num_dofs,) and bool(torch.isfinite(res.x).all()),
+          "path C3: wrong or non-finite displacement")
+    check(ratio <= 1e-1, f"path C3: |F|/|F0| = {ratio:.3e} > 1e-1")
+    check(k9["launches"] > 0, "path C3: the vector-sweep kernel was not launched")
+
+    # the unfused banded route: torch.func.jvp through the gather/scatter pair
+    unfused = assembled_model(RES_C3, torch.float32, dev, None, mesh=mesh, banded=True)
+    g = torch.Generator(device=dev).manual_seed(21)
+    v = torch.randn(model.space.num_dofs, generator=g, device=dev)
+    hv_fused = model.hessian_vector_product(res.x, v)
+    before = kernels["banded_gather"]["fn"].launches
+    hv_jvp = unfused.hessian_vector_product(res.x, v)
+    torch.cuda.synchronize()
+    rel = float((hv_jvp - hv_fused).abs().max() / hv_fused.abs().max())
+    gathers = kernels["banded_gather"]["fn"].launches - before
+    log(f"path C3 unfused Hessian action (torch.func.jvp, {gathers} gather launches) vs fused: rel {rel:.6e} "
+        f"(limit 5e-4)")
+    check(gathers > 0, "path C3: the unfused Hessian action did not go through the gather kernel")
+    check(rel <= 5e-4, f"path C3: unfused vs fused Hessian action rel {rel:.3e} > 5e-4")
+    del model, unfused, res
     free_memory()
 
 
@@ -496,6 +822,12 @@ def stiffness_phases(kernels, dev, smi):
         log(f"time stiffness_pairs {name} res={RES_B}: {txt}; {E / (ms * 1e-3) / 1e6:.1f} M elements/s ({smi})")
         if name == "linear":
             k["max_abs_err"], k["ms"], k["plain_ms"] = err, ms, plain_ms
+            # X read and the pairs written once; operations of the projector
+            # products, 2 n^2 (d^2 q) per element and unique (i <= j) pair
+            q = tab.num_points
+            log(f"stiffness_pairs linear res={RES_B}: "
+                + set_bound(k, (X.numel() + 9 * 64 * E) * 4, 2 * 64 * 9 * q * 6 * E))
+            k["library_ms"] = None
         free_memory()
 
     # entry B: the public element-stiffness entry point with kernel="auto"
@@ -523,10 +855,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures the port on a GPU")
     sys.path.insert(0, str(ROOT))
+    import fenris_tpu_torch.ops.banded as bd
     import fenris_tpu_torch.ops.dia_sweep as ds
+    import fenris_tpu_torch.ops.em_sweep as es
     import fenris_tpu_torch.ops.stiffness_pairs as sp
     import fenris_tpu_torch.ops.structured_stencil as ss
     from fenris_tpu_torch.ops._build import load_library
+    from fenris_tpu_torch.ops.banded import make_banded_plan
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
@@ -536,6 +871,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    log(smi)
     log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     load_library()
@@ -558,6 +894,19 @@ def main() -> int:
             fn=sp.stiffness_pairs, path="B", source=SOURCES["stiffness_pairs"],
             replaces="fenris_tpu/ops/stiffness_kernel.py:162",
         ),
+        "banded_gather": dict(
+            fn=bd.banded_gather, path="C", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:285",
+        ),
+        "banded_scatter": dict(
+            fn=bd.banded_scatter, path="C", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:346",
+        ),
+        "em_vector_tangent_sweep": dict(
+            fn=es.em_vector_tangent_sweep, path="C", source=SOURCES["em_sweep"],
+            replaces="fenris_tpu/ops/em_sweep.py:251",
+        ),
+        "em_vector_sweep": dict(
+            fn=es.em_vector_sweep, path="C", source=SOURCES["em_sweep"], replaces="fenris_tpu/ops/em_sweep.py:233",
+        ),
     }
     phases = [
         ("structured path", lambda: structured_phases(kernels, dev, smi)),
@@ -572,8 +921,33 @@ def main() -> int:
     band_sweep_phases(kernels["dia_sweep"], model, dev, smi)
     log(f"phase band sweep and determinism: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    path_a_solve(kernels, model, plan_s, dev, smi)
+    x_a = path_a_solve(kernels, model, plan_s, dev, smi)
     log(f"phase path A: {time.perf_counter() - t0:.3f} s")
+    del model
+    free_memory()
+
+    t0 = time.perf_counter()
+    model = assembled_model(RES_A, torch.float32, dev, None, banded=True, fused_kernels=True)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    plan = model._plan
+    t0 = time.perf_counter()
+    make_banded_plan(model.mesh.cells, plan.num_nodes, 3, r_nodes=model.banded_r_nodes, device=dev)
+    torch.cuda.synchronize()
+    log(f"path C model res={RES_A}: set-up {plan_s:.3f} s; the banded plan alone, built again, "
+        f"{time.perf_counter() - t0:.3f} s (blocks={plan.k_blocks}, E_pad={plan.padded_elements}, "
+        f"rows/block={plan.rows}, window {plan.wa} x 128 nodes, chunk {model.chunk_size})")
+    t0 = time.perf_counter()
+    path_c_kernels(kernels, model, dev, smi)
+    log(f"phase path C1: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    path_c_solve(kernels, model, plan_s, x_a, dev, smi)
+    log(f"phase path C2: {time.perf_counter() - t0:.3f} s")
+    del model, x_a
+    free_memory()
+    t0 = time.perf_counter()
+    path_c3(kernels, dev, smi)
+    log(f"phase path C3: {time.perf_counter() - t0:.3f} s")
     log(f"total: {time.perf_counter() - t_start:.3f} s ({smi})")
 
     record_line = {
@@ -587,6 +961,9 @@ def main() -> int:
                 "max_abs_err": k["max_abs_err"],
                 "ms": k["ms"],
                 "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"],
+                "library_ms": k["library_ms"],
             }
             for name, k in kernels.items()
         ]

@@ -1,10 +1,12 @@
 """fenris_tpu_torch — the PyTorch/CUDA port of fenris_tpu.
 
-This package holds the structured Neo-Hookean Newton–Krylov slice: hex8
-tabulation, materials, the structured stencil model with its two
-hand-written CUDA kernels (residual and Hessian action), CG, Newton and
-the structured multigrid preconditioner.  It imports ``torch`` and numpy
-only; the JAX package ``fenris_tpu`` is its reference.
+This package holds three slices of the port: the structured Neo-Hookean
+Newton–Krylov solve (stencil kernels, structured multigrid), the assembled
+block-DIA solve on unstructured hex8 meshes (band sweep and stiffness
+kernels) and the matrix-free banded solve (banded gather/scatter and
+fused element-sweep kernels), with CG and Newton.  Entry points run on
+the card unless the caller passes ``device="cpu"``.  It imports ``torch``
+and numpy only; the JAX package ``fenris_tpu`` is its reference.
 """
 
 from . import config  # noqa: F401  (turns TF32 off)

@@ -8,9 +8,9 @@ precision regimes:
 * **f32** — the speed regime on the GPU, where the structured
   Neo-Hookean stencil kernels run.
 
-Library code never picks a dtype or a device silently: callers pass both,
-and :func:`resolve_device` refuses a CUDA request on a machine without a
-card instead of falling back to the CPU.
+Entry points default to the card (``device="cuda"``) and f32; CPU callers
+pass ``device="cpu"``.  :func:`resolve_device` refuses a CUDA request on a
+machine without a card instead of falling back to the CPU.
 """
 
 from __future__ import annotations

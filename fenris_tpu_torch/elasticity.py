@@ -1,19 +1,27 @@
-"""Unstructured hyperelasticity: residual, Hessian and the assembled Newton–Krylov solve.
+"""Unstructured hyperelasticity: residual, Hessian and the Newton–Krylov solves.
 
-Counterpart of ``HyperelasticModel`` in ``fenris_tpu/elasticity.py`` with
-``banded=False`` and ``fused_kernels=False``, and of its assembled solve
-paths: each Newton step assembles the tangent stiffness into the
-block-DIA layout (:mod:`.sparse.block_dia`) and CG runs on the band sweep
-(:mod:`.sparse.dia_kernel`; on a CUDA f32 model the hand-written kernel),
-preconditioned by Jacobi read off the zero band.  Dirichlet conditions
-are dof masking, as in the JAX package: constrained residual entries are
-zero and the Hessian action is ``mask ∘ H ∘ mask + (I - mask)``.
+Counterpart of ``HyperelasticModel`` in ``fenris_tpu/elasticity.py``.  Two
+inner solvers:
 
-Element sweeps run in chunks of ``chunk_size`` elements; every global sum
-goes through the layered scatter of :mod:`.assembly.global_`, so residual
-and bands are bitwise reproducible on the card.  The banded and fused
-element paths and the matrix-free solves are not ported yet (slice 3 of
-``ROADMAP.md``).
+* **matrix-free** (the default): CG on the Hessian action, preconditioned
+  by Jacobi from :meth:`HyperelasticModel.hessian_diagonal`.  With
+  ``banded=True`` the element data moves through the banded gather and
+  scatter (:mod:`.ops.banded`) in the padded row layout; with
+  ``fused_kernels=True`` as well, the element math of the internal forces
+  and of the Hessian action runs in the fused element-sweep kernels
+  (:mod:`.ops.em_sweep`) on a CUDA f32 model, and in their plain versions
+  on the CPU;
+* **assembled** (``assembled=True``): each Newton step assembles the
+  tangent stiffness into the block-DIA layout (:mod:`.sparse.block_dia`)
+  and CG runs on the band sweep (:mod:`.sparse.dia_kernel`), preconditioned
+  by Jacobi read off the zero band.
+
+Dirichlet conditions are dof masking, as in the JAX package: constrained
+residual entries are zero and the Hessian action is ``mask ∘ H ∘ mask +
+(I - mask)``.  Element sweeps run in chunks of ``chunk_size`` elements
+(on the banded path, of whole blocks); every global sum is taken in a
+fixed order (the layered scatter of :mod:`.assembly.global_` or the banded
+scatter), so results are bitwise reproducible on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch
 
 from .assembly.global_ import scatter_add_rows, scatter_plan
 from .assembly.local import (
+    _check_scalar_params,
     assemble_element_elliptic_matrices,
     assemble_element_elliptic_matrices_pairs,
     assemble_element_elliptic_vectors,
@@ -34,9 +43,17 @@ from .assembly.local import (
     compute_element_elliptic_energy,
     tabulate,
 )
+from .assembly.local_em import (
+    assemble_element_elliptic_tangent_vectors_em,
+    assemble_element_elliptic_vectors_em,
+    compute_element_elliptic_energy_em,
+    elliptic_matrix_diagonal_em,
+)
 from .config import DEFAULT_DTYPE, resolve_device
 from .fem import FemSpace
 from .mesh import Mesh
+from .ops import em_sweep
+from .ops.banded import gather, make_banded_plan, scatter_add
 from .optimize import NewtonResult, mixed_precision_newton, newton_line_search
 from .quadrature import canonical_stiffness
 from .solid import HyperelasticMaterial, MaterialEllipticOperator
@@ -60,8 +77,6 @@ __all__ = ["HyperelasticModel"]
 _STREAM_EXPAND_BUDGET_BYTES = 6e8
 _STREAM_CHUNK_FLOOR = 8192
 
-_SLICE3 = "is not ported yet (slice 3 of ROADMAP.md: banded, fused and matrix-free paths)"
-
 
 @dataclass(eq=False)
 class HyperelasticModel:
@@ -76,9 +91,18 @@ class HyperelasticModel:
         body_force: constant ``[d]`` body force, a pointwise torch callable
             ``f(x [d], params) -> [d]`` (called with ``params=None``, as the
             JAX package calls it), or None.
-        dtype/device: of every tensor the model holds and returns.
+        dtype/device: of every tensor the model holds and returns (the
+            default device is the card; CPU callers pass ``device="cpu"``).
         chunk_size: elements per sweep chunk (None: automatic, as in JAX).
-        banded/fused_kernels: the JAX package's TPU element paths; not ported.
+        banded: move element data through the banded gather/scatter
+            (:mod:`.ops.banded`); needs a bandwidth-reduced node numbering
+            (:func:`.mesh.reorder.reorder_mesh`).
+        banded_r_nodes: owned node range per banded block (a multiple of 1024).
+        fused_kernels: run the element math of the internal forces and the
+            Hessian action in the fused element-sweep kernels
+            (:mod:`.ops.em_sweep`); needs ``banded=True``.  A CUDA model whose
+            material, parameters or dtype the kernels do not take raises; on
+            the CPU the kernels' plain versions run.
     """
 
     mesh: Mesh
@@ -88,19 +112,27 @@ class HyperelasticModel:
     dirichlet_nodes: Any = None
     body_force: Any = None
     dtype: torch.dtype = DEFAULT_DTYPE
-    device: Any = "cpu"
+    device: Any = "cuda"
     chunk_size: Optional[int] = None
     banded: bool = False
+    banded_r_nodes: int = 4096
     fused_kernels: bool = False
 
     def __post_init__(self):
-        if self.banded or self.fused_kernels:
-            raise NotImplementedError(f"banded=True / fused_kernels=True {_SLICE3}")
         self.device = resolve_device(self.device)
+        _check_scalar_params(self.params)
+        if self.fused_kernels and not self.banded:
+            raise ValueError("fused_kernels=True runs the element sweeps of the banded path: pass banded=True")
         d = self.mesh.dim
         self.operator = MaterialEllipticOperator(self.material, dim=d)
         rule = self.rule if self.rule is not None else canonical_stiffness(self.mesh.element.name)
         self.tab = tabulate(self.mesh.element, rule)
+        if (self.fused_kernels and self.device.type == "cuda"
+                and not em_sweep.supports(self.operator, self.params, self.tab, self.dtype)):
+            raise NotImplementedError(
+                "fused_kernels=True on the card needs an f32 hex8 Neo-Hookean model with scalar Lamé "
+                "parameters (what the element-sweep kernels take)"
+            )
         if self.chunk_size is None:
             # keep the (element, qp, d^4)-sized intermediates ~1 GB class
             budget = 2**28
@@ -116,11 +148,75 @@ class HyperelasticModel:
                 mask[nd * d + i] = False
         self.free_mask = torch.as_tensor(mask, device=self.device)
         self._cells = torch.as_tensor(self.mesh.cells, dtype=torch.int64, device=self.device)
-        # element rows e-major -> node rows, in collision-free layers
-        self._node_scatter = scatter_plan(self._cells.reshape(-1))
+        self._plan = None
+        if self.banded:
+            self._setup_banded()
+        else:
+            # element rows e-major -> node rows, in collision-free layers
+            self._node_scatter = scatter_plan(self._cells.reshape(-1))
         self._dia_plans = {}
         self._dia_expand_plans = {}
         self._f_ext = self._assemble_external_forces()
+
+    # -- banded path ----------------------------------------------------------------
+
+    def _setup_banded(self):
+        """The banded plan, padded geometry ``[m, d, E_pad]`` and chunking in whole blocks."""
+        N = self.mesh.num_vertices
+        r = min(self.banded_r_nodes, max(1024, -(-N // 1024) * 1024))
+        plan = make_banded_plan(self.mesh.cells, N, s=self.mesh.dim, r_nodes=r, device=self.device)
+        self._plan = plan
+        index = torch.as_tensor(plan.element_index, device=self.device)
+        self._X_band = self.space.X_geo[index].permute(1, 2, 0).contiguous()  # [m, d, E_pad]
+        self._valid_el = torch.as_tensor(plan.valid_elements(), dtype=self.dtype, device=self.device)
+        bp = plan.elements_per_block
+        g = max(1, self.chunk_size // bp) if self.chunk_size is not None else plan.k_blocks
+        self._band_chunk = min(g, plan.k_blocks) * bp
+
+    def _banded_sweep(self, assemble, *els):
+        """``assemble(X [m, d, c], *els [n, s, c]) -> [..., c]`` over chunks of whole blocks.
+
+        ``els`` are element-minor views of gathered rows; the chunk results
+        are joined along the element axis (``[..., E_pad]``).
+        """
+        pe = self._plan.padded_elements
+        X, c = self._X_band, self._band_chunk
+        parts = [
+            assemble(X[..., e0 : e0 + c], *(a[..., e0 : e0 + c] for a in els)) for e0 in range(0, pe, c)
+        ]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+
+    def _gather_em(self, u):
+        """Element-minor view ``[n, s, E_pad]`` of the banded gather of ``u``."""
+        return gather(self._plan, u.reshape(-1, self.mesh.dim)).permute(1, 2, 0)
+
+    def _scatter_em(self, f_em):
+        """Global dof vector from element-minor ``[n, s, E_pad]`` element vectors."""
+        return scatter_add(self._plan, f_em.permute(2, 0, 1).contiguous()).reshape(-1)
+
+    def _fused_active(self) -> bool:
+        """Whether the fused element-sweep kernels (or their plain versions) run the sweeps.
+
+        ``fused_kernels`` needs ``banded`` (checked at construction).
+        """
+        return self.fused_kernels
+
+    def _tangent_sweep(self, u, v):
+        """Banded Hessian action: gather u, v -> closed-form tangent sweep -> scatter.
+
+        The material's closed-form ``g_tangent`` in place of forward-mode AD
+        over the internal forces: no primal force computation.
+        """
+        u_em, v_em = self._gather_em(u), self._gather_em(v)
+        op, params, tab = self.operator, self.params, self.tab
+        if self._fused_active():
+            f = em_sweep.em_vector_tangent_sweep(self._X_band, u_em, v_em, op, params, tab)
+        else:
+            f = self._banded_sweep(
+                lambda X, ue, ve: assemble_element_elliptic_tangent_vectors_em(X, ue, ve, op, params, tab),
+                u_em, v_em,
+            )
+        return self._scatter_em(f)
 
     # -- element sweeps -----------------------------------------------------------
 
@@ -142,6 +238,16 @@ class HyperelasticModel:
 
     def _sweep_vector(self, u):
         """Internal forces: element vectors chunk by chunk, then one scatter."""
+        if self._plan is not None:
+            u_em = self._gather_em(u)
+            op, params, tab = self.operator, self.params, self.tab
+            if self._fused_active():
+                f = em_sweep.em_vector_sweep(self._X_band, u_em, op, params, tab)
+            else:
+                f = self._banded_sweep(
+                    lambda X, ue: assemble_element_elliptic_vectors_em(X, ue, op, params, tab), u_em
+                )
+            return self._scatter_em(f)
         X = self.space.X_geo
         f_el = torch.cat(
             [
@@ -154,7 +260,16 @@ class HyperelasticModel:
     def _assemble_external_forces(self):
         if self.body_force is None:
             return torch.zeros(self.space.num_dofs, dtype=self.dtype, device=self.device)
-        X, s = self.space.X_geo, self.mesh.dim
+        s = self.mesh.dim
+        if self._plan is not None:
+            n = self.mesh.element.num_nodes
+
+            def source(Xc):
+                b = assemble_element_source_vectors(Xc.permute(2, 0, 1), self.body_force, None, s, self.tab)
+                return b.to(self.dtype).reshape(-1, n, s).permute(1, 2, 0)
+
+            return self._scatter_em(self._banded_sweep(source))
+        X = self.space.X_geo
         b_el = torch.cat(
             [assemble_element_source_vectors(X[e0:e1], self.body_force, None, s, self.tab) for e0, e1 in self._chunks()]
         )
@@ -162,6 +277,12 @@ class HyperelasticModel:
 
     def energy(self, u):
         """Total potential energy E(u) = ∫ψ(∇u) − f_ext·u."""
+        if self._plan is not None:
+            op, params, tab = self.operator, self.params, self.tab
+            e = self._banded_sweep(
+                lambda X, ue: compute_element_elliptic_energy_em(X, ue, op, params, tab), self._gather_em(u)
+            )
+            return (e * self._valid_el).sum() - torch.dot(self._f_ext, u)
         X = self.space.X_geo
         e = sum(
             compute_element_elliptic_energy(X[e0:e1], self._local(u, e0, e1), self.operator, self.params, self.tab).sum()
@@ -177,10 +298,53 @@ class HyperelasticModel:
         return torch.where(self.free_mask, self.internal_forces(u) - self._f_ext, 0.0)
 
     def hessian_vector_product(self, u, v):
-        """Exact Hessian action (forward-mode AD of the internal forces), masked."""
+        """Exact Hessian action, masked.
+
+        The fused path takes the closed-form tangent sweep; every other
+        path forward-mode AD (``torch.func.jvp``) of the internal forces.
+        """
         vm = torch.where(self.free_mask, v, 0.0)
-        _, hv = torch.func.jvp(self.internal_forces, (u,), (vm,))
+        if self._fused_active():
+            hv = self._tangent_sweep(u, vm)
+        else:
+            _, hv = torch.func.jvp(self.internal_forces, (u,), (vm,))
         return torch.where(self.free_mask, hv, v)
+
+    def hessian_operator(self, u):
+        """Hessian action ``v -> H(u) v`` for repeated use at one ``u`` (the CG operator).
+
+        The fused path applies the closed-form tangent sweep; every other
+        path forward-mode AD per application, where the JAX package traces
+        a linearization once (``torch.func.linearize`` traces each
+        elementwise op through ``make_fx``, which costs more than the
+        primal sweeps it saves).
+        """
+        return lambda v: self.hessian_vector_product(u, v)
+
+    def hessian_diagonal(self, u):
+        """Assembled Hessian diagonal (the Jacobi preconditioner), 1 on constrained dofs."""
+        n, s = self.mesh.element.num_nodes, self.mesh.dim
+        op, params, tab = self.operator, self.params, self.tab
+        if self._plan is not None:
+            d = self._banded_sweep(
+                lambda X, ue: elliptic_matrix_diagonal_em(X, ue, op, params, tab), self._gather_em(u)
+            )
+            diag = self._scatter_em(d)
+        elif self.chunk_size is None:
+            diag = self._scatter_nodes(torch.diagonal(self.assemble_hessian_matrices(u), dim1=1, dim2=2))
+        else:
+            X = self.space.X_geo
+            d_em = torch.cat(
+                [
+                    elliptic_matrix_diagonal_em(
+                        X[e0:e1].permute(1, 2, 0), self._local(u, e0, e1).permute(1, 2, 0), op, params, tab
+                    )
+                    for e0, e1 in self._chunks()
+                ],
+                -1,
+            )
+            diag = self._scatter_nodes(d_em.permute(2, 0, 1).reshape(-1, n * s))
+        return torch.where(self.free_mask & (diag != 0.0), diag, 1.0)
 
     def assemble_hessian_matrices(self, u, chunk: Optional[int] = None):
         """Element Hessian blocks ``[E, n*s, n*s]``."""
@@ -325,6 +489,22 @@ class HyperelasticModel:
 
     # -- solve ----------------------------------------------------------------------
 
+    def _matrix_free_cg(self, u, f, preconditioner, rel_tolerance, max_iter):
+        """One matrix-free inner solve: Jacobi from :meth:`hessian_diagonal` unless given."""
+        hvp = self.hessian_operator(u)
+        if preconditioner is None:
+            inv_diag = 1.0 / self.hessian_diagonal(u)
+            preconditioner = lambda v: inv_diag * v  # noqa: E731
+        return conjugate_gradient(
+            hvp, f, preconditioner=preconditioner,
+            rel_tolerance=rel_tolerance, max_iter=max_iter, check_definiteness=False,
+        )
+
+    def _inner_cg(self, u, f, preconditioner, assembled, max_diagonals, min_fill, rel_tolerance, max_iter):
+        if assembled:
+            return self._assembled_cg(u, f, preconditioner, max_diagonals, min_fill, rel_tolerance, max_iter)
+        return self._matrix_free_cg(u, f, preconditioner, rel_tolerance, max_iter)
+
     def _assembled_cg(self, u, f, preconditioner, max_diagonals, min_fill, rel_tolerance, max_iter):
         """One assembled inner solve; component-major CG when Jacobi preconditions."""
         if preconditioner is None:
@@ -356,23 +536,24 @@ class HyperelasticModel:
         dia_min_fill: float = 0.0,
         callback: Optional[Callable] = None,
     ) -> NewtonResult:
-        """Newton–Krylov solve of ∇E(u) = 0 on the assembled operator.
+        """Newton–Krylov solve of ∇E(u) = 0.
 
-        Each Newton step assembles the tangent into block-DIA and runs CG on
-        it, component-major with Jacobi from the zero band (the default) or
-        node-major with a u-independent ``preconditioner`` callable.
-        ``callback(k, residual_norm, cg)`` as in
+        Inner solve: CG on the matrix-free Hessian action
+        (:meth:`hessian_operator`), with Jacobi from
+        :meth:`hessian_diagonal` or a u-independent ``preconditioner``
+        callable.  ``assembled=True`` assembles the tangent into block-DIA
+        each Newton step and runs CG on it, component-major with Jacobi
+        from the zero band (the default) or node-major with
+        ``preconditioner``.  ``callback(k, residual_norm, cg)`` as in
         :meth:`~.structured.StructuredHyperelasticModel.solve`.
         """
-        if not assembled:
-            raise NotImplementedError(f"the matrix-free solve (assembled=False) {_SLICE3}")
         if u0 is None:
             u0 = torch.zeros(self.space.num_dofs, dtype=self.dtype, device=self.device)
         last_cg = [None]
 
         def solve_jacobian(u, f):
-            last_cg[0] = self._assembled_cg(
-                u, f, preconditioner, dia_max_diagonals, dia_min_fill, cg_rel_tolerance, cg_max_iter
+            last_cg[0] = self._inner_cg(
+                u, f, preconditioner, assembled, dia_max_diagonals, dia_min_fill, cg_rel_tolerance, cg_max_iter
             )
             return last_cg[0].x
 
@@ -400,27 +581,26 @@ class HyperelasticModel:
         verbose: bool = False,
         callback: Optional[Callable] = None,
     ) -> NewtonResult:
-        """Mixed-precision Newton–Krylov: f64 outer residual, f32 inner assembled CG.
+        """Mixed-precision Newton–Krylov: f64 outer residual, f32 inner CG.
 
         The outer residual and line search run on an f64 twin of this
-        model, chunked at most 32768 elements; each inner solve assembles
-        and iterates on this (f32) model.  ``tolerance`` is relative to the
-        initial residual norm.  ``callback(k, residual_norm, cg)`` as in
-        :meth:`solve`.
+        model on the plain sweeps (``banded`` and ``fused_kernels`` off,
+        chunked at most 32768 elements); each inner solve runs on this (f32)
+        model, matrix-free or assembled as in :meth:`solve`.  ``tolerance``
+        is relative to the initial residual norm.  ``callback(k,
+        residual_norm, cg)`` as in :meth:`solve`.
         """
         if self.dtype != torch.float32:
             raise ValueError("solve_mixed runs the inner CG on the f32 path; build the model in float32")
-        if not assembled:
-            raise NotImplementedError(f"the matrix-free solve_mixed (assembled=False) {_SLICE3}")
         chunk64 = self.chunk_size
         if self.mesh.num_cells > 32768:
             chunk64 = min(chunk64 or 32768, 32768)
-        model64 = replace(self, dtype=torch.float64, chunk_size=chunk64)
+        model64 = replace(self, dtype=torch.float64, banded=False, fused_kernels=False, chunk_size=chunk64)
         last_cg = [None]
 
         def inner_solve(k, u32, f32):
-            cg = self._assembled_cg(
-                u32, f32, preconditioner, dia_max_diagonals, dia_min_fill, cg_rel_tolerance, cg_max_iter
+            cg = self._inner_cg(
+                u32, f32, preconditioner, assembled, dia_max_diagonals, dia_min_fill, cg_rel_tolerance, cg_max_iter
             )
             last_cg[0] = cg
             if verbose:

@@ -27,7 +27,7 @@ class FemSpace:
     dofs: torch.Tensor  # [E, n*s] int64
 
     @staticmethod
-    def create(mesh: Mesh, solution_dim: int = 1, dtype=DEFAULT_DTYPE, device="cpu") -> "FemSpace":
+    def create(mesh: Mesh, solution_dim: int = 1, dtype=DEFAULT_DTYPE, device="cuda") -> "FemSpace":
         dev = resolve_device(device)
         m = mesh.element.geometry.num_nodes
         X = torch.as_tensor(mesh.cell_points()[:, :m, :], dtype=dtype, device=dev)

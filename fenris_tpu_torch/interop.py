@@ -32,7 +32,7 @@ def structured_model_from_arrays(
     body_force=None,
     *,
     dtype: torch.dtype = DEFAULT_DTYPE,
-    device="cpu",
+    device="cuda",
 ) -> StructuredHyperelasticModel:
     """A Neo-Hookean port model with the given JAX model's fields.
 
@@ -63,7 +63,7 @@ def hyperelastic_model_from_arrays(
     body_force=None,
     *,
     dtype: torch.dtype = DEFAULT_DTYPE,
-    device="cpu",
+    device="cuda",
     **kwargs,
 ):
     """A Neo-Hookean unstructured port model with the given JAX model's fields.
@@ -72,8 +72,9 @@ def hyperelastic_model_from_arrays(
     (``np.asarray(jax_model.mesh.points)``, ``.cells``), ``mu``/``lam`` its
     Lamé parameters, ``dirichlet_nodes`` its constrained nodes and
     ``body_force`` a constant ``[3]`` array (a JAX callable is not carried
-    over).  Further keyword arguments (``chunk_size``, ``rule``) go to
-    :class:`~.elasticity.HyperelasticModel`.
+    over).  Further keyword arguments (``chunk_size``, ``rule``, ``banded``,
+    ``banded_r_nodes``, ``fused_kernels``) go to
+    :class:`~.elasticity.HyperelasticModel` as the JAX model's fields.
     """
     from .elasticity import HyperelasticModel
     from .mesh import Mesh

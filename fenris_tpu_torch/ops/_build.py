@@ -25,7 +25,8 @@ __all__ = ["load_library", "check", "BUILD_DIR"]
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
 _SOURCES = tuple(
-    _PKG / "csrc" / name for name in ("structured_stencil.cu", "dia_sweep.cu", "stiffness_pairs.cu")
+    _PKG / "csrc" / name
+    for name in ("structured_stencil.cu", "dia_sweep.cu", "stiffness_pairs.cu", "banded.cu", "em_sweep.cu")
 )
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _COMPILE = (*_ARCH, "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,6 +36,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # u, scratch, out, nz, ny, nx, gp, wdet, mu, lam, stream
     "fenris_nh_residual": ((_P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P), _I),
@@ -44,6 +46,12 @@ _SIGNATURES = {
     "fenris_dia_sweep": ((_P, _P, _I, _P, _P, _L, _I, _P), _I),
     # X, consts, out, E, m, n, q, d, s, sym, w_off, cf_off, wc_off, nconst, stream
     "fenris_stiffness_pairs": ((_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
+    # u, nodes, block_rows, out, rows_total, rows_per_block, s, stream
+    "fenris_banded_gather": ((_P, _P, _P, _P, _L, _I, _I, _P), _I),
+    # f, row_ptr, node_rows, out, num_nodes, s, stream
+    "fenris_banded_scatter": ((_P, _P, _P, _P, _L, _I, _P), _I),
+    # X, u, v (NULL: vector sweep), out, strides[12], E, tables, q, mu, lam, stream
+    "fenris_em_sweep": ((_P, _P, _P, _P, _LP, _L, _P, _I, _F, _F, _P), _I),
     "fenris_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -109,9 +109,10 @@ def block_dia_assembly_plan(
     deltas whose population (distinct row nodes with that delta) is below
     ``min_fill * N``; ``max_diagonals`` caps the count (most populated
     first).  The zero offset is always kept.  Spilled deltas form the
-    block-ELL remainder.  Runs on ``device`` (default: the cells' device).
+    block-ELL remainder.  Runs on ``device`` (default: the cells' device
+    for a tensor, the card for a numpy array).
     """
-    device = device if device is not None else (cells.device if isinstance(cells, torch.Tensor) else "cpu")
+    device = device if device is not None else (cells.device if isinstance(cells, torch.Tensor) else "cuda")
     cells = _cells_tensor(cells, device)
     E, n = cells.shape
     s, N = int(solution_dim), int(num_nodes)
@@ -213,9 +214,9 @@ def band_expand_plan(cells, plan: BlockDiaAssemblyPlan, *, max_classes: int = 4,
     makes block-DIA the wrong layout.  Classes are ranked by element count
     (``np.argsort`` of the counts, as in the JAX package; signatures with
     equal counts may be ranked differently, since the unique signatures
-    are listed in another order).
+    are listed in another order).  Runs on ``device`` (default: the plan's).
     """
-    device = device if device is not None else (cells.device if isinstance(cells, torch.Tensor) else "cpu")
+    device = device if device is not None else plan.base.device
     cells = _cells_tensor(cells, device)
     E, n = cells.shape
     s, D = plan.solution_dim, plan.num_diagonals

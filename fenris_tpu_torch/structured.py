@@ -62,7 +62,8 @@ class StructuredHyperelasticModel:
         body_force: constant ``[3]`` body force density, a pointwise torch
             callable ``f(x [3], params) -> [3]`` evaluated at the quadrature
             points, or None.
-        dtype/device: of every tensor the model holds and returns.
+        dtype/device: of every tensor the model holds and returns (the
+            default device is the card; CPU callers pass ``device="cpu"``).
         z_chunk_planes: cell planes per z-slab of the plain assembly sweeps
             (0 = one sweep; None = one sweep up to 2**20 cells, slabs of
             about 2**20 cells above).
@@ -78,7 +79,7 @@ class StructuredHyperelasticModel:
     dirichlet_mask: Any = None
     body_force: Any = None
     dtype: torch.dtype = DEFAULT_DTYPE
-    device: Any = "cpu"
+    device: Any = "cuda"
     z_chunk_planes: Optional[int] = None
     kernel: Any = "auto"
 

@@ -21,6 +21,7 @@ from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
 from fenris_tpu_torch.optimize import NEWTON_CONVERGED
 from fenris_tpu_torch.solid import LameParameters as TorchLame
 from fenris_tpu_torch.solid import NeoHookeanMaterial as TorchNeoHookean
+from fenris_tpu_torch.solid import StVKMaterial as TorchStVK
 
 JAX_DTYPES = {torch.float32: jnp.float32, torch.float64: jnp.float64}
 BODY = (0.0, 0.0, -4.0)  # tools/solve_assembled.py's load
@@ -34,7 +35,7 @@ def _pair(res=3, dtype=torch.float64, body_force=BODY, **kw):
     jm = JaxModel(mesh=jmesh, material=JaxNeoHookean(), params=JaxLame(MU, LAM), dirichlet_nodes=fixed,
                   body_force=jbf, dtype=JAX_DTYPES[dtype], **kw)
     tm = TorchModel(mesh=tmesh, material=TorchNeoHookean(), params=TorchLame(MU, LAM), dirichlet_nodes=fixed,
-                    body_force=None if body_force is None else np.asarray(body_force), dtype=dtype, **kw)
+                    body_force=None if body_force is None else np.asarray(body_force), dtype=dtype, device="cpu", **kw)
     return jm, tm
 
 
@@ -63,6 +64,7 @@ def test_callable_body_force_matches_jax():
     jm2 = JaxModel(mesh=jm.mesh, material=JaxNeoHookean(), params=JaxLame(MU, LAM),
                    body_force=lambda x, p: jnp.stack([x[0], -2.0 * jnp.ones_like(x[0]), x[2] * x[1]]))
     tm2 = TorchModel(mesh=tm.mesh, material=TorchNeoHookean(), params=TorchLame(MU, LAM), dtype=torch.float64,
+                     device="cpu",
                      body_force=lambda x, p: torch.stack([x[0], -2.0 * torch.ones_like(x[0]), x[2] * x[1]]))
     assert rel_err(np.asarray(jm2._f_ext), tm2._f_ext) < 1e-12
 
@@ -131,7 +133,7 @@ def test_solve_mixed_assembled_matches_jax():
     assert rel_err(np.asarray(rj.x), rt.x) < 1e-8
     r0 = float(torch.linalg.vector_norm(TorchModel(
         mesh=tm.mesh, material=TorchNeoHookean(), params=TorchLame(MU, LAM), dirichlet_nodes=tm.dirichlet_nodes,
-        body_force=np.asarray(BODY), dtype=torch.float64).residual(torch.zeros_like(rt.x))))
+        body_force=np.asarray(BODY), dtype=torch.float64, device="cpu").residual(torch.zeros_like(rt.x))))
     assert rt.residual_norm / r0 <= 1e-10
 
 
@@ -139,17 +141,37 @@ def test_model_carried_across_matches_jax():
     jm, _ = _pair(res=3)
     tm = hyperelastic_model_from_arrays(
         np.asarray(jm.mesh.points), np.asarray(jm.mesh.cells), jm.params.mu, jm.params.lam,
-        jm.dirichlet_nodes, np.asarray(BODY), dtype=torch.float64, chunk_size=11,
+        jm.dirichlet_nodes, np.asarray(BODY), dtype=torch.float64, device="cpu", chunk_size=11,
     )
     u, _ = _state(tm.space.num_dofs, seed=3)
     assert rel_err(np.asarray(jm.residual(jnp.asarray(u))), tm.residual(torch.as_tensor(u))) < 1e-12
 
 
 def test_unported_paths_raise():
+    """What the port still refuses: per-element parameter arrays, and mixed precision on an f64 model."""
     _, tm = _pair(res=1)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tm.solve()
     with pytest.raises(ValueError, match="float32"):
         tm.solve_mixed(assembled=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TorchModel(mesh=tm.mesh, material=TorchNeoHookean(), params=TorchLame(MU, LAM), banded=True)
+    mu_el = torch.full((tm.mesh.num_cells,), MU, dtype=torch.float64)
+    for banded in (False, True):
+        with pytest.raises(NotImplementedError, match="per-element"):
+            TorchModel(mesh=tm.mesh, material=TorchNeoHookean(), params=TorchLame(mu_el, LAM),
+                       dtype=torch.float64, device="cpu", banded=banded)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_fused_model_refuses_what_the_kernels_do_not_take(cuda_device):
+    """A CUDA fused model the element-sweep kernels cannot run raises; it does not fall back."""
+    _, tm = _pair(res=2)
+    kw = dict(mesh=tm.mesh, params=TorchLame(MU, LAM), device=cuda_device, banded=True, fused_kernels=True)
+    with pytest.raises(NotImplementedError, match="fused_kernels"):
+        TorchModel(material=TorchStVK(), dtype=torch.float32, **kw)
+    with pytest.raises(NotImplementedError, match="fused_kernels"):
+        TorchModel(material=TorchNeoHookean(), dtype=torch.float64, **kw)

@@ -74,7 +74,7 @@ def test_box_mesh_dofs_and_cell_points_match_jax(res):
     np.testing.assert_array_equal(
         tglobal.element_dof_indices(tm.cells, 3), jglobal.element_dof_indices(np.asarray(jm.cells), 3)
     )
-    js, ts = JaxSpace.create(jm, solution_dim=3), TorchSpace.create(tm, 3, dtype=torch.float64)
+    js, ts = JaxSpace.create(jm, solution_dim=3), TorchSpace.create(tm, 3, dtype=torch.float64, device="cpu")
     assert ts.num_dofs == js.num_dofs
     np.testing.assert_array_equal(to_numpy(ts.X_geo), np.asarray(js.X_geo))
     np.testing.assert_array_equal(to_numpy(ts.dofs), np.asarray(js.dofs))

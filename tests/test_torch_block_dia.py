@@ -69,7 +69,7 @@ def _plans(case, s=3):
     pkw = {k: kw[k] for k in ("max_diagonals", "min_fill") if k in kw}
     ekw = {k: kw[k] for k in ("max_classes",) if k in kw}
     jp = jbd.block_dia_assembly_plan(cells, N, s, **pkw)
-    tp = tbd.block_dia_assembly_plan(cells, N, s, **pkw)
+    tp = tbd.block_dia_assembly_plan(cells, N, s, device="cpu", **pkw)
     return cells, N, jp, tp, jbd.band_expand_plan(cells, jp, **ekw), tbd.band_expand_plan(cells, tp, **ekw)
 
 
@@ -144,7 +144,7 @@ def _model_pair(mesh="box", **kw):
     j = jel.HyperelasticModel(mesh=jm, material=JaxNeoHookean(), params=JaxLame(384.0, 577.0), **common, **kw)
     t = tel.HyperelasticModel(
         mesh=Mesh(points, cells, HEX8), material=TorchNeoHookean(),
-        params=TorchLame(384.0, 577.0), dtype=torch.float64, **common, **kw,
+        params=TorchLame(384.0, 577.0), dtype=torch.float64, device="cpu", **common, **kw,
     )
     return j, t
 

@@ -24,6 +24,7 @@ def _carry(jm, **kwargs):
         np.asarray(jm.params.lam),
         np.asarray(jm.dirichlet_mask),
         np.asarray(jm.body_force),
+        device="cpu",
         **kwargs,
     )
 

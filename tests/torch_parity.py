@@ -88,7 +88,7 @@ def model_pair(cells, dtype=torch.float64, material="neo_hookean", spacing=0.25,
         **(jax_kwargs or {}),
     )
     tm = TorchModel(
-        material=torch_cls(), params=TorchLame(MU, LAM), dtype=dtype,
+        material=torch_cls(), params=TorchLame(MU, LAM), dtype=dtype, device="cpu",
         body_force=np.asarray(body_force) if const and body_force is not None else torch_body_force,
         **common,
         **(torch_kwargs or {}),
