@@ -35,7 +35,9 @@ all started together) and drives the port's three paths at full size:
   box (res 63, 786,432 dofs), runs the f32 ``solve()`` on the fused model
   (||F|| / ||F0|| <= 1e-1) and holds one Hessian action of the unfused
   banded model (``torch.func.jvp`` through the gather/scatter pair) against
-  the fused one (rel <= 5e-4).
+  the fused one (rel <= 5e-4), then times that ``jvp`` against
+  ``torch.func.linearize`` once and its linear map per application, costed
+  at the solve's CG iterations a Newton step.
 
 Every kernel check is ``max |kernel - plain| / max |plain| <= 1e-5`` (f32
 roundoff: FMA contraction and summation order) with two launches bitwise
@@ -561,13 +563,15 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
         assemble_element_elliptic_vectors_em,
     )
 
-    plan, X = model._plan, model._X_band
+    plan, X, tables = model._plan, model._X_band, model._em_tables
     op, params, tab = model.operator, model.params, model.tab
     N, n, pe = plan.num_nodes, plan.n, plan.padded_elements
     g = torch.Generator(device=dev).manual_seed(seed)
     w = torch.randn((N, 3), generator=g, device=dev)
     valid = plan.valid_rows > 0
-    f_el = torch.randn((pe, n, 3), generator=g, device=dev) * valid.reshape(pe, n, 1)
+    # padding rows nonzero, as on the main path (the sweep of the repeated
+    # element): kernel and plain version must both drop them
+    f_el = torch.randn((pe, n, 3), generator=g, device=dev)
     u = displacement(model, seed).reshape(N, 3)
     u_em = bd.banded_gather(plan, u).permute(1, 2, 0)  # the main path's layout: element-major rows
     v_em = bd.banded_gather(plan, torch.randn((N, 3), generator=g, device=dev)).permute(1, 2, 0)
@@ -592,31 +596,39 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
     for layout, ue, ve in layouts:
         txt = f"{shape_txt} {layout}"
         errs["em_vector_sweep"] = compare(
-            "em_vector_sweep", txt, es.em_vector_sweep(X, ue, op, params, tab),
-            es.em_vector_sweep(X, ue, op, params, tab), assemble_element_elliptic_vectors_em(X, ue, op, params, tab))
+            "em_vector_sweep", txt, es.em_vector_sweep(X, ue, op, params, tab, tables),
+            es.em_vector_sweep(X, ue, op, params, tab, tables),
+            assemble_element_elliptic_vectors_em(X, ue, op, params, tab))
         errs["em_vector_tangent_sweep"] = compare(
-            "em_vector_tangent_sweep", txt, es.em_vector_tangent_sweep(X, ue, ve, op, params, tab),
-            es.em_vector_tangent_sweep(X, ue, ve, op, params, tab),
+            "em_vector_tangent_sweep", txt, es.em_vector_tangent_sweep(X, ue, ve, op, params, tab, tables),
+            es.em_vector_tangent_sweep(X, ue, ve, op, params, tab, tables),
             assemble_element_elliptic_tangent_vectors_em(X, ue, ve, op, params, tab))
     free_memory()
     if smi is None:
         return
     for name, err in errs.items():
         kernels[name]["max_abs_err"] = err
-    q = tab.num_points
+    q, nv = tab.num_points, plan.node_rows.numel()  # nv: the valid rows
     idx = plan.nodes_padded.long()
+    # index_add_'s padding rows go to 4096 spare rows past the N nodes (spread, so its atomics do not
+    # pile onto one address)
+    spare = torch.arange(pe * n, device=dev) % 4096 + N
+    idx_spare = torch.where(valid, idx, spare)
+    # bytes the functions need: the gather reads u, the valid rows' node indices and the per-block
+    # row counts and writes every row (padding rows are zeros); the scatter reads the valid rows
+    # and its CSR map and writes the nodes
     runs = {
         "banded_gather": (lambda: bd.banded_gather(plan, w), lambda: bd.banded_gather_plain(plan, w),
                           lambda: torch.index_select(w, 0, idx),
-                          (pe * n * 3 + pe * n + N * 3) * 4, 0),
+                          (pe * n * 3 + nv + plan.block_rows.numel() + N * 3) * 4, 0),
         "banded_scatter": (lambda: bd.banded_scatter(plan, f_el), lambda: bd.banded_scatter_plain(plan, f_el),
-                           lambda: torch.zeros((N, 3), device=dev).index_add_(0, idx, f_el.reshape(-1, 3)),
-                           (pe * n * 3 + plan.row_ptr.numel() + plan.node_rows.numel() + N * 3) * 4,
-                           plan.node_rows.numel() * 3),
-        "em_vector_sweep": (lambda: es.em_vector_sweep(X, u_em, op, params, tab),
+                           lambda: torch.zeros((N + 4096, 3), device=dev).index_add_(0, idx_spare,
+                                                                                     f_el.reshape(-1, 3)),
+                           (nv * 3 + plan.row_ptr.numel() + nv + N * 3) * 4, nv * 3),
+        "em_vector_sweep": (lambda: es.em_vector_sweep(X, u_em, op, params, tab, tables),
                             lambda: assemble_element_elliptic_vectors_em(X, u_em, op, params, tab), None,
                             (X.numel() + 2 * u_em.numel()) * 4, OPS_PER_QP["em_vector_sweep"] * q * pe),
-        "em_vector_tangent_sweep": (lambda: es.em_vector_tangent_sweep(X, u_em, v_em, op, params, tab),
+        "em_vector_tangent_sweep": (lambda: es.em_vector_tangent_sweep(X, u_em, v_em, op, params, tab, tables),
                                     lambda: assemble_element_elliptic_tangent_vectors_em(X, u_em, v_em, op, params,
                                                                                           tab), None,
                                     (X.numel() + 3 * u_em.numel()) * 4,
@@ -737,10 +749,12 @@ def path_c3(kernels, dev, smi):
     log(f"path C3 res={RES_C3}: {mesh.num_cells} hex8, {model.space.num_dofs} dofs; RCM {t_reorder:.3f} s; "
         f"model with banded plan {t_model:.3f} s (blocks={plan.k_blocks}, E_pad={plan.padded_elements}, "
         f"window {plan.wa} x 128 nodes)")
-    history = []
+    history, cg_iters = [], []
 
     def record(k, fn, cg):
         history.append(fn)
+        if cg is not None:
+            cg_iters.append(cg.num_iterations)
         cg_txt = "" if cg is None else f" cg_iters={cg.num_iterations} cg_status={cg.status}"
         log(f"  newton it {k}: |F|={fn:.6e}{cg_txt}")
 
@@ -774,7 +788,35 @@ def path_c3(kernels, dev, smi):
         f"(limit 5e-4)")
     check(gathers > 0, "path C3: the unfused Hessian action did not go through the gather kernel")
     check(rel <= 5e-4, f"path C3: unfused vs fused Hessian action rel {rel:.3e} > 5e-4")
+    unfused_operator_choice(unfused, res.x, v, hv_jvp, cg_iters, smi)
     del model, unfused, res
+    free_memory()
+
+
+def unfused_operator_choice(model, u, v, hv_jvp, cg_iters, smi):
+    """The unfused CG operator: ``jvp`` per application (what ``hessian_operator`` does) against
+    ``torch.func.linearize`` once per Newton step and its linear map per application (what the
+    JAX package does), costed at C3's CG iterations a step."""
+    import torch
+
+    free = model.free_mask
+    t_jvp = event_ms(lambda: model.hessian_vector_product(u, v), reps=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, lin = torch.func.linearize(model.internal_forces, u)
+    torch.cuda.synchronize()
+    t_trace = (time.perf_counter() - t0) * 1e3
+    apply_lin = lambda: torch.where(free, lin(torch.where(free, v, 0.0)), v)  # noqa: E731
+    rel = float((apply_lin() - hv_jvp).abs().max() / hv_jvp.abs().max())
+    t_lin = event_ms(apply_lin, reps=5)
+    check(rel <= KERNEL_RTOL, f"path C3: linearized vs jvp Hessian action rel {rel:.3e} > {KERNEL_RTOL:g}")
+    k = sum(cg_iters) / max(len(cg_iters), 1)
+    even = t_trace / (t_jvp - t_lin) if t_jvp > t_lin else float("inf")
+    log(f"path C3 unfused operator res={RES_C3}: jvp {t_jvp:.4f} ms an application; linearize {t_trace:.3f} ms "
+        f"once, then {t_lin:.4f} ms an application (rel {rel:.6e} from jvp); at {k:.1f} CG iterations a Newton "
+        f"step: jvp {k * t_jvp:.3f} ms, linearize {t_trace + k * t_lin:.3f} ms; break-even {even:.1f} "
+        f"iterations ({smi})")
+    del lin
     free_memory()
 
 

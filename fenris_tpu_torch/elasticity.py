@@ -161,7 +161,8 @@ class HyperelasticModel:
     # -- banded path ----------------------------------------------------------------
 
     def _setup_banded(self):
-        """The banded plan, padded geometry ``[m, d, E_pad]`` and chunking in whole blocks."""
+        """The banded plan, padded geometry ``[m, d, E_pad]``, chunking in whole blocks and,
+        with ``fused_kernels``, the element-sweep kernels' tables on the model's device."""
         N = self.mesh.num_vertices
         r = min(self.banded_r_nodes, max(1024, -(-N // 1024) * 1024))
         plan = make_banded_plan(self.mesh.cells, N, s=self.mesh.dim, r_nodes=r, device=self.device)
@@ -172,6 +173,7 @@ class HyperelasticModel:
         bp = plan.elements_per_block
         g = max(1, self.chunk_size // bp) if self.chunk_size is not None else plan.k_blocks
         self._band_chunk = min(g, plan.k_blocks) * bp
+        self._em_tables = em_sweep.device_tables(self.tab, self.device) if self.fused_kernels else None
 
     def _banded_sweep(self, assemble, *els):
         """``assemble(X [m, d, c], *els [n, s, c]) -> [..., c]`` over chunks of whole blocks.
@@ -194,13 +196,6 @@ class HyperelasticModel:
         """Global dof vector from element-minor ``[n, s, E_pad]`` element vectors."""
         return scatter_add(self._plan, f_em.permute(2, 0, 1).contiguous()).reshape(-1)
 
-    def _fused_active(self) -> bool:
-        """Whether the fused element-sweep kernels (or their plain versions) run the sweeps.
-
-        ``fused_kernels`` needs ``banded`` (checked at construction).
-        """
-        return self.fused_kernels
-
     def _tangent_sweep(self, u, v):
         """Banded Hessian action: gather u, v -> closed-form tangent sweep -> scatter.
 
@@ -209,8 +204,8 @@ class HyperelasticModel:
         """
         u_em, v_em = self._gather_em(u), self._gather_em(v)
         op, params, tab = self.operator, self.params, self.tab
-        if self._fused_active():
-            f = em_sweep.em_vector_tangent_sweep(self._X_band, u_em, v_em, op, params, tab)
+        if self.fused_kernels:
+            f = em_sweep.em_vector_tangent_sweep(self._X_band, u_em, v_em, op, params, tab, self._em_tables)
         else:
             f = self._banded_sweep(
                 lambda X, ue, ve: assemble_element_elliptic_tangent_vectors_em(X, ue, ve, op, params, tab),
@@ -241,8 +236,8 @@ class HyperelasticModel:
         if self._plan is not None:
             u_em = self._gather_em(u)
             op, params, tab = self.operator, self.params, self.tab
-            if self._fused_active():
-                f = em_sweep.em_vector_sweep(self._X_band, u_em, op, params, tab)
+            if self.fused_kernels:
+                f = em_sweep.em_vector_sweep(self._X_band, u_em, op, params, tab, self._em_tables)
             else:
                 f = self._banded_sweep(
                     lambda X, ue: assemble_element_elliptic_vectors_em(X, ue, op, params, tab), u_em
@@ -304,7 +299,7 @@ class HyperelasticModel:
         path forward-mode AD (``torch.func.jvp``) of the internal forces.
         """
         vm = torch.where(self.free_mask, v, 0.0)
-        if self._fused_active():
+        if self.fused_kernels:
             hv = self._tangent_sweep(u, vm)
         else:
             _, hv = torch.func.jvp(self.internal_forces, (u,), (vm,))
@@ -315,9 +310,11 @@ class HyperelasticModel:
 
         The fused path applies the closed-form tangent sweep; every other
         path forward-mode AD per application, where the JAX package traces
-        a linearization once (``torch.func.linearize`` traces each
-        elementwise op through ``make_fx``, which costs more than the
-        primal sweeps it saves).
+        a linearization once.  ``torch.func.linearize`` traces each
+        elementwise op through ``make_fx``: on an H100, for the unfused
+        banded model at 250,047 cells, 28.2 s once against 36.7 ms saved an
+        application, which pays off only past ~770 CG iterations a Newton
+        step (that solve takes ~270; ``chip_smoke.py`` path C3).
         """
         return lambda v: self.hessian_vector_product(u, v)
 

@@ -36,7 +36,7 @@ from ..assembly.local_em import (
 from ..solid import MaterialEllipticOperator, NeoHookeanMaterial
 from ._build import check, load_library
 
-__all__ = ["em_vector_sweep", "em_vector_tangent_sweep", "supports"]
+__all__ = ["device_tables", "em_vector_sweep", "em_vector_tangent_sweep", "supports"]
 
 
 def _lame_scalars(params):
@@ -73,21 +73,13 @@ def supports(op, params, tab: Tabulation, dtype) -> bool:
     )
 
 
-_table_cache: dict = {}
+def device_tables(tab: Tabulation, device) -> torch.Tensor:
+    """``geo_dphi``, ``dphi`` and the weights as one f32 array on ``device``: the kernels' tables.
 
-
-def _device_tables(tab: Tabulation, device: torch.device) -> torch.Tensor:
-    """``geo_dphi``, ``dphi`` and the weights as one f32 device array, uploaded once per (rule, device)."""
-    key = (id(tab), device)
-    hit = _table_cache.get(key)
-    if hit is not None and hit[0] is tab:
-        return hit[1]
-    if len(_table_cache) > 64:
-        _table_cache.clear()
+    A model uploads them once and passes them to the wrappers.
+    """
     flat = np.concatenate([np.ravel(tab.geo_dphi), np.ravel(tab.dphi), np.ravel(tab.weights)])
-    t = torch.as_tensor(flat.astype(np.float32), device=device)
-    _table_cache[key] = (tab, t)
-    return t
+    return torch.as_tensor(flat.astype(np.float32), device=device)
 
 
 def _check(t: torch.Tensor, name: str, shape, device) -> None:
@@ -99,7 +91,7 @@ def _check(t: torch.Tensor, name: str, shape, device) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _launch(X_em, u_em, v_em, op, params, tab: Tabulation):
+def _launch(X_em, u_em, v_em, op, params, tab: Tabulation, tables):
     dev = X_em.device
     if dev.type != "cuda":
         raise ValueError(f"the element-sweep kernels run on CUDA or CPU tensors, not on {dev}")
@@ -113,7 +105,10 @@ def _launch(X_em, u_em, v_em, op, params, tab: Tabulation):
     if v_em is not None:
         _check(v_em, "v_em", (8, 3, E), dev)
     mu, lam = _lame_scalars(params)
-    tables = _device_tables(tab, dev)
+    if tables is None:
+        tables = device_tables(tab, dev)
+    elif (tables.device, tables.dtype, tables.numel()) != (dev, torch.float32, tab.num_points * (2 * 8 * 3 + 1)):
+        raise ValueError("tables: expected device_tables(tab, X_em.device)")
     out = torch.empty_like(u_em)  # dense inputs keep their strides
     strides = (ctypes.c_longlong * 12)(
         *X_em.stride(), *u_em.stride(), *(v_em if v_em is not None else u_em).stride(), *out.stride()
@@ -129,20 +124,25 @@ def _launch(X_em, u_em, v_em, op, params, tab: Tabulation):
     return out
 
 
-def em_vector_sweep(X_em, u_em, op, params, tab: Tabulation):
-    """``[m, d, E]``, ``[n, s, E]`` -> element internal forces ``[n, s, E]``."""
+def em_vector_sweep(X_em, u_em, op, params, tab: Tabulation, tables=None):
+    """``[m, d, E]``, ``[n, s, E]`` -> element internal forces ``[n, s, E]``.
+
+    ``tables``: :func:`device_tables` of ``tab`` on the card (uploaded per
+    call when None).
+    """
     if X_em.device.type == "cpu" and u_em.device.type == "cpu":
         return assemble_element_elliptic_vectors_em(X_em, u_em, op, params, tab)
-    out = _launch(X_em, u_em, None, op, params, tab)
+    out = _launch(X_em, u_em, None, op, params, tab, tables)
     em_vector_sweep.launches += 1
     return out
 
 
-def em_vector_tangent_sweep(X_em, u_em, v_em, op, params, tab: Tabulation):
-    """Element Hessian actions ``(∂f_el/∂u)[v]``, ``[n, s, E]``, closed-form tangent."""
+def em_vector_tangent_sweep(X_em, u_em, v_em, op, params, tab: Tabulation, tables=None):
+    """Element Hessian actions ``(∂f_el/∂u)[v]``, ``[n, s, E]``, closed-form tangent; ``tables`` as
+    in :func:`em_vector_sweep`."""
     if X_em.device.type == "cpu" and u_em.device.type == "cpu" and v_em.device.type == "cpu":
         return assemble_element_elliptic_tangent_vectors_em(X_em, u_em, v_em, op, params, tab)
-    out = _launch(X_em, u_em, v_em, op, params, tab)
+    out = _launch(X_em, u_em, v_em, op, params, tab, tables)
     em_vector_tangent_sweep.launches += 1
     return out
 

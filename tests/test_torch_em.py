@@ -125,7 +125,11 @@ def test_wrappers_take_plain_versions_on_cpu_and_refuse_other_devices():
     params = TorchLame(MU, LAM)
     Xt, ut, vt = (torch.as_tensor(a, dtype=torch.float32) for a in (X, u, v))
     before = (tes.em_vector_sweep.launches, tes.em_vector_tangent_sweep.launches)
-    assert torch.equal(tes.em_vector_sweep(Xt, ut, top, params, ttab),
+    tables = tes.device_tables(ttab, "cpu")  # geo_dphi [q, 8, 3], dphi [q, 8, 3], weights [q], flat f32
+    q = ttab.num_points
+    assert tables.dtype == torch.float32 and tables.numel() == q * (2 * 8 * 3 + 1)
+    assert torch.equal(tables[-q:], torch.as_tensor(np.asarray(ttab.weights), dtype=torch.float32))
+    assert torch.equal(tes.em_vector_sweep(Xt, ut, top, params, ttab, tables),
                        TLE.assemble_element_elliptic_vectors_em(Xt, ut, top, params, ttab))
     assert torch.equal(tes.em_vector_tangent_sweep(Xt, ut, vt, top, params, ttab),
                        TLE.assemble_element_elliptic_tangent_vectors_em(Xt, ut, vt, top, params, ttab))

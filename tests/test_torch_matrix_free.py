@@ -78,7 +78,7 @@ def _banded_reference(u, v):
 def test_banded_operators_match_jax(variant):
     tm = _torch_model(10, banded_r_nodes=1024, chunk_size=1, **VARIANTS[variant])
     assert tm._plan.k_blocks == 2 and tm._band_chunk < tm._plan.padded_elements
-    assert tm._fused_active() == (variant == "fused")
+    assert (tm._em_tables is not None) == (variant == "fused")
     u, v = _state(tm.space.num_dofs)
     ref = _banded_reference(u, v)
     ut, vt = torch.as_tensor(u), torch.as_tensor(v)
@@ -131,7 +131,7 @@ def test_model_carried_across_keeps_the_banded_flags():
         np.asarray(BODY), dtype=torch.float64, device="cpu", chunk_size=1, banded=True, banded_r_nodes=1024,
         fused_kernels=True,
     )
-    assert tm._plan is not None and tm._fused_active() and tm._plan.k_blocks == jm._plan.k_blocks
+    assert tm._plan is not None and tm.fused_kernels and tm._plan.k_blocks == jm._plan.k_blocks
     np.testing.assert_array_equal(tm._plan.perm, jm._plan.perm)
     u, _ = _state(tm.space.num_dofs, seed=3)
     assert rel_err(np.asarray(jm.residual(jnp.asarray(u))), tm.residual(torch.as_tensor(u))) < 1e-12
