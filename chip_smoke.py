@@ -24,14 +24,18 @@ all started together) and drives the port's three paths at full size:
   through the element-stiffness kernel, which is also held against its
   plain version for linear elasticity, Laplace and a ragged element count;
 * path C, the matrix-free banded Neo-Hookean solve: C1 holds the banded
-  gather and scatter and the two fused element sweeps against their plain
-  versions at the res-149 padded layout (3,354,624 element rows) and on a
-  res-7 box and an RCM-reordered res-11 box, the gather also bitwise
-  against ``u[cells[perm]]``; C2 runs
+  gather and scatter, the fused banded tangent sweep (the CG operator:
+  gather and tangent in one kernel) and the two element-minor sweeps
+  against their plain versions at the res-149 padded layout (3,354,624
+  padded elements) and on a res-7 box and an RCM-reordered res-11 box, the
+  gather also bitwise against ``u[cells[perm]]``, and times the fused
+  sweep in turns against the route it replaced (two gathers, then the
+  element-minor tangent sweep); C2 runs
   ``HyperelasticModel(banded=True, fused_kernels=True).solve_mixed()`` on
   path A's problem (10,125,000 dofs) with Jacobi from
   ``hessian_diagonal``, checked by the independent f64 residual (<= 1e-10)
-  and against path A's solution; C3 RCM-reorders bench.py's unstructured
+  and against path A's solution, with a fused sweep in every CG iteration
+  and at most two gathers a Newton step; C3 RCM-reorders bench.py's unstructured
   box (res 63, 786,432 dofs), runs the f32 ``solve()`` on the fused model
   (||F|| / ||F0|| <= 1e-1) and holds one Hessian action of the unfused
   banded model (``torch.func.jvp`` through the gather/scatter pair) against
@@ -57,6 +61,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -85,21 +90,26 @@ RES_C3 = 63
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# f32 operations per element (cell) and quadrature point, counted from the
-# kernels' source (a multiply and an add are two, a division, reciprocal,
-# comparison or log1p one): geometry J 135 + J^-1 and det 42 + basis
-# gradients 120 + weight 1 = 298; grad u 135; Neo-Hookean kinematics (F,
-# gamma, log1p, adjugate, det, F^-T, alpha) 78; stress P 27; tangent
-# (tr(F^-1 dF) 18, F^-T dF^T 45, dF^-T 54, dP 54) 171; contraction 168.
-# The structured stencils read a constant gradient table: grad u 135,
-# kinematics 62, alpha 2, 1/det 1, then P 36 (residual) or dP 152 plus a
-# second gradient 135 (Hessian action), contraction 168.
+# f32 operations per element (cell) and quadrature point that the functions
+# need, counted from the kernels' source at the fewest the arithmetic allows
+# (a multiply and an add are two, a division, reciprocal, comparison or
+# log1p one): geometry J from node-relative coordinates 117 (7 terms an
+# entry) + J^-1 and det 42 + basis gradients 120 + weight 1 = 280; grad u
+# 135; Neo-Hookean kinematics (F, gamma, log1p, adjugate, det, F^-T, alpha)
+# 78; stress P 27; tangent (tr(F^-1 dF) 17, F^-T dF^T 45, dF^-T 45, dP 46)
+# 153; contraction (the stress scaled by the weight once 9, 24 sums of 3
+# products 120, the sum over points 24) 153.  Plus, once an element, the
+# node-relative coordinates: EM_OPS_PER_ELEMENT.  The structured stencils
+# read a constant gradient table: grad u 135, kinematics 62, alpha 2, 1/det
+# 1, then P 36 (residual) or dP 152 plus a second gradient 135 (Hessian
+# action), contraction 153.
 OPS_PER_QP = {
-    "em_vector_sweep": 298 + 135 + 78 + 27 + 168,
-    "em_vector_tangent_sweep": 298 + 2 * 135 + 78 + 171 + 168,
-    "neo_hookean_residual": 135 + 62 + 2 + 1 + 36 + 168,
-    "neo_hookean_hvp": 2 * 135 + 62 + 2 + 1 + 152 + 168,
+    "em_vector_sweep": 280 + 135 + 78 + 27 + 153,
+    "em_vector_tangent_sweep": 280 + 2 * 135 + 78 + 153 + 153,
+    "neo_hookean_residual": 135 + 62 + 2 + 1 + 36 + 153,
+    "neo_hookean_hvp": 2 * 135 + 62 + 2 + 1 + 152 + 153,
 }
+EM_OPS_PER_ELEMENT = 21
 
 SOURCES = {
     "structured_stencil": "fenris_tpu_torch/csrc/structured_stencil.cu",
@@ -133,10 +143,10 @@ def event_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(stop) / reps
 
 
-def in_turns(run_k, run_p, reps=20):
+def in_turns(run_k, run_p, reps=20, names=("kernel", "plain")):
     """Kernel and plain times in turns (plain, kernel, kernel, plain); the lower of each pair."""
     p1, k1, k2, p2 = (event_ms(run_p, reps), event_ms(run_k, reps), event_ms(run_k, reps), event_ms(run_p, reps))
-    return min(k1, k2), min(p1, p2), f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms"
+    return min(k1, k2), min(p1, p2), f"{names[0]} {k1:.4f}/{k2:.4f} ms, {names[1]} {p1:.4f}/{p2:.4f} ms"
 
 
 def compare(name, shape_txt, got, again, ref):
@@ -175,6 +185,29 @@ def timed(fn, times):
         return out
 
     return run
+
+
+def ptxas_report(build_log):
+    """Registers and spill bytes of the gather and tangent kernels, from the loaded library's
+    ``-Xptxas -v`` log."""
+    labels = {"banded_gather_kernelILi3E": "banded_gather (s = 3)",
+              "tangent_kernelILb1E": "banded_tangent_sweep",
+              "tangent_kernelILb0E": "em_vector_tangent_sweep (strided)"}
+    if not build_log.is_file():
+        log(f"ptxas: {build_log.name} not found (library built without a log); registers not reported")
+        return
+    label, found = None, {}
+    for line in build_log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            label = next((v for k, v in labels.items() if k in m.group(1)), None)
+        elif label and "spill stores" in line:
+            found[label] = line.strip()
+        elif label and "Used" in line and "registers" in line:
+            found[label] = f"{line.split('info    :')[-1].strip()}; {found.get(label, '')}"
+            label = None
+    for name, txt in found.items():
+        log(f"ptxas {name}: {txt}")
 
 
 def reset_counts(kernels):
@@ -549,10 +582,12 @@ def path_a_solve(kernels, model, plan_s, dev, smi):
 
 
 def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
-    """The four banded-path kernels against their plain versions on one fused model's layout.
+    """The banded-path kernels against their plain versions on one fused model's layout.
 
     With ``smi`` also times them (kernel, plain, library call) and sets
-    their bounds, from these inputs.
+    their bounds, from these inputs, and times the fused tangent sweep
+    against the route it replaced (two gathers, then the element-minor
+    tangent sweep on the gathered rows).
     """
     import torch
 
@@ -573,8 +608,9 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
     # element): kernel and plain version must both drop them
     f_el = torch.randn((pe, n, 3), generator=g, device=dev)
     u = displacement(model, seed).reshape(N, 3)
-    u_em = bd.banded_gather(plan, u).permute(1, 2, 0)  # the main path's layout: element-major rows
-    v_em = bd.banded_gather(plan, torch.randn((N, 3), generator=g, device=dev)).permute(1, 2, 0)
+    v = torch.randn((N, 3), generator=g, device=dev)
+    u_em = bd.banded_gather(plan, u).permute(1, 2, 0)  # element-major rows, as the gather writes them
+    v_em = bd.banded_gather(plan, v).permute(1, 2, 0)
     errs = {}
 
     # gather: bitwise equal to the plain version and to u[cells[perm]] on valid rows
@@ -589,7 +625,11 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
     errs["banded_scatter"] = compare("banded_scatter", shape_txt, got, again, ref)
     log(f"banded_scatter {shape_txt}: bitwise equal to the plain version (same row order): {bool(torch.equal(got, ref))}")
     del got, again, ref
-    # the main path's element-major rows; on the small shapes contiguous element-minor arrays too
+    # the fused tangent sweep (the main path's CG operator) on the node vectors
+    fused = lambda: es.banded_tangent_sweep(plan, X, u, v, op, params, tab, tables)  # noqa: E731
+    errs["em_vector_tangent_sweep"] = compare(
+        "banded_tangent_sweep", shape_txt, fused(), fused(), es.banded_tangent_sweep_plain(plan, X, u, v, op, params, tab))
+    # the element-minor sweeps on element-major rows; on the small shapes contiguous element-minor arrays too
     layouts = [("element-major rows", u_em, v_em)]
     if smi is None:
         layouts.append(("element-minor", u_em.contiguous(), v_em.contiguous()))
@@ -599,10 +639,9 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
             "em_vector_sweep", txt, es.em_vector_sweep(X, ue, op, params, tab, tables),
             es.em_vector_sweep(X, ue, op, params, tab, tables),
             assemble_element_elliptic_vectors_em(X, ue, op, params, tab))
-        errs["em_vector_tangent_sweep"] = compare(
-            "em_vector_tangent_sweep", txt, es.em_vector_tangent_sweep(X, ue, ve, op, params, tab, tables),
-            es.em_vector_tangent_sweep(X, ue, ve, op, params, tab, tables),
-            assemble_element_elliptic_tangent_vectors_em(X, ue, ve, op, params, tab))
+        compare("em_vector_tangent_sweep", txt, es.em_vector_tangent_sweep(X, ue, ve, op, params, tab, tables),
+                es.em_vector_tangent_sweep(X, ue, ve, op, params, tab, tables),
+                assemble_element_elliptic_tangent_vectors_em(X, ue, ve, op, params, tab))
     free_memory()
     if smi is None:
         return
@@ -625,14 +664,17 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
                            lambda: torch.zeros((N + 4096, 3), device=dev).index_add_(0, idx_spare,
                                                                                      f_el.reshape(-1, 3)),
                            (nv * 3 + plan.row_ptr.numel() + nv + N * 3) * 4, nv * 3),
+        # the element-minor vector sweep cannot tell padding elements from others: all pe are its work
         "em_vector_sweep": (lambda: es.em_vector_sweep(X, u_em, op, params, tab, tables),
                             lambda: assemble_element_elliptic_vectors_em(X, u_em, op, params, tab), None,
-                            (X.numel() + 2 * u_em.numel()) * 4, OPS_PER_QP["em_vector_sweep"] * q * pe),
-        "em_vector_tangent_sweep": (lambda: es.em_vector_tangent_sweep(X, u_em, v_em, op, params, tab, tables),
-                                    lambda: assemble_element_elliptic_tangent_vectors_em(X, u_em, v_em, op, params,
-                                                                                          tab), None,
-                                    (X.numel() + 3 * u_em.numel()) * 4,
-                                    OPS_PER_QP["em_vector_tangent_sweep"] * q * pe),
+                            (X.numel() + 2 * u_em.numel()) * 4,
+                            (OPS_PER_QP["em_vector_sweep"] * q + EM_OPS_PER_ELEMENT) * pe),
+        # the fused sweep: the valid elements' X and node indices, u and v read once, every row written
+        # once; the arithmetic of the valid elements only (a padding element's rows are zeros)
+        "em_vector_tangent_sweep": (fused, lambda: es.banded_tangent_sweep_plain(plan, X, u, v, op, params, tab),
+                                    None, (3 * nv + nv + plan.block_rows.numel() + 2 * N * 3 + pe * n * 3) * 4,
+                                    (OPS_PER_QP["em_vector_tangent_sweep"] * q + EM_OPS_PER_ELEMENT)
+                                    * plan.num_elements),
     }
     for name, (run_k, run_p, run_lib, nbytes, ops) in runs.items():
         k = kernels[name]
@@ -642,8 +684,23 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
         if run_lib is not None:
             k["library_ms"] = min(event_ms(run_lib, reps), event_ms(run_lib, reps))
             txt += f", library {k['library_ms']:.4f} ms"
+            if name == "banded_gather":
+                txt += f" (kernel faster than index_select: {k['ms'] < k['library_ms']})"
         log(f"time {name} {shape_txt}: {txt}; {set_bound(k, nbytes, ops)} ({smi})")
         free_memory()
+
+    # the fused sweep against the route it replaced, in turns: two gathers, then the element-minor
+    # tangent sweep on the gathered element-major rows
+    def old_route():
+        ue, ve = (bd.banded_gather(plan, a).permute(1, 2, 0) for a in (u, v))
+        return es.em_vector_tangent_sweep(X, ue, ve, op, params, tab, tables)
+
+    fused_ms, old_ms, txt = in_turns(fused, old_route, reps=10, names=("fused", "old route"))
+    strided_ms = min(event_ms(lambda: es.em_vector_tangent_sweep(X, u_em, v_em, op, params, tab, tables), 10)
+                     for _ in range(2))
+    log(f"time banded_tangent_sweep {shape_txt}: {txt} (fused faster: {fused_ms < old_ms}); the element-minor "
+        f"tangent sweep alone on element-major rows {strided_ms:.4f} ms ({smi})")
+    free_memory()
 
 
 def path_c_kernels(kernels, model, dev, smi):
@@ -715,6 +772,9 @@ def path_c_solve(kernels, model, plan_s, x_a, dev, smi):
         check(launches[name] > 0, f"path C2: kernel {name} was not launched")
     check(launches["em_vector_tangent_sweep"] >= sum(cg_iters),
           f"path C2: {launches['em_vector_tangent_sweep']} tangent sweeps for {sum(cg_iters)} CG iterations")
+    # the fused operator reads u and v itself: the gather runs for the Jacobi diagonal only
+    check(launches["banded_gather"] <= 2 * len(cg_iters),
+          f"path C2: {launches['banded_gather']} gathers for {len(cg_iters)} Newton steps (limit 2 a step)")
 
     x64 = res.x.detach().double()
     del res
@@ -902,7 +962,7 @@ def main() -> int:
     import fenris_tpu_torch.ops.em_sweep as es
     import fenris_tpu_torch.ops.stiffness_pairs as sp
     import fenris_tpu_torch.ops.structured_stencil as ss
-    from fenris_tpu_torch.ops._build import load_library
+    from fenris_tpu_torch.ops._build import build_log, load_library
     from fenris_tpu_torch.ops.banded import make_banded_plan
 
     dev = torch.device("cuda", 0)
@@ -918,6 +978,7 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources in parallel)")
+    ptxas_report(build_log())
 
     kernels = {
         "neo_hookean_residual": dict(
@@ -942,8 +1003,9 @@ def main() -> int:
         "banded_scatter": dict(
             fn=bd.banded_scatter, path="C", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:346",
         ),
+        # the tangent sweep as the main path launches it: fused with the banded gather
         "em_vector_tangent_sweep": dict(
-            fn=es.em_vector_tangent_sweep, path="C", source=SOURCES["em_sweep"],
+            fn=es.banded_tangent_sweep, path="C", source=SOURCES["em_sweep"],
             replaces="fenris_tpu/ops/em_sweep.py:251",
         ),
         "em_vector_sweep": dict(

@@ -44,7 +44,6 @@ from .assembly.local import (
     tabulate,
 )
 from .assembly.local_em import (
-    assemble_element_elliptic_tangent_vectors_em,
     assemble_element_elliptic_vectors_em,
     compute_element_elliptic_energy_em,
     elliptic_matrix_diagonal_em,
@@ -197,21 +196,19 @@ class HyperelasticModel:
         return scatter_add(self._plan, f_em.permute(2, 0, 1).contiguous()).reshape(-1)
 
     def _tangent_sweep(self, u, v):
-        """Banded Hessian action: gather u, v -> closed-form tangent sweep -> scatter.
+        """Fused Hessian action: :func:`~.ops.em_sweep.banded_tangent_sweep` -> banded scatter.
 
         The material's closed-form ``g_tangent`` in place of forward-mode AD
-        over the internal forces: no primal force computation.
+        over the internal forces: no primal force computation.  One sweep
+        reads ``u`` and ``v`` through the banded plan (no gathered rows) and
+        writes the element-major rows the scatter reads.
         """
-        u_em, v_em = self._gather_em(u), self._gather_em(v)
-        op, params, tab = self.operator, self.params, self.tab
-        if self.fused_kernels:
-            f = em_sweep.em_vector_tangent_sweep(self._X_band, u_em, v_em, op, params, tab, self._em_tables)
-        else:
-            f = self._banded_sweep(
-                lambda X, ue, ve: assemble_element_elliptic_tangent_vectors_em(X, ue, ve, op, params, tab),
-                u_em, v_em,
-            )
-        return self._scatter_em(f)
+        d = self.mesh.dim
+        rows = em_sweep.banded_tangent_sweep(
+            self._plan, self._X_band, u.reshape(-1, d), v.reshape(-1, d),
+            self.operator, self.params, self.tab, self._em_tables,
+        )
+        return scatter_add(self._plan, rows).reshape(-1)
 
     # -- element sweeps -----------------------------------------------------------
 
@@ -311,10 +308,10 @@ class HyperelasticModel:
         The fused path applies the closed-form tangent sweep; every other
         path forward-mode AD per application, where the JAX package traces
         a linearization once.  ``torch.func.linearize`` traces each
-        elementwise op through ``make_fx``: on an H100, for the unfused
-        banded model at 250,047 cells, 28.2 s once against 36.7 ms saved an
-        application, which pays off only past ~770 CG iterations a Newton
-        step (that solve takes ~270; ``chip_smoke.py`` path C3).
+        elementwise op through ``make_fx``: for the unfused banded model at
+        250,047 cells its one trace costs more than it saves at the CG
+        iterations a Newton step that solve takes (``chip_smoke.py`` path C3
+        times both on the card; PERF.md section 5 keeps the numbers).
         """
         return lambda v: self.hessian_vector_product(u, v)
 

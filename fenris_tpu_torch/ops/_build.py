@@ -5,7 +5,8 @@ interface, so they build with ``nvcc`` alone in seconds (no PyTorch
 headers).  The first call of :func:`load_library` compiles every source
 into an object file, all ``nvcc`` processes started together, links them
 into one shared library under ``fenris_tpu_torch/_build/`` named by a hash
-of the sources and flags, and loads it; later calls reuse the library.
+of the sources and flags, with the ``nvcc`` log beside it under the same
+name (:func:`build_log`), and loads it; later calls reuse the library.
 Nothing is built or loaded at import time.
 """
 
@@ -20,7 +21,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "check", "BUILD_DIR"]
+__all__ = ["load_library", "build_log", "check", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
@@ -52,6 +53,8 @@ _SIGNATURES = {
     "fenris_banded_scatter": ((_P, _P, _P, _P, _L, _I, _P), _I),
     # X, u, v (NULL: vector sweep), out, strides[12], E, tables, q, mu, lam, stream
     "fenris_em_sweep": ((_P, _P, _P, _P, _LP, _L, _P, _I, _F, _F, _P), _I),
+    # X, u, v, nodes, block_rows, out, E, elements_per_block, tables, q, mu, lam, stream
+    "fenris_banded_tangent_sweep": ((_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _F, _F, _P), _I),
     "fenris_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -76,11 +79,16 @@ def _key() -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds) -> None:
-    """Run the commands concurrently; log their output; raise if any failed."""
+def build_log() -> Path:
+    """The ``nvcc`` log (``-Xptxas -v``: registers, spills) of the library :func:`load_library` loads."""
+    return BUILD_DIR / f"libfenris_kernels_{_key()}.log"
+
+
+def _run_all(cmds, log_path: Path) -> None:
+    """Run the commands concurrently; append their output to ``log_path``; raise if any failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
     outs = [p.communicate()[0] for p in procs]
-    with open(BUILD_DIR / "build.log", "a") as log:
+    with open(log_path, "a") as log:
         for cmd, out in zip(cmds, outs):
             log.write(" ".join(cmd) + "\n" + out + "\n")
     failed = [(c, o) for c, o, p in zip(cmds, outs, procs) if p.returncode != 0]
@@ -95,14 +103,16 @@ def load_library() -> ctypes.CDLL:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"libfenris_kernels_{_key()}.so"
     if not lib_path.exists():
-        # build in a private directory and rename the library into place:
-        # a concurrent build never loads a half-written one
+        # build in a private directory and rename the library and its log
+        # into place: a concurrent build never loads a half-written one
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             nvcc = _nvcc()
             objs = [Path(tmp) / (src.stem + ".o") for src in _SOURCES]
-            _run_all([[nvcc, *_COMPILE, "-o", str(o), str(s)] for s, o in zip(_SOURCES, objs)])
+            log = Path(tmp) / "build.log"
+            _run_all([[nvcc, *_COMPILE, "-o", str(o), str(s)] for s, o in zip(_SOURCES, objs)], log)
             so = Path(tmp) / "lib.so"
-            _run_all([[nvcc, *_LINK, "-o", str(so), *map(str, objs)]])
+            _run_all([[nvcc, *_LINK, "-o", str(so), *map(str, objs)]], log)
+            os.replace(log, build_log())
             os.replace(so, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in _SIGNATURES.items():

@@ -15,7 +15,8 @@ between node vectors ``u [N, s]`` and that layout:
   (replaces ``_scatter_blocked_tpu``).
 
 On a CUDA tensor each wrapper launches its hand-written kernel
-(``csrc/banded.cu``; f32, contiguous) or raises; on a CPU tensor it runs
+(``csrc/banded.cu``; f32, contiguous, fewer than 2^31 row values) or
+raises; on a CPU tensor it runs
 the plain version.  Launches are counted in ``<wrapper>.launches``.  The
 TPU's window blocking (one-hot matmuls over 128-node blocks, bf16 splits,
 halo combine) is TPU structure and is not carried over: on the card a row
@@ -48,6 +49,7 @@ __all__ = [
     "banded_scatter",
     "banded_gather_plain",
     "banded_scatter_plain",
+    "check_index_range",
 ]
 
 
@@ -205,6 +207,15 @@ def banded_scatter_plain(plan: BandedPlan, f_el: torch.Tensor) -> torch.Tensor:
 # -- kernel wrappers ---------------------------------------------------------------
 
 
+def check_index_range(plan: BandedPlan, s: int) -> None:
+    """Raise unless the padded layout's ``rows_total * s`` values have 32-bit indices (the kernels' arithmetic)."""
+    if plan.k_blocks * plan.rows * s >= 2**31:
+        raise ValueError(
+            f"banded layout of {plan.k_blocks * plan.rows} rows x {s} components reaches 2^31 values: "
+            "the banded kernels index it with 32-bit integers"
+        )
+
+
 def _check(plan: BandedPlan, t: torch.Tensor, name: str, lead) -> None:
     """Device, dtype, contiguity and shape ``[*lead, s]`` checks for a kernel input."""
     if t.device.type != "cuda":
@@ -268,6 +279,7 @@ def banded_gather(plan: BandedPlan, u: torch.Tensor) -> torch.Tensor:
     """
     if u.device.type == "cpu":
         return banded_gather_plain(plan, u)
+    check_index_range(plan, u.shape[-1])
     _check(plan, u, "u", (plan.num_nodes,))
     rows = _gather_kernel(u, plan.nodes_padded, plan.block_rows, plan.rows)
     return rows.reshape(plan.padded_elements, plan.n, -1)

@@ -6,6 +6,8 @@ kernels' index tables (the node -> rows CSR map, the per-block valid row
 counts) are checked here by emulating the kernels in numpy.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -88,6 +90,62 @@ def test_kernel_tables_reproduce_the_plain_versions(name):
         for j in node_rows[ptr[i]:ptr[i + 1]]:
             emulated[i] += rows[j]
     assert np.array_equal(emulated, to_numpy(tb.banded_scatter(tp, torch.as_tensor(f))))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_gather_kernel_tiles_reproduce_the_plan(name):
+    """Numpy emulation of the gather kernel's grid: thread block (k, tile) covers rows
+    ``[tile * 1024, (tile + 1) * 1024)`` of owner block k, a thread 4 consecutive rows, a row
+    valid iff its offset in the block is below ``block_rows[k]``, a tile's rows stored as one
+    contiguous run (as in csrc/banded.cu)."""
+    _, _, tp = _plans(name)
+    threads, rows_per_thread = 256, 4  # kThreads, kRowsPerThread
+    tile = threads * rows_per_thread
+    k, t, j = np.meshgrid(np.arange(tp.k_blocks), np.arange(-(-tp.rows // tile) * threads),
+                          np.arange(rows_per_thread), indexing="ij")
+    local = t * rows_per_thread + j  # row offset inside the owner block, 32-bit
+    inside = local < tp.rows
+    row = (k * tp.rows + local)[inside]
+    valid = (local < to_numpy(tp.block_rows)[k])[inside]
+    assert tp.k_blocks * tp.rows * tp.s < 2**31
+    np.testing.assert_array_equal(np.sort(row), np.arange(tp.k_blocks * tp.rows))  # each row once
+    # the s = 3 path stages a tile's rows in shared memory and stores them as one float4 run of
+    # min(tile, rows - tile0) * s floats from (k * rows + tile0) * s: the runs tile the output
+    kb, t0 = np.meshgrid(np.arange(tp.k_blocks), np.arange(0, tp.rows, tile), indexing="ij")
+    start, length = ((kb * tp.rows + t0) * tp.s).ravel(), (np.minimum(tile, tp.rows - t0) * tp.s).ravel()
+    assert tp.rows % rows_per_thread == 0 and np.all(start % 4 == 0) and np.all(length % 4 == 0)
+    by_start = np.argsort(start)
+    np.testing.assert_array_equal(start[by_start], np.concatenate([[0], np.cumsum(length[by_start])[:-1]]))
+    assert length.sum() == tp.k_blocks * tp.rows * tp.s
+    order = np.argsort(row)
+    np.testing.assert_array_equal(valid[order], to_numpy(tp.valid_rows) > 0)
+    nodes = to_numpy(tp.nodes_padded)
+    np.testing.assert_array_equal(np.where(valid, nodes[row], 0)[order], nodes)  # padding rows hold node 0
+    u = rng(14).standard_normal((tp.num_nodes, tp.s))
+    out = np.zeros((tp.k_blocks * tp.rows, tp.s))
+    out[row[valid]] = u[nodes[row[valid]]]  # padding rows are written as zeros, u unread
+    assert np.array_equal(out.reshape(tp.padded_elements, tp.n, tp.s), to_numpy(tb.banded_gather(tp, torch.as_tensor(u))))
+
+
+def test_kernels_refuse_layouts_past_32_bit_indices():
+    """The gather and the fused tangent sweep raise, before touching memory, when the padded layout
+    holds 2^31 values or more; one value fewer passes the check (then meta tensors are refused)."""
+    import fenris_tpu_torch.ops.em_sweep as tes
+
+    def fake_plan(k_blocks, rows):
+        return SimpleNamespace(k_blocks=k_blocks, rows=rows, num_nodes=4, n=8, s=3, padded_elements=k_blocks * rows // 8)
+
+    u = torch.empty((4, 3), device="meta")
+    X = torch.empty((8, 3, 1), device="meta")
+    big = fake_plan(2**20, 2**11)  # 2^31 rows
+    with pytest.raises(ValueError, match="2\\^31"):
+        tb.banded_gather(big, u)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tes.banded_tangent_sweep(big, X, u, u, None, None, None)
+    with pytest.raises(ValueError, match="2\\^31"):
+        tb.banded_gather(fake_plan(1, 2**31 // 3 + 1), u)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tb.banded_gather(fake_plan(1, 2**31 // 3), u)  # 2^31 - 2 values
 
 
 @pytest.mark.parametrize("name", list(CASES))

@@ -2,7 +2,9 @@
 
 The JAX ``fenris_tpu.assembly.local_em`` XLA sweeps are the reference (the
 JAX tests pin its Pallas kernels to them); the port's functions run in f64
-on the CPU on the same numpy inputs.
+on the CPU on the same numpy inputs.  The fused banded tangent sweep is
+held against JAX's banded gather (its XLA fallback on the CPU) followed by
+the tangent sweep.
 """
 
 import jax
@@ -12,10 +14,13 @@ import pytest
 import torch
 from torch_parity import LAM, MATERIALS, MU, rel_err, rng, to_numpy
 
+import fenris_tpu_torch.ops.banded as tb
 import fenris_tpu_torch.ops.em_sweep as tes
 from fenris_tpu.assembly import local as JL
 from fenris_tpu.assembly import local_em as JLE
 from fenris_tpu.mesh.procedural import create_unit_box_uniform_hex_mesh_3d as jax_box
+from fenris_tpu.mesh.reorder import reorder_mesh as jax_reorder_mesh
+from fenris_tpu.ops import banded as jb
 from fenris_tpu.quadrature.canonical import canonical_stiffness as jax_rule
 from fenris_tpu.solid import LameParameters as JaxLame
 from fenris_tpu.solid import MaterialEllipticOperator as JaxOp
@@ -151,11 +156,76 @@ def test_supports_is_what_the_kernels_take():
     assert not tes.supports(nh, None, ttab, torch.float32)
 
 
+def _banded_inputs(res, seed):
+    """RCM-reordered, perturbed res box with two owner blocks of 1,024 nodes and padding rows
+    (rowt 256), its JAX and port plans, padded geometry ``[E_pad, 8, 3]``, u ~ 1e-2, v ~ N(0, 1)."""
+    mesh, _ = jax_reorder_mesh(jax_box(res))
+    cells, N = np.asarray(mesh.cells), mesh.num_vertices
+    g = rng(seed)
+    pts = np.asarray(mesh.points) + g.uniform(-0.15, 0.15, (N, 3)) / res
+    jp = jb.make_banded_plan(cells, N, s=3, r_nodes=1024, rowt=256)
+    tp = tb.make_banded_plan(cells, N, s=3, r_nodes=1024, rowt=256, device="cpu")
+    return mesh, jp, tp, jp.pad_elements(pts[cells]), g.uniform(-0.01, 0.01, (N, 3)), g.standard_normal((N, 3))
+
+
+@pytest.mark.parametrize("res", [10, 11])
+def test_banded_tangent_sweep_plain_matches_jax(res):
+    """The fused sweep's plain version against JAX's banded gather of u and v, then the tangent sweep."""
+    mesh, jp, tp, Xp, u, v = _banded_inputs(res, 6)
+    assert tp.k_blocks == 2 and tp.padded_elements > tp.num_elements and min(tp.counts) < tp.elements_per_block
+    jop, top = _ops("neo_hookean")
+    jtab, ttab = _tabs(mesh)
+    ue, ve = (np.transpose(np.asarray(jb.gather(jp, jnp.asarray(a))), (1, 2, 0)) for a in (u, v))
+    ref = JLE.assemble_element_elliptic_tangent_vectors_em(jnp.asarray(np.transpose(Xp, (1, 2, 0))), jnp.asarray(ue),
+                                                           jnp.asarray(ve), jop, JaxLame(MU, LAM), jtab)
+    X_band = torch.as_tensor(Xp).permute(1, 2, 0).contiguous()
+    got = tes.banded_tangent_sweep_plain(tp, X_band, torch.as_tensor(u), torch.as_tensor(v), top, TorchLame(MU, LAM),
+                                         ttab)
+    assert got.shape == (tp.padded_elements, 8, 3)
+    # f64, another summation order: roundoff only
+    assert rel_err(np.transpose(np.asarray(ref), (2, 0, 1)), got) < 1e-12
+
+
+def test_banded_tangent_sweep_takes_plain_version_on_cpu_and_refuses_other_devices():
+    mesh, _, tp, Xp, u, v = _banded_inputs(10, 7)
+    _, top = _ops("neo_hookean")
+    _, ttab = _tabs(mesh)
+    params = TorchLame(MU, LAM)
+    X_band = torch.as_tensor(Xp, dtype=torch.float32).permute(1, 2, 0).contiguous()
+    ut, vt = (torch.as_tensor(a, dtype=torch.float32) for a in (u, v))
+    before = tes.banded_tangent_sweep.launches
+    assert torch.equal(tes.banded_tangent_sweep(tp, X_band, ut, vt, top, params, ttab, tes.device_tables(ttab, "cpu")),
+                       tes.banded_tangent_sweep_plain(tp, X_band, ut, vt, top, params, ttab))
+    assert tes.banded_tangent_sweep.launches == before
+    meta = [torch.empty(a.shape, device="meta") for a in (X_band, ut, vt)]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tes.banded_tangent_sweep(tp, *meta, top, params, ttab)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_banded_tangent_sweep_matches_plain_on_card(cuda_device):
+    mesh, _, _, Xp, u, v = _banded_inputs(11, 8)
+    _, top = _ops("neo_hookean")
+    _, ttab = _tabs(mesh)
+    params = TorchLame(MU, LAM)
+    cells = np.asarray(mesh.cells)
+    tp = tb.make_banded_plan(cells, mesh.num_vertices, s=3, r_nodes=1024, rowt=256, device=cuda_device)
+    X_band = torch.as_tensor(Xp, dtype=torch.float32, device=cuda_device).permute(1, 2, 0).contiguous()
+    ut, vt = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (u, v))
+    got = tes.banded_tangent_sweep(tp, X_band, ut, vt, top, params, ttab)
+    again = tes.banded_tangent_sweep(tp, X_band, ut, vt, top, params, ttab)
+    ref = tes.banded_tangent_sweep_plain(tp, X_band, ut, vt, top, params, ttab)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # fixed lane reduction order, no atomics
+    # f32 roundoff (FMA contraction, summation order)
+    assert rel_err(to_numpy(ref), got) < 1e-5
 
 
 @pytest.mark.cuda

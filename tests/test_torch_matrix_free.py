@@ -19,6 +19,7 @@ from fenris_tpu.solid import NeoHookeanMaterial as JaxNeoHookean
 from fenris_tpu_torch.elasticity import HyperelasticModel as TorchModel
 from fenris_tpu_torch.interop import hyperelastic_model_from_arrays
 from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d as torch_box
+from fenris_tpu_torch.ops import em_sweep
 from fenris_tpu_torch.optimize import NEWTON_CONVERGED
 from fenris_tpu_torch.solid import LameParameters as TorchLame
 from fenris_tpu_torch.solid import NeoHookeanMaterial as TorchNeoHookean
@@ -90,6 +91,25 @@ def test_banded_operators_match_jax(variant):
     # forward-mode AD (JAX) vs the closed-form tangent or torch.func.jvp
     assert rel_err(ref["hvp"], tm.hessian_vector_product(ut, vt)) < 1e-10
     assert rel_err(ref["hvp"], tm.hessian_operator(ut)(vt)) < 1e-10
+
+
+def test_fused_hessian_action_runs_the_banded_tangent_sweep(monkeypatch):
+    """The fused model's Hessian action is one banded_tangent_sweep (then the scatter), matching JAX."""
+    calls = []
+    fused = em_sweep.banded_tangent_sweep
+
+    def spy(*args, **kwargs):
+        calls.append(args[0])
+        return fused(*args, **kwargs)
+
+    monkeypatch.setattr(em_sweep, "banded_tangent_sweep", spy)
+    tm = _torch_model(10, banded_r_nodes=1024, chunk_size=1, banded=True, fused_kernels=True)
+    u, v = _state(tm.space.num_dofs)
+    ref = _banded_reference(u, v)
+    hv = tm.hessian_vector_product(torch.as_tensor(u), torch.as_tensor(v))
+    assert len(calls) == 1 and calls[0] is tm._plan
+    # forward-mode AD (JAX) vs the closed-form tangent
+    assert rel_err(ref["hvp"], hv) < 1e-10
 
 
 @pytest.mark.parametrize("chunk_size", [None, 7], ids=["unchunked", "chunked"])
