@@ -4,7 +4,9 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 It builds every kernel from ``fenris_tpu_torch/csrc`` (one nvcc per source,
-all started together) and drives the port's three paths at full size:
+all started together), runs the card tests (``tests/test_torch_cuda.py``,
+JAX-free, in a pytest subprocess without ``tests/conftest.py``; every test
+must pass and none skip) and drives the port's three paths at full size:
 
 * the structured Neo-Hookean Newton–Krylov solve (BASELINE config 5:
   128 x 128 x 64 = 1,048,576 hex8 cells, 3.25M dofs) through the stencil
@@ -22,7 +24,13 @@ all started together) and drives the port's three paths at full size:
 * entry B, ``assemble_element_elliptic_matrices_pairs(kernel="auto")``
   (the JAX package's ``pallas="auto"``) on 970,299 hex8 cells (res 99),
   through the element-stiffness kernel, which is also held against its
-  plain version for linear elasticity, Laplace and a ragged element count;
+  plain version for linear elasticity, Laplace and a ragged element count,
+  and, with the plain version, against an f64 evaluation of the same f32
+  coordinates;
+* a CG-count diagnostic at res 80: the first Newton step's CG iterations
+  with the band-sweep kernel, with the plain band matvec and on the fused
+  matrix-free operator; and the f64 banded model (plain gather and scatter
+  on the card) against the unbanded one;
 * path C, the matrix-free banded Neo-Hookean solve: C1 holds the banded
   gather and scatter, the fused banded tangent sweep (the CG operator:
   gather and tangent in one kernel) and the two element-minor sweeps
@@ -80,12 +88,14 @@ CHUNK_A = 65536
 BODY_A = (0.0, 0.0, -4.0)
 # entry B: the element-stiffness kernel at 970,299 hex8 cells
 RES_B = 99
-RAGGED_B = 11  # 1,331 cells: not a multiple of the 64-element block
+RAGGED_B = 11  # 1,331 cells: not a multiple of the kernel's 32-element block
 # path C: the matrix-free banded solve on path A's problem, kernel checks
 # also on a res-7 box and an RCM-reordered res-11 box (two owner blocks of
 # 1,024 nodes each), C3 at bench.py's unstructured size
 RAGGED_C = [(7, False), (11, True)]
 RES_C3 = 63
+RES_DIAG = 80  # the CG-count diagnostic: 512,000 cells, 1,594,323 dofs
+CARD_TESTS_TIMEOUT_S = 300
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
 HBM_BYTES_PER_S = 3.35e12
@@ -110,6 +120,25 @@ OPS_PER_QP = {
     "neo_hookean_hvp": 2 * 135 + 62 + 2 + 1 + 152 + 153,
 }
 EM_OPS_PER_ELEMENT = 21
+
+
+def stiffness_ops(E, m, n, q, s, sym):
+    """f32 operations of the element-stiffness function for hex-type elements (d = 3), the fewest its
+    arithmetic allows.  Per element and point: J from node-relative coordinates d^2 (2m - 3), J^-1 and
+    det 42, the weight 1, the gradients G = dphi J^-1 n d (2d - 1), G scaled by w|det| n d; per element
+    the node-relative coordinates (m - 1) d.  Then the fewer of two forms of the block entries needed
+    (all n^2 of an off-diagonal pair, the n (n + 1) / 2 upper ones of a symmetric operator's diagonal
+    pair): per point t = (w|det| G) C^ij, P n d (2d - 1), and t . G summed over points and d, 2 q d - 1
+    an entry; or, as the kernel does, M_ab = sum_q w|det| G_a G_b^T once per node pair a <= b,
+    d^2 (2q - 1), and C^ij : M, 2 d^2 - 1 an entry."""
+    d = 3
+    pairs = s * (s + 1) // 2 if sym else s * s
+    entries = (s * (s - 1) // 2 * n * n + s * n * (n + 1) // 2) if sym else s * s * n * n
+    geometry = q * (d * d * (2 * m - 3) + 42 + 1 + n * d * (2 * d - 1) + n * d) + (m - 1) * d
+    per_point = q * pairs * n * d * (2 * d - 1) + entries * (2 * q * d - 1)
+    node_pairs = n * (n + 1) // 2 * d * d * (2 * q - 1) + entries * (2 * d * d - 1)
+    return E * (geometry + min(per_point, node_pairs))
+
 
 SOURCES = {
     "structured_stencil": "fenris_tpu_torch/csrc/structured_stencil.cu",
@@ -188,19 +217,22 @@ def timed(fn, times):
 
 
 def ptxas_report(build_log):
-    """Registers and spill bytes of the gather and tangent kernels, from the loaded library's
-    ``-Xptxas -v`` log."""
+    """Registers and spill bytes of the gather, tangent and stiffness kernels, from the loaded
+    library's ``-Xptxas -v`` log; returns ``{label: ptxas text}``."""
     labels = {"banded_gather_kernelILi3E": "banded_gather (s = 3)",
               "tangent_kernelILb1E": "banded_tangent_sweep",
               "tangent_kernelILb0E": "em_vector_tangent_sweep (strided)"}
     if not build_log.is_file():
         log(f"ptxas: {build_log.name} not found (library built without a log); registers not reported")
-        return
+        return {}
     label, found = None, {}
     for line in build_log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             label = next((v for k, v in labels.items() if k in m.group(1)), None)
+            st = re.search(r"stiffness_pairs_kernelILi(\d)ELi(\d)E", m.group(1))
+            if st:
+                label = f"stiffness_pairs (d = {st.group(1)}, {st.group(2)} pairs)"
         elif label and "spill stores" in line:
             found[label] = line.strip()
         elif label and "Used" in line and "registers" in line:
@@ -208,6 +240,7 @@ def ptxas_report(build_log):
             label = None
     for name, txt in found.items():
         log(f"ptxas {name}: {txt}")
+    return found
 
 
 def reset_counts(kernels):
@@ -222,6 +255,25 @@ def free_memory():
 
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def card_tests():
+    """``tests/test_torch_cuda.py`` in a pytest subprocess, JAX-free and without ``tests/conftest.py``;
+    fails unless it exits 0 with tests passed and none skipped or failed."""
+    cmd = [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "--noconftest",
+           "-o", "markers=cuda: needs a card", "tests/test_torch_cuda.py"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=CARD_TESTS_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else "(no output)"
+    log(f"card tests (tests/test_torch_cuda.py): {summary} [exit {proc.returncode}, "
+        f"{time.perf_counter() - t0:.3f} s]")
+    if proc.returncode != 0:
+        log("\n".join(lines[-40:] + proc.stderr.strip().splitlines()[-20:]))
+    check(proc.returncode == 0, f"card tests exited {proc.returncode}")
+    passed = re.search(r"(\d+) passed", summary)
+    check(passed is not None and int(passed.group(1)) > 0, "card tests: no test passed")
+    check(not re.search(r"skipped|failed|error", summary), f"card tests: {summary}")
 
 
 # -- structured path ------------------------------------------------------------
@@ -578,6 +630,58 @@ def path_a_solve(kernels, model, plan_s, dev, smi):
     return x64
 
 
+def f64_banded_check(kernels, dev):
+    """An f64 banded model on the card (plain gather and scatter) against the unbanded f64 model;
+    an f32 banded residual launches the gather and scatter kernels."""
+    import torch
+
+    plain = assembled_model(6, torch.float64, dev, None)
+    banded = assembled_model(6, torch.float64, dev, None, mesh=plain.mesh, banded=True)
+    u = displacement(plain, seed=31)
+    reset_counts(kernels)
+    rel_r = float((banded.residual(u) - plain.residual(u)).abs().max() / plain.residual(u).abs().max())
+    rel_d = float((banded.hessian_diagonal(u) - plain.hessian_diagonal(u)).abs().max()
+                  / plain.hessian_diagonal(u).abs().max())
+    f64_launches = kernels["banded_gather"]["fn"].launches + kernels["banded_scatter"]["fn"].launches
+    banded32 = assembled_model(6, torch.float32, dev, None, mesh=plain.mesh, banded=True)
+    banded32.residual(u.float())
+    torch.cuda.synchronize()
+    g32, s32 = kernels["banded_gather"]["fn"].launches, kernels["banded_scatter"]["fn"].launches
+    log(f"f64 banded model res=6 on the card: residual rel {rel_r:.3e}, Jacobi diagonal rel {rel_d:.3e} against "
+        f"the unbanded f64 model (limit 1e-12), kernel launches {f64_launches}; f32 banded residual: "
+        f"banded_gather launches={g32}, banded_scatter launches={s32}")
+    check(rel_r <= 1e-12 and rel_d <= 1e-12, "f64 banded model differs from the unbanded one")
+    check(f64_launches == 0, "the f64 banded model launched an f32 kernel")
+    check(g32 > 0 and s32 > 0, "the f32 banded residual did not launch the gather and scatter kernels")
+
+
+def cg_count_diagnostic(dev, smi):
+    """The first Newton step's CG iterations on path A's problem at res 80 (u = 0, the f32 residual as
+    right-hand side, Jacobi, relative tolerance 1e-4) three ways: assembled with the band-sweep
+    kernel, assembled with the plain band matvec, and on the fused matrix-free operator (C2)."""
+    import torch
+
+    from fenris_tpu_torch.sparse.cg import conjugate_gradient
+
+    model = assembled_model(RES_DIAG, torch.float32, dev, CHUNK_A)
+    u0 = torch.zeros(model.space.num_dofs, device=dev)
+    f = model.residual(u0)
+    counts = {}
+    for name, kernel in (("band-sweep kernel", True), ("plain band matvec", False)):
+        hvp2, inv_diag2 = model.assembled_hessian_operator(u0, layout="component", kernel=kernel)
+        cg = conjugate_gradient(hvp2, f.reshape(-1, 3).T.contiguous(), preconditioner=lambda v: inv_diag2 * v,
+                                rel_tolerance=1e-4, max_iter=2000, check_definiteness=False)
+        counts[name] = (cg.num_iterations, cg.status)
+        del hvp2, inv_diag2
+    fused = assembled_model(RES_DIAG, torch.float32, dev, None, mesh=model.mesh, banded=True, fused_kernels=True)
+    cg = fused._matrix_free_cg(u0, f, None, 1e-4, 2000)
+    counts["fused matrix-free"] = (cg.num_iterations, cg.status)
+    log(f"CG-count diagnostic res={RES_DIAG} dofs={model.space.num_dofs}, first Newton step: "
+        + ", ".join(f"{n} {it} iterations (status {st})" for n, (it, st) in counts.items()) + f" ({smi})")
+    del model, fused
+    free_memory()
+
+
 # -- path C: the matrix-free banded solve -------------------------------------------------
 
 
@@ -883,6 +987,53 @@ def unfused_operator_choice(model, u, v, hv_jvp, cg_iters, smi):
 # -- entry B: element stiffness ----------------------------------------------------------
 
 
+def stiffness_accuracy(sp, X, op, params, tab, got, ref):
+    """The kernel, its plain version and the plain version on node-relative coordinates (J formed
+    from X - X[:, :1], which is J exactly, with fewer rounding errors) against an f64 evaluation of
+    the same f32 coordinates: max |x - f64| / max |f64|."""
+    import torch
+
+    ref64 = sp.stiffness_pairs_plain(X.double(), op, params, tab)
+    scale = float(ref64.abs().max())
+    rel = lambda a: float((a.double() - ref64).abs().max()) / scale  # noqa: E731
+    k_rel, p_rel = rel(got), rel(ref)
+    rel_x = sp.stiffness_pairs_plain(X - X[:, :1], op, params, tab)
+    r_rel, r_vs_p = rel(rel_x), float((rel_x.double() - ref.double()).abs().max()) / float(ref.double().abs().max())
+    del ref64, rel_x
+    torch.cuda.synchronize()
+    log(f"stiffness_pairs linear res={RES_B} against f64 on the same f32 coordinates: kernel {k_rel:.3e}, plain "
+        f"{p_rel:.3e}, plain on node-relative coordinates {r_rel:.3e} (that one against the plain version "
+        f"{r_vs_p:.3e}; the kernel forms J as the plain version does)")
+
+
+def stiffness_row_padding(sp, X, op, params, tab, smi):
+    """The kernel with its output rows E floats apart (E odd at res 99: each warp's 128-byte store run
+    straddles two lines) against rows a multiple of 32 floats apart, as the wrapper lays them out; in
+    turns, one launch each, straight through the library (not counted as launches)."""
+    import numpy as np
+    import torch
+
+    from fenris_tpu_torch.ops._build import load_library
+
+    tables, C, meta = sp._constants(op, params, tab)
+    tables_d = torch.as_tensor(tables, dtype=torch.float32, device=X.device)
+    cf = np.ascontiguousarray(C, dtype=np.float32)
+    E, lib = X.shape[0], load_library()
+    padded = -(-E // 32) * 32
+    out = torch.empty(meta["s"] ** 2 * meta["n"] ** 2 * padded, device=X.device)
+
+    def run(ld):
+        code = lib.fenris_stiffness_pairs(X.data_ptr(), tables_d.data_ptr(), cf.ctypes.data, out.data_ptr(), E, ld,
+                                          meta["m"], meta["n"], meta["q"], meta["d"], meta["s"], meta["sym"],
+                                          torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"stiffness_pairs: CUDA error {code}")
+
+    _, _, txt = in_turns(lambda: run(padded), lambda: run(E), reps=10,
+                         names=(f"rows {padded} floats apart", f"rows {E} floats apart"))
+    log(f"stiffness_pairs linear res={RES_B} output row stride: {txt} ({smi})")
+    del out
+
+
 def stiffness_phases(kernels, dev, smi):
     import numpy as np
     import torch
@@ -911,26 +1062,31 @@ def stiffness_phases(kernels, dev, smi):
                 sp.stiffness_pairs(Xr, op, params, tab), sp.stiffness_pairs_plain(Xr, op, params, tab))
     X = FemSpace.create(create_unit_box_uniform_hex_mesh_3d(RES_B), 3, torch.float32, dev).X_geo
     E = X.shape[0]
+    q, m = tab.num_points, X.shape[1]
     for name, (op, params) in cases.items():
         got = sp.stiffness_pairs(X, op, params, tab)
         again = sp.stiffness_pairs(X, op, params, tab)
         ref = sp.stiffness_pairs_plain(X, op, params, tab)
         err = compare("stiffness_pairs", f"{name} res={RES_B} E={E} out {got.numel() * 4 / 1e9:.3f} GB", got, again, ref)
-        del got, again, ref
+        del again
+        if name == "linear":
+            stiffness_accuracy(sp, X, op, params, tab, got, ref)
+        del got, ref
         free_memory()
         ms, plain_ms, txt = in_turns(
             lambda: sp.stiffness_pairs(X, op, params, tab), lambda: sp.stiffness_pairs_plain(X, op, params, tab), reps=5
         )
-        log(f"time stiffness_pairs {name} res={RES_B}: {txt}; {E / (ms * 1e-3) / 1e6:.1f} M elements/s ({smi})")
+        # X read and the pairs written once; the fewest operations (stiffness_ops)
+        s = op.solution_dim
+        rec = {}
+        bound_txt = set_bound(rec, (X.numel() + s * s * 64 * E) * 4, stiffness_ops(E, m, 8, q, s, op.symmetric))
+        log(f"time stiffness_pairs {name} res={RES_B}: {txt}; {E / (ms * 1e-3) / 1e6:.1f} M elements/s; "
+            f"{bound_txt}, {rec['bound_ms'] / ms * 100:.1f}% of it ({smi})")
         if name == "linear":
-            k["max_abs_err"], k["ms"], k["plain_ms"] = err, ms, plain_ms
-            # X read and the pairs written once; operations of the projector
-            # products, 2 n^2 (d^2 q) per element and unique (i <= j) pair
-            q = tab.num_points
-            log(f"stiffness_pairs linear res={RES_B}: "
-                + set_bound(k, (X.numel() + 9 * 64 * E) * 4, 2 * 64 * 9 * q * 6 * E))
-            k["library_ms"] = None
+            k.update(rec, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None)
+            stiffness_row_padding(sp, X, op, params, tab, smi)
         free_memory()
+    log(f"stiffness_pairs shared memory a block: {sp._smem_bytes(m, 8, q, 3)} bytes (hex8)")
 
     # entry B: the public element-stiffness entry point with kernel="auto"
     op, params = cases["linear"]
@@ -978,7 +1134,13 @@ def main() -> int:
     t0 = time.perf_counter()
     load_library()
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources in parallel)")
-    ptxas_report(build_log())
+    found = ptxas_report(build_log())
+    stiff = {n: t for n, t in found.items() if n.startswith("stiffness_pairs")}
+    check(len(stiff) > 0 and all("0 bytes spill stores, 0 bytes spill loads" in t for t in stiff.values()),
+          f"stiffness_pairs: ptxas reports spills or no entry: {stiff}")
+    t0 = time.perf_counter()
+    card_tests()
+    log(f"phase card tests: {time.perf_counter() - t0:.3f} s")
 
     kernels = {
         "neo_hookean_residual": dict(
@@ -1029,6 +1191,10 @@ def main() -> int:
     log(f"phase path A: {time.perf_counter() - t0:.3f} s")
     del model
     free_memory()
+    t0 = time.perf_counter()
+    cg_count_diagnostic(dev, smi)
+    f64_banded_check(kernels, dev)
+    log(f"phase CG-count diagnostic and f64 banded check: {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
     model = assembled_model(RES_A, torch.float32, dev, None, banded=True, fused_kernels=True)

@@ -45,8 +45,8 @@ _SIGNATURES = {
     "fenris_nh_hvp": ((_P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P), _I),
     # bands, offsets, D, x, y, N, s, stream
     "fenris_dia_sweep": ((_P, _P, _I, _P, _P, _L, _I, _P), _I),
-    # X, consts, out, E, m, n, q, d, s, sym, w_off, cf_off, wc_off, nconst, stream
-    "fenris_stiffness_pairs": ((_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P), _I),
+    # X, tables, cf (host), out, E, ld, m, n, q, d, s, sym, stream
+    "fenris_stiffness_pairs": ((_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _P), _I),
     # u, nodes, block_rows, out, rows_total, rows_per_block, s, stream
     "fenris_banded_gather": ((_P, _P, _P, _P, _L, _I, _I, _P), _I),
     # f, row_ptr, node_rows, out, num_nodes, s, stream

@@ -26,7 +26,9 @@ rows ascending) that the plan builds once on its device.
 :func:`gather` and :func:`scatter_add` are the autodiff-transparent pair
 (each the other's transpose, as ``linear_call`` makes them in JAX), so
 ``torch.func.jvp``, ``torch.func.linearize`` and ``torch.autograd`` pass
-through the kernels.
+through the kernels.  They send f32 data to the kernels and any other
+dtype to the plain versions, on the card too (the kernel wrappers raise on
+it), as the JAX package sends non-f32 data to XLA's gather and scatter.
 """
 
 from __future__ import annotations
@@ -305,10 +307,21 @@ banded_scatter.launches = 0
 # -- the differentiable pair -------------------------------------------------------
 
 
+def _gather_rows(plan: BandedPlan, u: torch.Tensor) -> torch.Tensor:
+    """The gather kernel for f32 data; the plain version for other dtypes (f64 on the card too),
+    as the JAX package sends non-f32 data to XLA's gather."""
+    return banded_gather(plan, u) if u.dtype == torch.float32 else banded_gather_plain(plan, u)
+
+
+def _scatter_rows(plan: BandedPlan, f_el: torch.Tensor) -> torch.Tensor:
+    """The scatter kernel for f32 data; the plain version for other dtypes."""
+    return banded_scatter(plan, f_el) if f_el.dtype == torch.float32 else banded_scatter_plain(plan, f_el)
+
+
 class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(u, plan):
-        return banded_gather(plan, u)
+        return _gather_rows(plan, u)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -316,17 +329,17 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return banded_scatter(ctx.plan, grad.contiguous()), None
+        return _scatter_rows(ctx.plan, grad.contiguous()), None
 
     @staticmethod
     def jvp(ctx, du, _):
-        return banded_gather(ctx.plan, du.contiguous())
+        return _gather_rows(ctx.plan, du.contiguous())
 
 
 class _ScatterAdd(torch.autograd.Function):
     @staticmethod
     def forward(f_el, plan):
-        return banded_scatter(plan, f_el)
+        return _scatter_rows(plan, f_el)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -334,18 +347,20 @@ class _ScatterAdd(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return banded_gather(ctx.plan, grad.contiguous()), None
+        return _gather_rows(ctx.plan, grad.contiguous()), None
 
     @staticmethod
     def jvp(ctx, df, _):
-        return banded_scatter(ctx.plan, df.contiguous())
+        return _scatter_rows(ctx.plan, df.contiguous())
 
 
 def gather(plan: BandedPlan, u: torch.Tensor) -> torch.Tensor:
-    """:func:`banded_gather`, linear in ``u``; its transpose is :func:`scatter_add`."""
+    """:func:`banded_gather` (f32) or :func:`banded_gather_plain`, linear in ``u``; its transpose is
+    :func:`scatter_add`."""
     return _Gather.apply(u, plan)
 
 
 def scatter_add(plan: BandedPlan, f_el: torch.Tensor) -> torch.Tensor:
-    """:func:`banded_scatter`, linear in ``f_el``; its transpose is :func:`gather`."""
+    """:func:`banded_scatter` (f32) or :func:`banded_scatter_plain`, linear in ``f_el``; its transpose is
+    :func:`gather`."""
     return _ScatterAdd.apply(f_el, plan)

@@ -21,7 +21,6 @@ from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
 from fenris_tpu_torch.optimize import NEWTON_CONVERGED
 from fenris_tpu_torch.solid import LameParameters as TorchLame
 from fenris_tpu_torch.solid import NeoHookeanMaterial as TorchNeoHookean
-from fenris_tpu_torch.solid import StVKMaterial as TorchStVK
 
 JAX_DTYPES = {torch.float32: jnp.float32, torch.float64: jnp.float64}
 BODY = (0.0, 0.0, -4.0)  # tools/solve_assembled.py's load
@@ -157,21 +156,3 @@ def test_unported_paths_raise():
         with pytest.raises(NotImplementedError, match="per-element"):
             TorchModel(mesh=tm.mesh, material=TorchNeoHookean(), params=TorchLame(mu_el, LAM),
                        dtype=torch.float64, device="cpu", banded=banded)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_fused_model_refuses_what_the_kernels_do_not_take(cuda_device):
-    """A CUDA fused model the element-sweep kernels cannot run raises; it does not fall back."""
-    _, tm = _pair(res=2)
-    kw = dict(mesh=tm.mesh, params=TorchLame(MU, LAM), device=cuda_device, banded=True, fused_kernels=True)
-    with pytest.raises(NotImplementedError, match="fused_kernels"):
-        TorchModel(material=TorchStVK(), dtype=torch.float32, **kw)
-    with pytest.raises(NotImplementedError, match="fused_kernels"):
-        TorchModel(material=TorchNeoHookean(), dtype=torch.float64, **kw)

@@ -2,8 +2,7 @@
 
 The JAX package (f64 on the CPU) and the port run on the same numpy
 inputs.  The JAX Pallas stiffness kernel runs once, in interpret mode; the
-CUDA kernel runs only on a card: its test is marked ``cuda`` and skips
-without one.
+CUDA kernel runs only on a card: its tests are in ``tests/test_torch_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -219,31 +218,69 @@ def test_stiffness_wrapper_takes_plain_version_on_cpu(kind):
             np.testing.assert_array_equal(g[j, i], g[i, j].transpose(1, 0, 2))
 
 
+def _direct_pairs_emulation(X, op, params, tab):
+    """float64 emulation of ``csrc/stiffness_pairs.cu`` on the inputs its wrapper hands it.
+
+    Per quadrature point J, J^-1, w|det| and the physical gradients
+    ``G_q = dphi_q J^-1``; per node pair ``M_ab = Σ_q w|det| G_q[a] G_q[b]ᵀ``;
+    per computed pair p (row-major, upper only for symmetric operators) the
+    block entries ``C^p : M_ab``, i.e. ``Σ_q (w|det| G_q) C^p G_qᵀ``; the
+    mirror block (j, i) of a symmetric operator is the node transpose of
+    (i, j).
+    """
+    tables, C, meta = tsk._constants(op, params, tab)
+    m, n, q, d, s, sym = (meta[k] for k in ("m", "n", "q", "d", "s", "sym"))
+    gd = torch.as_tensor(tables[: q * m * d]).reshape(q, m, d)
+    dphi = torch.as_tensor(tables[q * m * d : q * (m + n) * d]).reshape(q, n, d)
+    w = torch.as_tensor(tables[q * (m + n) * d :])
+    assert w.shape == (q,)
+    X = torch.as_tensor(X, dtype=torch.float64)
+    J = torch.einsum("qml,emk->eqkl", gd, X)
+    G = torch.einsum("qbl,eqlk->eqbk", dphi, torch.linalg.inv(J))
+    wG = G * (w * torch.linalg.det(J).abs())[..., None, None]
+    M = torch.einsum("eqak,eqbl->abkle", wG, G)
+    pairs = [(i, j) for i in range(s) for j in range(s) if not sym or i <= j]
+    assert C.shape == (len(pairs), d, d)
+    out = torch.zeros((s * s, n * n, X.shape[0]), dtype=torch.float64)
+    for (i, j), Cp in zip(pairs, torch.as_tensor(C)):
+        A = torch.einsum("kl,abkle->abe", Cp, M)
+        out[i * s + j] = A.reshape(n * n, -1)
+        if sym and i != j:
+            out[j * s + i] = A.transpose(0, 1).reshape(n * n, -1)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["linear", "laplace"])
+def test_direct_stiffness_formula_matches_jax_pairs(kind):
+    """The stiffness kernel's arithmetic (direct per-point G C Gᵀ, its constant tables and mirror
+    layout) against the JAX XLA pairs path, f64 on a perturbed res-2 box."""
+    Xe, _ = _perturbed_box(2)
+    jtab, ttab = _tabs()
+    jop, top = OPERATORS[kind][0](), OPERATORS[kind][1]()
+    jp, tp = _params(kind)
+    ref = jlocal.assemble_element_elliptic_matrices_pairs(jnp.asarray(Xe), None, jop, jp, jtab, pallas=False)
+    # f64, another summation order: roundoff only
+    assert rel_err(np.asarray(ref), _direct_pairs_emulation(Xe, top, tp, ttab)) < 1e-12
+
+
+def test_stiffness_kernel_gate():
+    """What the kernel is instantiated for: d in (2, 3), 1, 3, 4, 6 or 9 pairs, a gradient table that
+    fits in shared memory; never a CPU or f64 tensor."""
+    _, ttab = _tabs()
+    lin, lap = OPERATORS["linear"][1](), OPERATORS["laplace"][1]()
+    assert tsk._fits(lin, ttab) and tsk._fits(lap, ttab)
+
+    class FourComponents:
+        solution_dim, symmetric, constant_contraction = 4, True, True  # 10 upper pairs
+
+    assert not tsk._fits(FourComponents(), ttab)
+    assert tsk._smem_bytes(8, 8, 8, 3) == 4 * (8 * 8 * 32 * 4 + 8 * 3 * 32 + 8 * 16 * 3 + 8)
+    assert not tsk.supports_stiffness_kernel(lin, _params("linear")[1], ttab, torch.zeros((4, 8, 3)))
+
+
 def test_stiffness_wrapper_refuses_other_devices_and_nonconstant_operators():
     _, ttab = _tabs()
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tsk.stiffness_pairs(torch.empty((4, 8, 3), device="meta"), OPERATORS["linear"][1](), _params("linear")[1], ttab)
     with pytest.raises(ValueError, match="constant"):
         tsk.stiffness_pairs_plain(torch.zeros((4, 8, 3)), OPERATORS["neo_hookean"][1](), _params("linear")[1], ttab)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["linear", "laplace"])
-def test_stiffness_kernel_matches_plain_on_card(kind, cuda_device):
-    Xe, _ = _perturbed_box(5)
-    _, ttab = _tabs()
-    top, tp = OPERATORS[kind][1](), _params(kind)[1]
-    Xt = torch.as_tensor(Xe, dtype=torch.float32, device=cuda_device)
-    got = tsk.stiffness_pairs(Xt, top, tp, ttab)
-    again = tsk.stiffness_pairs(Xt, top, tp, ttab)
-    torch.cuda.synchronize()
-    # f32 roundoff (FMA contraction, summation order)
-    assert rel_err(to_numpy(tsk.stiffness_pairs_plain(Xt, top, tp, ttab)), got) < 1e-5
-    assert torch.equal(got, again)

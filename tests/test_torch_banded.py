@@ -235,27 +235,20 @@ def test_rcm_matches_jax(shuffle):
     np.testing.assert_array_equal(tr.points, np.asarray(jr.points))
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", list(CASES))
-def test_kernels_match_plain_on_card(name, cuda_device):
-    cells, _, _ = _plans(name)
-    _, _, s, r_nodes, rowt = CASES[name]
-    N = int(cells.max()) + 1
-    tp = tb.make_banded_plan(cells, N, s=s, r_nodes=r_nodes, rowt=rowt, device=cuda_device)
-    u = torch.as_tensor(rng(12).standard_normal((N, s)), dtype=torch.float32, device=cuda_device)
-    got = tb.banded_gather(tp, u)
-    torch.cuda.synchronize()
-    assert torch.equal(got, tb.banded_gather_plain(tp, u))
-    f = torch.as_tensor(rng(13).standard_normal((tp.padded_elements, tp.n, s)), dtype=torch.float32,
-                        device=cuda_device)
-    got = tb.banded_scatter(tp, f)
-    again = tb.banded_scatter(tp, f)
-    torch.cuda.synchronize()
-    assert torch.equal(got, again) and torch.equal(got, tb.banded_scatter_plain(tp, f))
+def test_differentiable_pair_sends_only_f32_to_the_kernels(monkeypatch):
+    """An f64 banded model runs on the card: ``gather``/``scatter_add`` (values and tangents) hand
+    f32 data to the kernel wrappers and any other dtype to the plain versions (the wrappers raise on
+    f64 CUDA tensors)."""
+    _, _, tp = _plans("box5_s3")
+    seen = []
+    for name in ("banded_gather", "banded_scatter"):
+        orig = getattr(tb, name)
+        monkeypatch.setattr(tb, name, lambda plan, x, _o=orig, _n=name: seen.append((_n, x.dtype)) or _o(plan, x))
+    u = torch.as_tensor(rng(20).standard_normal((tp.num_nodes, 3)))
+    for dtype in (torch.float64, torch.float32):
+        ud = u.to(dtype)
+        rows, drows = torch.func.jvp(lambda x: tb.gather(tp, x), (ud,), (2 * ud,))
+        f, df = torch.func.jvp(lambda r: tb.scatter_add(tp, r), (rows,), (drows,))
+        assert torch.equal(rows, tb.banded_gather_plain(tp, ud)) and torch.equal(drows, 2 * rows)
+        assert torch.equal(f, tb.banded_scatter_plain(tp, rows)) and torch.equal(df, 2 * f)
+    assert sorted(set(seen)) == [("banded_gather", torch.float32), ("banded_scatter", torch.float32)]

@@ -3,7 +3,7 @@
 The port builds its plans with PyTorch (on the model's device); here they
 are held equal to the JAX package's numpy plans entry for entry.  The JAX
 Pallas band sweep runs once, in interpret mode; the CUDA kernel runs only
-on a card (``cuda``-marked, skips without one).
+on a card (``tests/test_torch_cuda.py``).
 """
 
 import jax.numpy as jnp
@@ -264,24 +264,3 @@ def test_dia_sweep_wrapper_takes_plain_version_on_cpu_and_refuses_other_devices(
     meta = torch.empty((27 * 9, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tds.dia_sweep(meta, tm.offsets, torch.empty((3, 8), device="meta"))
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["exact", "remainder"])
-def test_dia_sweep_kernel_matches_plain_on_card(operators, name, cuda_device):
-    _, tm = operators[name]
-    bands = tm.bands.to(device=cuda_device, dtype=torch.float32)
-    x2 = torch.as_tensor(rng(11).standard_normal((3, tm.num_nodes)), dtype=torch.float32, device=cuda_device)
-    got = tds.dia_sweep(bands, tm.offsets, x2)
-    again = tds.dia_sweep(bands, tm.offsets, x2)
-    torch.cuda.synchronize()
-    # f32 roundoff (FMA contraction)
-    assert rel_err(to_numpy(tds.dia_sweep_plain(bands, tm.offsets, x2)), got) < 1e-5
-    assert torch.equal(got, again)

@@ -200,47 +200,3 @@ def test_banded_tangent_sweep_takes_plain_version_on_cpu_and_refuses_other_devic
     meta = [torch.empty(a.shape, device="meta") for a in (X_band, ut, vt)]
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tes.banded_tangent_sweep(tp, *meta, top, params, ttab)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_banded_tangent_sweep_matches_plain_on_card(cuda_device):
-    mesh, _, _, Xp, u, v = _banded_inputs(11, 8)
-    _, top = _ops("neo_hookean")
-    _, ttab = _tabs(mesh)
-    params = TorchLame(MU, LAM)
-    cells = np.asarray(mesh.cells)
-    tp = tb.make_banded_plan(cells, mesh.num_vertices, s=3, r_nodes=1024, rowt=256, device=cuda_device)
-    X_band = torch.as_tensor(Xp, dtype=torch.float32, device=cuda_device).permute(1, 2, 0).contiguous()
-    ut, vt = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (u, v))
-    got = tes.banded_tangent_sweep(tp, X_band, ut, vt, top, params, ttab)
-    again = tes.banded_tangent_sweep(tp, X_band, ut, vt, top, params, ttab)
-    ref = tes.banded_tangent_sweep_plain(tp, X_band, ut, vt, top, params, ttab)
-    torch.cuda.synchronize()
-    assert torch.equal(got, again)  # fixed lane reduction order, no atomics
-    # f32 roundoff (FMA contraction, summation order)
-    assert rel_err(to_numpy(ref), got) < 1e-5
-
-
-@pytest.mark.cuda
-def test_kernels_match_plain_on_card(cuda_device):
-    mesh, X, u, v = _inputs(5)
-    _, top = _ops("neo_hookean")
-    _, ttab = _tabs(mesh)
-    params = TorchLame(MU, LAM)
-    Xt, ut, vt = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (X, u, v))
-    for got, ref in (
-        (tes.em_vector_sweep(Xt, ut, top, params, ttab),
-         TLE.assemble_element_elliptic_vectors_em(Xt, ut, top, params, ttab)),
-        (tes.em_vector_tangent_sweep(Xt, ut, vt, top, params, ttab),
-         TLE.assemble_element_elliptic_tangent_vectors_em(Xt, ut, vt, top, params, ttab)),
-    ):
-        torch.cuda.synchronize()
-        # f32 roundoff (FMA contraction, summation order)
-        assert rel_err(to_numpy(ref), got) < 1e-5

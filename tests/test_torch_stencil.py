@@ -2,7 +2,7 @@
 
 The JAX Pallas kernels run in interpret mode on the CPU, patched as in
 tests/test_stencil_kernel.py.  The CUDA kernels themselves run only on a
-card: their test is marked ``cuda`` and skips without one.
+card: their test is in ``tests/test_torch_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
-from torch_parity import LAM, MU, model_pair, rel_err, rng, to_numpy
+from torch_parity import LAM, MU, model_pair, rel_err, rng
 
 import fenris_tpu.ops.structured_stencil as jss
 import fenris_tpu_torch.ops.structured_stencil as tss
@@ -121,30 +121,3 @@ def test_scatter_corners_is_adjoint_of_corner_views():
     lhs = (tss.scatter_corners(f, u.shape[1:]) * u).sum()
     rhs = (f * torch.stack(tss.corner_views(u))).sum()
     assert abs(float(lhs - rhs)) < 1e-12 * abs(float(rhs))
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("cells", [(5, 4, 11), (15, 7, 5)])
-def test_kernels_match_plain_on_card(cells, cuda_device):
-    h = 0.25
-    u, v = _grids(cells, h)
-    gp, w = tss.gp_table(h)
-    ut = torch.as_tensor(u, dtype=torch.float32, device=cuda_device)
-    vt = torch.as_tensor(v, dtype=torch.float32, device=cuda_device)
-    for kernel, plain, args in (
-        (tss.neo_hookean_residual, tss.neo_hookean_residual_plain, (ut,)),
-        (tss.neo_hookean_hvp, tss.neo_hookean_hvp_plain, (ut, vt)),
-    ):
-        got = kernel(*args, gp, w, MU, LAM)
-        again = kernel(*args, gp, w, MU, LAM)
-        torch.cuda.synchronize()
-        # f32 roundoff (FMA contraction, summation order)
-        assert rel_err(to_numpy(plain(*args, gp, w, MU, LAM)), got) < 1e-5
-        assert torch.equal(got, again)  # no atomics: bitwise reproducible
