@@ -10,8 +10,11 @@ must pass and none skip) and drives the port's three paths at full size:
 
 * the structured Neo-Hookean Newton–Krylov solve (BASELINE config 5:
   128 x 128 x 64 = 1,048,576 hex8 cells, 3.25M dofs) through the stencil
-  kernels: each kernel against its plain version at the full size and two
-  ragged shapes, times, ``solve(preconditioner="mg")`` at the full size
+  kernels: each kernel against its plain version at the full size and
+  four ragged shapes down to one cell (the Hessian action also for one
+  launch that allocates only its output), times, the ``ptxas`` lines of
+  every stencil kernel (no spills in the Hessian action),
+  ``solve(preconditioner="mg")`` at the full size
   (||F|| / ||F0|| <= 1e-1, the pure-f32 floor) and ``solve_mixed`` at 32^3
   (relative ||F|| <= 1e-10);
 * path A, the assembled block-DIA Neo-Hookean solve of
@@ -28,9 +31,11 @@ must pass and none skip) and drives the port's three paths at full size:
   and, with the plain version, against an f64 evaluation of the same f32
   coordinates;
 * a CG-count diagnostic at res 80: the first Newton step's CG iterations
-  with the band-sweep kernel, with the plain band matvec and on the fused
-  matrix-free operator; and the f64 banded model (plain gather and scatter
-  on the card) against the unbanded one;
+  on seven operators (assembled f32 with the band-sweep kernel and with
+  the plain band matvec, the fused matrix-free kernel and its plain
+  version, assembled in f64, f64 element matrices in f32 bands, and the
+  f32 assembly with node-relative J); and the f64 banded model (plain
+  gather and scatter on the card) against the unbanded one;
 * path C, the matrix-free banded Neo-Hookean solve: C1 holds the banded
   gather and scatter, the fused banded tangent sweep (the CG operator:
   gather and tangent in one kernel) and the two element-minor sweeps
@@ -81,7 +86,9 @@ KERNEL_RTOL = 1e-5  # f32 roundoff: FMA contraction and summation order
 
 # structured path
 FULL = (128, 128, 64)
-RAGGED = [(5, 4, 11), (15, 7, 5)]
+# ragged: a tile, a slab and the last node on each axis of the Hessian-action kernel (32 x 10 nodes,
+# 13 layers a block), and a one-cell grid
+RAGGED = [(5, 4, 11), (15, 7, 5), (33, 9, 17), (1, 1, 1)]
 # path A: tools/solve_assembled.py as it stands
 RES_A = 149
 CHUNK_A = 65536
@@ -109,17 +116,31 @@ F32_OPS_PER_S = 67e12
 # 78; stress P 27; tangent (tr(F^-1 dF) 17, F^-T dF^T 45, dF^-T 45, dP 46)
 # 153; contraction (the stress scaled by the weight once 9, 24 sums of 3
 # products 120, the sum over points 24) 153.  Plus, once an element, the
-# node-relative coordinates: EM_OPS_PER_ELEMENT.  The structured stencils
-# read a constant gradient table: grad u 135, kinematics 62, alpha 2, 1/det
-# 1, then P 36 (residual) or dP 152 plus a second gradient 135 (Hessian
-# action), contraction 153.
+# node-relative coordinates: EM_OPS_PER_ELEMENT.  The structured stencils:
+# stencil_ops.
 OPS_PER_QP = {
     "em_vector_sweep": 280 + 135 + 78 + 27 + 153,
     "em_vector_tangent_sweep": 280 + 2 * 135 + 78 + 153 + 153,
-    "neo_hookean_residual": 135 + 62 + 2 + 1 + 36 + 153,
-    "neo_hookean_hvp": 2 * 135 + 62 + 2 + 1 + 152 + 153,
 }
 EM_OPS_PER_ELEMENT = 21
+
+
+def stencil_ops(cells, hvp):
+    """f32 operations of the structured residual (``hvp=False``) or Hessian action on ``cells`` hex8
+    cells of a uniform grid, the fewer of two forms.  Per cell and point, in both: kinematics (F, gamma,
+    log1p, adjugate, det) 62, alpha 2, 1/det 1, then the stress P 36 (residual) or its tangent dP 152
+    (Hessian action).  Dense form, per point: the gradient from the constant table, 135 a field (9 sums of
+    8 products), and the contraction 153 (the stress scaled by the weight 9, 24 sums of 3 products 120, the
+    sum over points 24).  Tensor-product form (what the Hessian-action kernel does), per cell: the
+    gradient at all 8 points 252 a field (for each derivative and component 4 edge differences, then two
+    1-D interpolations of 4 values at 3 operations each: 28), and the contraction 372 (the weighted
+    stress 72, the sums of point pairs into the 36-entry adjoint table 36, its two adjoint interpolations
+    216, the signed sums of 3 edge values into the 24 node values 48)."""
+    fields, stress = (2, 152) if hvp else (1, 36)
+    point = 62 + 2 + 1 + stress
+    dense = 8 * (fields * 135 + point + 153)
+    tensor_product = fields * 252 + 8 * point + 372
+    return cells * min(dense, tensor_product)
 
 
 def stiffness_ops(E, m, n, q, s, sym):
@@ -217,9 +238,12 @@ def timed(fn, times):
 
 
 def ptxas_report(build_log):
-    """Registers and spill bytes of the gather, tangent and stiffness kernels, from the loaded
-    library's ``-Xptxas -v`` log; returns ``{label: ptxas text}``."""
-    labels = {"banded_gather_kernelILi3E": "banded_gather (s = 3)",
+    """Registers, shared memory and spill bytes of the stencil, gather, tangent and stiffness kernels,
+    from the loaded library's ``-Xptxas -v`` log; returns ``{label: ptxas text}``."""
+    labels = {"nh_hvp_march": "neo_hookean_hvp (nh_hvp_march)",
+              "nh_residual_cells": "neo_hookean_residual (nh_residual_cells)",
+              "gather_nodes": "neo_hookean_residual (gather_nodes)",
+              "banded_gather_kernelILi3E": "banded_gather (s = 3)",
               "tangent_kernelILb1E": "banded_tangent_sweep",
               "tangent_kernelILb0E": "em_vector_tangent_sweep (strided)"}
     if not build_log.is_file():
@@ -332,6 +356,19 @@ def structured_phases(kernels, dev, smi):
             err = compare(name, f"cells={cells}", got, again, k["plain"](*args, gp, w, MU, LAM))
             if cells == FULL:
                 k["max_abs_err"] = err
+            if cells == FULL and name == "neo_hookean_hvp":
+                # one launch, no scratch: the call allocates its output and nothing else
+                del got, again
+                free_memory()
+                torch.cuda.reset_peak_memory_stats()
+                m0, n0 = torch.cuda.memory_allocated(), k["fn"].launches
+                got = k["fn"](*args, gp, w, MU, LAM)
+                torch.cuda.synchronize()
+                extra, out_bytes = torch.cuda.max_memory_allocated() - m0, -(-got.numel() * 4 // 512) * 512
+                log(f"{name} cells={cells}: one call allocates {extra} bytes of device memory (its output "
+                    f"{out_bytes}) in {k['fn'].launches - n0} launch")
+                check(extra <= out_bytes, f"{name}: the call allocates more than its output")
+                again = got
         del u, v, got, again
 
     # times at full size
@@ -343,7 +380,8 @@ def structured_phases(kernels, dev, smi):
             lambda: k["fn"](*args, gp, w, MU, LAM), lambda: k["plain"](*args, gp, w, MU, LAM)
         )
         # inputs read and the output written once; no PyTorch call computes the stencils
-        bound_txt = set_bound(k, (k["nargs"] + 1) * u.numel() * 4, OPS_PER_QP[name] * 8 * FULL[0] * FULL[1] * FULL[2])
+        bound_txt = set_bound(k, (k["nargs"] + 1) * u.numel() * 4,
+                              stencil_ops(FULL[0] * FULL[1] * FULL[2], hvp=k["nargs"] == 2))
         k["library_ms"] = None
         log(f"time {name} cells={FULL}: {txt}; {bound_txt} ({smi})")
     del u, v
@@ -657,27 +695,57 @@ def f64_banded_check(kernels, dev):
 
 def cg_count_diagnostic(dev, smi):
     """The first Newton step's CG iterations on path A's problem at res 80 (u = 0, the f32 residual as
-    right-hand side, Jacobi, relative tolerance 1e-4) three ways: assembled with the band-sweep
-    kernel, assembled with the plain band matvec, and on the fused matrix-free operator (C2)."""
+    right-hand side, Jacobi, relative tolerance 1e-4) seven ways: assembled with the band-sweep
+    kernel and with the plain band matvec; the fused matrix-free operator (C2) with its kernel; (a)
+    assembled in f64 (f64 bands, the plain band matvec, CG in f64); (b) element matrices computed in
+    f64 and cast to f32 before the f32 band assembly, with the band-sweep kernel; (c) the f32 assembly
+    with the element tangent's J taken relative to each element's first node (as ``local_em`` and the
+    em kernels take it), with the band-sweep kernel; (d) the fused operator's plain version
+    (``banded_tangent_sweep_plain``) in f32."""
+    from unittest import mock
+
     import torch
 
+    import fenris_tpu_torch.elasticity as el
+    import fenris_tpu_torch.ops.em_sweep as es
     from fenris_tpu_torch.sparse.cg import conjugate_gradient
 
     model = assembled_model(RES_DIAG, torch.float32, dev, CHUNK_A)
     u0 = torch.zeros(model.space.num_dofs, device=dev)
     f = model.residual(u0)
+    pairs = el.assemble_element_elliptic_matrices_pairs
     counts = {}
-    for name, kernel in (("band-sweep kernel", True), ("plain band matvec", False)):
-        hvp2, inv_diag2 = model.assembled_hessian_operator(u0, layout="component", kernel=kernel)
-        cg = conjugate_gradient(hvp2, f.reshape(-1, 3).T.contiguous(), preconditioner=lambda v: inv_diag2 * v,
+
+    def assembled_cg(name, m, kernel):
+        hvp2, inv_diag2 = m.assembled_hessian_operator(u0.to(m.dtype), layout="component", kernel=kernel)
+        rhs = f.to(m.dtype).reshape(-1, 3).T.contiguous()
+        cg = conjugate_gradient(hvp2, rhs, preconditioner=lambda v: inv_diag2 * v,
                                 rel_tolerance=1e-4, max_iter=2000, check_definiteness=False)
         counts[name] = (cg.num_iterations, cg.status)
-        del hvp2, inv_diag2
+
+    assembled_cg("band-sweep kernel", model, True)
+    assembled_cg("plain band matvec", model, False)
     fused = assembled_model(RES_DIAG, torch.float32, dev, None, mesh=model.mesh, banded=True, fused_kernels=True)
     cg = fused._matrix_free_cg(u0, f, None, 1e-4, 2000)
-    counts["fused matrix-free"] = (cg.num_iterations, cg.status)
-    log(f"CG-count diagnostic res={RES_DIAG} dofs={model.space.num_dofs}, first Newton step: "
-        + ", ".join(f"{n} {it} iterations (status {st})" for n, (it, st) in counts.items()) + f" ({smi})")
+    counts["fused matrix-free kernel"] = (cg.num_iterations, cg.status)
+    model64 = assembled_model(RES_DIAG, torch.float64, dev, CHUNK_A, mesh=model.mesh)
+    assembled_cg("(a) assembled f64, plain band matvec", model64, False)
+    del model64
+    free_memory()
+    f64_elements = lambda X, u_el, *a: pairs(X.double(), u_el.double(), *a).float()  # noqa: E731
+    with mock.patch.object(el, "assemble_element_elliptic_matrices_pairs", f64_elements):
+        assembled_cg("(b) f64 element matrices in f32 bands, band-sweep kernel", model, True)
+    node_relative = lambda X, u_el, *a: pairs(X - X[:, :1], u_el, *a)  # noqa: E731
+    with mock.patch.object(el, "assemble_element_elliptic_matrices_pairs", node_relative):
+        assembled_cg("(c) f32 assembly, node-relative J, band-sweep kernel", model, True)
+    plain_sweep = lambda plan, X, u, v, op, params, tab, tables: es.banded_tangent_sweep_plain(  # noqa: E731
+        plan, X, u, v, op, params, tab)
+    with mock.patch.object(es, "banded_tangent_sweep", plain_sweep):
+        cg = fused._matrix_free_cg(u0, f, None, 1e-4, 2000)
+    counts["(d) fused plain version f32"] = (cg.num_iterations, cg.status)
+    for name, (it, st) in counts.items():
+        log(f"CG-count diagnostic res={RES_DIAG} dofs={model.space.num_dofs}, first Newton step: {name}: "
+            f"{it} iterations (status {st}) ({smi})")
     del model, fused
     free_memory()
 
@@ -1135,9 +1203,10 @@ def main() -> int:
     load_library()
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources in parallel)")
     found = ptxas_report(build_log())
-    stiff = {n: t for n, t in found.items() if n.startswith("stiffness_pairs")}
-    check(len(stiff) > 0 and all("0 bytes spill stores, 0 bytes spill loads" in t for t in stiff.values()),
-          f"stiffness_pairs: ptxas reports spills or no entry: {stiff}")
+    for prefix in ("stiffness_pairs", "neo_hookean_hvp"):
+        entries = {n: t for n, t in found.items() if n.startswith(prefix)}
+        check(len(entries) > 0 and all("0 bytes spill stores, 0 bytes spill loads" in t for t in entries.values()),
+              f"{prefix}: ptxas reports spills or no entry: {entries}")
     t0 = time.perf_counter()
     card_tests()
     log(f"phase card tests: {time.perf_counter() - t0:.3f} s")

@@ -41,8 +41,8 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     # u, scratch, out, nz, ny, nx, gp, wdet, mu, lam, stream
     "fenris_nh_residual": ((_P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P), _I),
-    # u, v, scratch, out, nz, ny, nx, gp, wdet, mu, lam, stream
-    "fenris_nh_hvp": ((_P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P), _I),
+    # u, v, out, nz, ny, nx, factors (host f32 [32]), mu, lam, stream
+    "fenris_nh_hvp": ((_P, _P, _P, _I, _I, _I, _P, _F, _F, _P), _I),
     # bands, offsets, D, x, y, N, s, stream
     "fenris_dia_sweep": ((_P, _P, _I, _P, _P, _L, _I, _P), _I),
     # X, tables, cf (host), out, E, ld, m, n, q, d, s, sym, stream

@@ -14,10 +14,15 @@ shape, with the basis-gradient table ``gp [8, 8, 3]`` and the weights
 order is the JAX package's).  On a CUDA tensor each wrapper launches its
 hand-written kernel (``csrc/structured_stencil.cu``; f32, contiguous) or
 raises; on a CPU tensor it runs the plain PyTorch version beside it.  Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+wrapper counts its kernel launches in ``<wrapper>.launches``.  The
+Hessian-action kernel works in the tensor-product form of a uniform grid's
+table: :func:`hvp_factors` derives its factors from ``gp`` and ``wdet`` and
+refuses a table without that structure.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -29,6 +34,7 @@ from ._build import check, load_library
 
 __all__ = [
     "gp_table",
+    "hvp_factors",
     "neo_hookean_residual",
     "neo_hookean_hvp",
     "neo_hookean_residual_plain",
@@ -187,10 +193,65 @@ def neo_hookean_residual(u_grid, gp, wdet, mu, lam):
     return out
 
 
+def hvp_factors(gp, wdet) -> np.ndarray:
+    """The Hessian-action kernel's tensor-product factors of a uniform hex8 table, f32 ``[32]``.
+
+    On a uniform grid ``gp[q, n, a] = ±D_a B_b1[q_b1, n_b1] B_b2[q_b2, n_b2]``
+    (b1 = (a + 1) % 3, b2 = (a + 2) % 3; + where node n lies on the upper
+    side along a): a difference along a, times the 1-D factors ``B_b[p, m]``
+    of node side m at the axis' Gauss point p, with ``D_a`` the derivative
+    scale (1/h).  Returns ``t1[a, p, m] = B_b1[p, m]``, ``t2[a, p, m] = D_a
+    B_b2[p, m]`` and the weights ``w[qz, qy, qx] = wdet[q]``, concatenated
+    (the kernel's ``HvpFactors``).  Raises ``ValueError`` unless the table
+    rebuilt from these factors equals ``gp`` to 1e-6 of its largest entry
+    (f32 roundoff, which :func:`gp_table`'s tables meet).
+    """
+    gp = np.asarray(gp, dtype=np.float64)
+    wdet = np.asarray(wdet, dtype=np.float64)
+    if gp.shape != (8, 8, 3) or wdet.shape != (8,):
+        raise ValueError(f"expected gp [8, 8, 3] and wdet [8], got {gp.shape}, {wdet.shape}")
+    off = np.array(_OFFSETS)  # [n, 3]: (di, dj, dk)
+    upper = off == 1
+    D = np.stack([gp[:, upper[:, a], a].sum(1) for a in range(3)], 1)  # [q, 3]
+    if not np.all(np.abs(D) > 0):
+        raise ValueError("gp is not a uniform hex8 tensor-product table: a zero derivative scale")
+    # the 1-D factor along b at each point, read off the derivative along a = (b + 2) % 3
+    L = np.empty((8, 3, 2))
+    for b in range(3):
+        a = (b + 2) % 3
+        for m in range(2):
+            L[:, b, m] = gp[:, upper[:, a] & (off[:, b] == m), a].sum(1) / D[:, a]
+    pt = (L[:, :, 0] < L[:, :, 0].mean(0)).astype(np.int64)  # [q, 3]: point 0 nearer node side 0
+    if len({tuple(r) for r in pt}) != 8:
+        raise ValueError("gp is not a uniform hex8 tensor-product table: its points are not a 2x2x2 product")
+    B = np.array([[L[pt[:, b] == p, b].mean(0) for p in range(2)] for b in range(3)])  # [b, p, m]
+    Dm = D.mean(0)
+    rebuilt = np.empty_like(gp)
+    for a in range(3):
+        b1, b2 = (a + 1) % 3, (a + 2) % 3
+        sign = np.where(upper[:, a], 1.0, -1.0)
+        rebuilt[:, :, a] = sign * Dm[a] * B[b1][pt[:, b1][:, None], off[:, b1]] * B[b2][pt[:, b2][:, None], off[:, b2]]
+    if np.abs(rebuilt - gp).max() > 1e-6 * np.abs(gp).max():
+        raise ValueError("gp is not a uniform hex8 tensor-product table (the Hessian-action kernel needs one)")
+    t1 = np.stack([B[(a + 1) % 3] for a in range(3)])
+    t2 = np.stack([Dm[a] * B[(a + 2) % 3] for a in range(3)])
+    w = np.empty((2, 2, 2))
+    w[pt[:, 2], pt[:, 1], pt[:, 0]] = wdet
+    return np.ascontiguousarray(np.concatenate([t1.ravel(), t2.ravel(), w.ravel()]), dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _hvp_factors_of(gp_bytes: bytes, wdet_bytes: bytes) -> np.ndarray:
+    """:func:`hvp_factors` once per table (the CG loop passes the same one each iteration)."""
+    return hvp_factors(np.frombuffer(gp_bytes).reshape(8, 8, 3), np.frombuffer(wdet_bytes))
+
+
 def neo_hookean_hvp(u_grid, v_grid, gp, wdet, mu, lam):
     """Hessian action d/dε f(u + ε v) of the Neo-Hookean internal forces, grid layout.
 
-    ``v_grid`` is used as given: the caller applies the Dirichlet mask.
+    ``v_grid`` is used as given: the caller applies the Dirichlet mask.  The
+    kernel takes the tensor-product factors of ``gp`` (:func:`hvp_factors`)
+    and raises on a table without them.
     """
     if u_grid.device.type == "cpu" and v_grid.device.type == "cpu":
         return neo_hookean_hvp_plain(u_grid, v_grid, gp, wdet, mu, lam)
@@ -198,16 +259,20 @@ def neo_hookean_hvp(u_grid, v_grid, gp, wdet, mu, lam):
     _check_grid(v_grid, "v_grid")
     if v_grid.shape != u_grid.shape or v_grid.device != u_grid.device:
         raise ValueError("u_grid and v_grid must have the same shape and device")
-    gp32, w32 = _host_tables(gp, wdet)
-    lib = load_library()
+    gp64, w64 = (np.ascontiguousarray(a, dtype=np.float64) for a in (gp, wdet))
+    if gp64.shape != (8, 8, 3) or w64.shape != (8,):
+        raise ValueError(f"expected gp [8, 8, 3] and wdet [8], got {gp64.shape}, {w64.shape}")
+    factors = _hvp_factors_of(gp64.tobytes(), w64.tobytes())
     _, nz, ny, nx = u_grid.shape
+    if ny * nx >= 2**31:
+        raise ValueError(f"neo_hookean_hvp: a node plane of {ny} x {nx} exceeds the kernel's 32-bit offsets")
+    lib = load_library()
     out = torch.empty_like(u_grid)
-    scratch = u_grid.new_empty((8, 3, nz - 1, ny - 1, nx - 1))
     with torch.cuda.device(u_grid.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fenris_nh_hvp(
-            u_grid.data_ptr(), v_grid.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            nz, ny, nx, gp32.ctypes.data, w32.ctypes.data, float(mu), float(lam), stream,
+            u_grid.data_ptr(), v_grid.data_ptr(), out.data_ptr(), nz, ny, nx,
+            factors.ctypes.data, float(mu), float(lam), stream,
         )
     check(lib, code, "neo_hookean_hvp")
     neo_hookean_hvp.launches += 1

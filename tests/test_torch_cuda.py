@@ -76,8 +76,9 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cells", [(5, 4, 11), (15, 7, 5)])
+@pytest.mark.parametrize("cells", [(5, 4, 11), (15, 7, 5), (33, 9, 17), (1, 1, 1), (64, 20, 26), (2, 17, 33)])
 def test_stencil_kernels_match_plain_on_card(cells, cuda_device):
+    """Ragged tiles (32 x 10 nodes), slabs (13 layers), a tile's extra last node on each axis, one cell."""
     h = 0.25
     ncx, ncy, ncz = cells
     g = rng(0)
@@ -95,6 +96,29 @@ def test_stencil_kernels_match_plain_on_card(cells, cuda_device):
         torch.cuda.synchronize()
         assert rel_err(plain(*args, gp, w, MU, LAM), got) < KERNEL_RTOL
         assert torch.equal(got, again)  # no atomics: bitwise reproducible
+
+
+@pytest.mark.cuda
+def test_hvp_kernel_refuses_what_it_does_not_take(cuda_device):
+    """A CUDA input launches the kernel or raises: other tables, dtypes, layouts and devices raise."""
+    h = 0.25
+    gp, w = tss.gp_table(h)
+    shape = (3, 4, 5, 6)
+    g = rng(1)
+    u = torch.as_tensor(g.uniform(-0.02 * h, 0.02 * h, shape), dtype=torch.float32, device=cuda_device)
+    v = torch.as_tensor(g.standard_normal(shape), dtype=torch.float32, device=cuda_device)
+    stretched = gp.copy()
+    stretched[4:] *= 1.5  # not a uniform tensor-product table
+    before = tss.neo_hookean_hvp.launches
+    with pytest.raises(ValueError, match="tensor-product"):
+        tss.neo_hookean_hvp(u, v, stretched, w, MU, LAM)
+    with pytest.raises(TypeError, match="f32-only"):
+        tss.neo_hookean_hvp(u.double(), v.double(), gp, w, MU, LAM)
+    with pytest.raises(ValueError, match="contiguous"):
+        tss.neo_hookean_hvp(u.transpose(2, 3), v.transpose(2, 3), gp, w, MU, LAM)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tss.neo_hookean_hvp(u, v.cpu(), gp, w, MU, LAM)
+    assert tss.neo_hookean_hvp.launches == before
 
 
 # -- element stiffness (csrc/stiffness_pairs.cu) --------------------------------------------
