@@ -10,10 +10,9 @@ must pass and none skip) and drives the port's three paths at full size:
 
 * the structured Neo-Hookean Newton–Krylov solve (BASELINE config 5:
   128 x 128 x 64 = 1,048,576 hex8 cells, 3.25M dofs) through the stencil
-  kernels: each kernel against its plain version at the full size and
-  four ragged shapes down to one cell (the Hessian action also for one
-  launch that allocates only its output), times, the ``ptxas`` lines of
-  every stencil kernel (no spills in the Hessian action),
+  kernels (one z-marching body, ``nh_march``): each kernel against its
+  plain version at the full size and four ragged shapes down to one cell,
+  each also for one launch that allocates only its output, times,
   ``solve(preconditioner="mg")`` at the full size
   (||F|| / ||F0|| <= 1e-1, the pure-f32 floor) and ``solve_mixed`` at 32^3
   (relative ||F|| <= 1e-10);
@@ -38,19 +37,22 @@ must pass and none skip) and drives the port's three paths at full size:
   gather and scatter on the card) against the unbanded one;
 * path C, the matrix-free banded Neo-Hookean solve: C1 holds the banded
   gather and scatter, the fused banded tangent sweep (the CG operator:
-  gather and tangent in one kernel) and the two element-minor sweeps
-  against their plain versions at the res-149 padded layout (3,354,624
-  padded elements) and on a res-7 box and an RCM-reordered res-11 box, the
-  gather also bitwise against ``u[cells[perm]]``, and times the fused
-  sweep in turns against the route it replaced (two gathers, then the
-  element-minor tangent sweep); C2 runs
+  gather and tangent in one kernel), the fused banded vector sweep (the
+  residual: gather and internal forces in one kernel; padding rows zero)
+  and the two element-minor sweeps against their plain versions at the
+  res-149 padded layout (3,354,624 padded elements) and on a res-7 box and
+  an RCM-reordered res-11 box, the gather also bitwise against
+  ``u[cells[perm]]``, and times each fused sweep in turns against the
+  route it replaced (gathers, then the element-minor sweep); C2 runs
   ``HyperelasticModel(banded=True, fused_kernels=True).solve_mixed()`` on
   path A's problem (10,125,000 dofs) with Jacobi from
   ``hessian_diagonal``, checked by the independent f64 residual (<= 1e-10)
   and against path A's solution, with a fused sweep in every CG iteration
   and at most two gathers a Newton step; C3 RCM-reorders bench.py's unstructured
   box (res 63, 786,432 dofs), runs the f32 ``solve()`` on the fused model
-  (||F|| / ||F0|| <= 1e-1) and holds one Hessian action of the unfused
+  (||F|| / ||F0|| <= 1e-1), checks that one residual launches the fused
+  vector sweep and no gather, times that sweep against the route it
+  replaced at this layout, and holds one Hessian action of the unfused
   banded model (``torch.func.jvp`` through the gather/scatter pair) against
   the fused one (rel <= 5e-4), then times that ``jvp`` against
   ``torch.func.linearize`` once and its linear map per application, costed
@@ -64,7 +66,9 @@ phase raises on failure.  Each kernel's record carries its time, its
 plain version's, one PyTorch library call's where one computes the same
 function (else null), and its bound: the larger of its bytes over 3.35
 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM peaks), from this
-run's inputs.  The card's ``nvidia-smi`` name and power limit are
+run's inputs.  ``ptxas`` lines (registers, shared memory, spills) of the
+stencil, gather, sweep and stiffness kernels are printed, and a spill in
+any of them fails the run.  The card's ``nvidia-smi`` name and power limit are
 printed on a line of their own; the second-to-last line of standard
 output is the per-kernel JSON record, the last line the device record.
 Without a CUDA device, or outside a checkout, it exits non-zero and
@@ -128,18 +132,19 @@ EM_OPS_PER_ELEMENT = 21
 def stencil_ops(cells, hvp):
     """f32 operations of the structured residual (``hvp=False``) or Hessian action on ``cells`` hex8
     cells of a uniform grid, the fewer of two forms.  Per cell and point, in both: kinematics (F, gamma,
-    log1p, adjugate, det) 62, alpha 2, 1/det 1, then the stress P 36 (residual) or its tangent dP 152
-    (Hessian action).  Dense form, per point: the gradient from the constant table, 135 a field (9 sums of
-    8 products), and the contraction 153 (the stress scaled by the weight 9, 24 sums of 3 products 120, the
-    sum over points 24).  Tensor-product form (what the Hessian-action kernel does), per cell: the
-    gradient at all 8 points 252 a field (for each derivative and component 4 edge differences, then two
-    1-D interpolations of 4 values at 3 operations each: 28), and the contraction 372 (the weighted
-    stress 72, the sums of point pairs into the 36-entry adjoint table 36, its two adjoint interpolations
-    216, the signed sums of 3 edge values into the 24 node values 48)."""
-    fields, stress = (2, 152) if hvp else (1, 36)
+    log1p, adjugate, det) 62, alpha 2, 1/det 1, then the weighted stress w P 30 (the weight folded into
+    its two scalar factors, w alpha / det 2 and w mu 1, then 9 entries of a product and a multiply-add)
+    or its tangent w dP 155 (dP 152 and the weight folded into its three scalar factors mu, ca, cb 3).
+    Dense form, per point: the gradient from the constant table, 135 a field (9 sums of 8 products), and
+    the contraction 144 (24 sums of 3 products 120, the sum over points 24).  Tensor-product form (what
+    the stencil kernels do), per cell: the gradient at all 8 points 252 a field (for each derivative and
+    component 4 edge differences, then two 1-D interpolations of 4 values at 3 operations each: 28), and
+    the contraction 300 (the sums of point pairs into the 36-entry adjoint table 36, its two adjoint
+    interpolations 216, the signed sums of 3 edge values into the 24 node values 48)."""
+    fields, stress = (2, 155) if hvp else (1, 30)
     point = 62 + 2 + 1 + stress
-    dense = 8 * (fields * 135 + point + 153)
-    tensor_product = fields * 252 + 8 * point + 372
+    dense = 8 * (fields * 135 + point + 144)
+    tensor_product = fields * 252 + 8 * point + 300
     return cells * min(dense, tensor_product)
 
 
@@ -237,15 +242,19 @@ def timed(fn, times):
     return run
 
 
+# mangled-name fragment -> label of the kernels ptxas_report reads (the stiffness kernels by pattern)
+PTXAS_LABELS = {"nh_marchILb1E": "neo_hookean_hvp (nh_march<true>)",
+                "nh_marchILb0E": "neo_hookean_residual (nh_march<false>)",
+                "banded_gather_kernelILi3E": "banded_gather (s = 3)",
+                "sweep_kernelILb1ELb1E": "banded_tangent_sweep (sweep_kernel<true, true>)",
+                "sweep_kernelILb1ELb0E": "banded_vector_sweep (sweep_kernel<true, false>)",
+                "sweep_kernelILb0ELb1E": "em_vector_tangent_sweep (sweep_kernel<false, true>, strided)",
+                "sweep_kernelILb0ELb0E": "em_vector_sweep (sweep_kernel<false, false>, strided)"}
+
+
 def ptxas_report(build_log):
-    """Registers, shared memory and spill bytes of the stencil, gather, tangent and stiffness kernels,
+    """Registers, shared memory and spill bytes of the stencil, gather, sweep and stiffness kernels,
     from the loaded library's ``-Xptxas -v`` log; returns ``{label: ptxas text}``."""
-    labels = {"nh_hvp_march": "neo_hookean_hvp (nh_hvp_march)",
-              "nh_residual_cells": "neo_hookean_residual (nh_residual_cells)",
-              "gather_nodes": "neo_hookean_residual (gather_nodes)",
-              "banded_gather_kernelILi3E": "banded_gather (s = 3)",
-              "tangent_kernelILb1E": "banded_tangent_sweep",
-              "tangent_kernelILb0E": "em_vector_tangent_sweep (strided)"}
     if not build_log.is_file():
         log(f"ptxas: {build_log.name} not found (library built without a log); registers not reported")
         return {}
@@ -253,7 +262,7 @@ def ptxas_report(build_log):
     for line in build_log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            label = next((v for k, v in labels.items() if k in m.group(1)), None)
+            label = next((v for k, v in PTXAS_LABELS.items() if k in m.group(1)), None)
             st = re.search(r"stiffness_pairs_kernelILi(\d)ELi(\d)E", m.group(1))
             if st:
                 label = f"stiffness_pairs (d = {st.group(1)}, {st.group(2)} pairs)"
@@ -356,7 +365,7 @@ def structured_phases(kernels, dev, smi):
             err = compare(name, f"cells={cells}", got, again, k["plain"](*args, gp, w, MU, LAM))
             if cells == FULL:
                 k["max_abs_err"] = err
-            if cells == FULL and name == "neo_hookean_hvp":
+            if cells == FULL:
                 # one launch, no scratch: the call allocates its output and nothing else
                 del got, again
                 free_memory()
@@ -757,9 +766,9 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
     """The banded-path kernels against their plain versions on one fused model's layout.
 
     With ``smi`` also times them (kernel, plain, library call) and sets
-    their bounds, from these inputs, and times the fused tangent sweep
-    against the route it replaced (two gathers, then the element-minor
-    tangent sweep on the gathered rows).
+    their bounds, from these inputs, and times each fused sweep against the
+    route it replaced (gathers, then the element-minor sweep on the gathered
+    rows).
     """
     import torch
 
@@ -801,16 +810,24 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
     fused = lambda: es.banded_tangent_sweep(plan, X, u, v, op, params, tab, tables)  # noqa: E731
     errs["em_vector_tangent_sweep"] = compare(
         "banded_tangent_sweep", shape_txt, fused(), fused(), es.banded_tangent_sweep_plain(plan, X, u, v, op, params, tab))
+    # the fused vector sweep (the main path's residual); padding elements get zero rows
+    fused_vec = lambda: es.banded_vector_sweep(plan, X, u, op, params, tab, tables)  # noqa: E731
+    got = fused_vec()
+    compare("banded_vector_sweep", shape_txt, got, fused_vec(), es.banded_vector_sweep_plain(plan, X, u, op, params, tab))
+    padding = ~valid.reshape(pe, n)[:, 0]
+    zero_pad = not bool(got[padding].any())
+    log(f"banded_vector_sweep {shape_txt}: {int(padding.sum())} padding elements, their rows zero: {zero_pad}")
+    check(zero_pad, f"banded_vector_sweep {shape_txt}: a padding element's row is not zero")
+    del got
     # the element-minor sweeps on element-major rows; on the small shapes contiguous element-minor arrays too
     layouts = [("element-major rows", u_em, v_em)]
     if smi is None:
         layouts.append(("element-minor", u_em.contiguous(), v_em.contiguous()))
     for layout, ue, ve in layouts:
         txt = f"{shape_txt} {layout}"
-        errs["em_vector_sweep"] = compare(
-            "em_vector_sweep", txt, es.em_vector_sweep(X, ue, op, params, tab, tables),
-            es.em_vector_sweep(X, ue, op, params, tab, tables),
-            assemble_element_elliptic_vectors_em(X, ue, op, params, tab))
+        compare("em_vector_sweep", txt, es.em_vector_sweep(X, ue, op, params, tab, tables),
+                es.em_vector_sweep(X, ue, op, params, tab, tables),
+                assemble_element_elliptic_vectors_em(X, ue, op, params, tab))
         compare("em_vector_tangent_sweep", txt, es.em_vector_tangent_sweep(X, ue, ve, op, params, tab, tables),
                 es.em_vector_tangent_sweep(X, ue, ve, op, params, tab, tables),
                 assemble_element_elliptic_tangent_vectors_em(X, ue, ve, op, params, tab))
@@ -836,11 +853,6 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
                            lambda: torch.zeros((N + 4096, 3), device=dev).index_add_(0, idx_spare,
                                                                                      f_el.reshape(-1, 3)),
                            (nv * 3 + plan.row_ptr.numel() + nv + N * 3) * 4, nv * 3),
-        # the element-minor vector sweep cannot tell padding elements from others: all pe are its work
-        "em_vector_sweep": (lambda: es.em_vector_sweep(X, u_em, op, params, tab, tables),
-                            lambda: assemble_element_elliptic_vectors_em(X, u_em, op, params, tab), None,
-                            (X.numel() + 2 * u_em.numel()) * 4,
-                            (OPS_PER_QP["em_vector_sweep"] * q + EM_OPS_PER_ELEMENT) * pe),
         # the fused sweep: the valid elements' X and node indices, u and v read once, every row written
         # once; the arithmetic of the valid elements only (a padding element's rows are zeros)
         "em_vector_tangent_sweep": (fused, lambda: es.banded_tangent_sweep_plain(plan, X, u, v, op, params, tab),
@@ -872,6 +884,55 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
                      for _ in range(2))
     log(f"time banded_tangent_sweep {shape_txt}: {txt} (fused faster: {fused_ms < old_ms}); the element-minor "
         f"tangent sweep alone on element-major rows {strided_ms:.4f} ms ({smi})")
+    free_memory()
+    vector_sweep_turns(model, u, shape_txt, smi)
+
+
+def vector_sweep_bytes(plan):
+    """Bytes the fused vector sweep needs: the valid elements' X (24 floats) and node indices, the per-block
+    row counts, u once, and every row written once."""
+    nv = plan.node_rows.numel()
+    return (3 * nv + nv + plan.block_rows.numel() + plan.num_nodes * 3 + plan.padded_elements * plan.n * 3) * 4
+
+
+def vector_sweep_ops(plan, q):
+    """f32 operations of the fused vector sweep: the valid elements' (a padding element's rows are zeros)."""
+    return (OPS_PER_QP["em_vector_sweep"] * q + EM_OPS_PER_ELEMENT) * plan.num_elements
+
+
+def vector_sweep_turns(model, u, shape_txt, smi, record=None):
+    """The fused vector sweep (one kernel) in turns against the route it replaced on ``model``'s layout:
+    the banded gather, then the element-minor vector sweep on the gathered element-major rows.  With
+    ``record`` (the kernel's record) also its error, its time against its plain version's, and its bound."""
+    import fenris_tpu_torch.ops.banded as bd
+    import fenris_tpu_torch.ops.em_sweep as es
+
+    plan, X, tables = model._plan, model._X_band, model._em_tables
+    op, params, tab = model.operator, model.params, model.tab
+
+    def old_route():
+        return es.em_vector_sweep(X, bd.banded_gather(plan, u).permute(1, 2, 0), op, params, tab, tables)
+
+    fused = lambda: es.banded_vector_sweep(plan, X, u, op, params, tab, tables)  # noqa: E731
+    plain = lambda: es.banded_vector_sweep_plain(plan, X, u, op, params, tab)  # noqa: E731
+    fused_ms, old_ms, txt = in_turns(fused, old_route, reps=10, names=("fused", "old route"))
+    bound = {} if record is None else record
+    bound_txt = set_bound(bound, vector_sweep_bytes(plan), vector_sweep_ops(plan, tab.num_points))
+    log(f"time banded_vector_sweep {shape_txt}: {txt} (fused faster: {fused_ms < old_ms}); {bound_txt}, "
+        f"{bound['bound_ms'] / fused_ms * 100:.1f}% of it ({smi})")
+    if record is not None:
+        got, ref = fused(), plain()
+        record["max_abs_err"] = compare("banded_vector_sweep", shape_txt, got, fused(), ref)
+        # both f32 versions against an f64 evaluation: the stress cancels to O(strain) at small strains
+        ref64 = es.banded_vector_sweep_plain(plan, X.double(), u.double(), op, params, tab)
+        scale = float(ref64.abs().max())
+        log(f"banded_vector_sweep {shape_txt} against f64 on the same f32 inputs: kernel "
+            f"{float((got.double() - ref64).abs().max()) / scale:.3e}, plain "
+            f"{float((ref.double() - ref64).abs().max()) / scale:.3e}")
+        del got, ref, ref64
+        record["ms"], record["plain_ms"], txt = in_turns(fused, plain, reps=5)
+        record["library_ms"] = None  # no PyTorch call computes the element forces
+        log(f"time em_vector_sweep {shape_txt}: {txt}; {bound_txt} ({smi})")
     free_memory()
 
 
@@ -934,7 +995,7 @@ def path_c_solve(kernels, model, plan_s, x_a, dev, smi):
     t_inner, t_diag, iters = sum(inner_times), sum(diag_times), max(sum(cg_iters), 1)
     log(f"path C2: status={res.status} newton_iters={res.iterations} cg_iters={cg_iters} wall={wall:.3f} s "
         f"(plan {plan_s:.3f} s before it) |F|/|F0|={res.residual_norm / history[0]:.6e} launches={launches} "
-        f"em_vector_sweep launches={kernels['em_vector_sweep']['fn'].launches} peak memory {peak:.2f} GB ({smi})")
+        f"banded_vector_sweep launches={kernels['em_vector_sweep']['fn'].launches} peak memory {peak:.2f} GB ({smi})")
     log(f"path C2 breakdown: Jacobi diagonals {t_diag:.3f} s, CG {t_inner - t_diag:.3f} s "
         f"({(t_inner - t_diag) / iters * 1e3:.3f} ms per iteration), "
         f"f64 residuals and Newton {wall - t_inner:.3f} s of {wall:.3f} s wall")
@@ -1000,11 +1061,23 @@ def path_c3(kernels, dev, smi):
     k9["launches"] = k9["fn"].launches
     ratio = res.residual_norm / history[0]
     log(f"path C3 solve(): status={res.status} newton_iters={res.iterations} wall={wall:.3f} s "
-        f"|F|/|F0|={ratio:.6e} em_vector_sweep launches={k9['launches']} ({smi})")
+        f"|F|/|F0|={ratio:.6e} banded_vector_sweep launches={k9['launches']} ({smi})")
     check(tuple(res.x.shape) == (model.space.num_dofs,) and bool(torch.isfinite(res.x).all()),
           "path C3: wrong or non-finite displacement")
     check(ratio <= 1e-1, f"path C3: |F|/|F0| = {ratio:.3e} > 1e-1")
     check(k9["launches"] > 0, "path C3: the vector-sweep kernel was not launched")
+
+    # one residual: the fused vector sweep reads u itself, so no gather runs
+    reset_counts(kernels)
+    model.residual(res.x)
+    torch.cuda.synchronize()
+    counts = {n: kernels[n]["fn"].launches for n in ("banded_gather", "em_vector_sweep", "banded_scatter")}
+    log(f"path C3 one residual: launches banded_gather={counts['banded_gather']}, "
+        f"banded_vector_sweep={counts['em_vector_sweep']}, banded_scatter={counts['banded_scatter']}")
+    check(counts == {"banded_gather": 0, "em_vector_sweep": 1, "banded_scatter": 1},
+          f"path C3: one residual launched {counts} (expected no gather, one sweep, one scatter)")
+    vector_sweep_turns(model, res.x.reshape(-1, 3), f"res={RES_C3} rcm E={mesh.num_cells} "
+                       f"E_pad={plan.padded_elements} blocks={plan.k_blocks}", smi, record=k9)
 
     # the unfused banded route: torch.func.jvp through the gather/scatter pair
     unfused = assembled_model(RES_C3, torch.float32, dev, None, mesh=mesh, banded=True)
@@ -1203,7 +1276,7 @@ def main() -> int:
     load_library()
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources in parallel)")
     found = ptxas_report(build_log())
-    for prefix in ("stiffness_pairs", "neo_hookean_hvp"):
+    for prefix in ("stiffness_pairs", *PTXAS_LABELS.values()):
         entries = {n: t for n, t in found.items() if n.startswith(prefix)}
         check(len(entries) > 0 and all("0 bytes spill stores, 0 bytes spill loads" in t for t in entries.values()),
               f"{prefix}: ptxas reports spills or no entry: {entries}")
@@ -1239,8 +1312,10 @@ def main() -> int:
             fn=es.banded_tangent_sweep, path="C", source=SOURCES["em_sweep"],
             replaces="fenris_tpu/ops/em_sweep.py:251",
         ),
+        # the vector sweep as the main path launches it: fused with the banded gather
         "em_vector_sweep": dict(
-            fn=es.em_vector_sweep, path="C", source=SOURCES["em_sweep"], replaces="fenris_tpu/ops/em_sweep.py:233",
+            fn=es.banded_vector_sweep, path="C", source=SOURCES["em_sweep"],
+            replaces="fenris_tpu/ops/em_sweep.py:233",
         ),
     }
     phases = [

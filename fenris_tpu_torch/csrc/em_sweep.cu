@@ -1,8 +1,10 @@
 // Fused Neo-Hookean element sweeps on unstructured hex8 elements, for sm_90a.
 //
 // Replaces the Pallas TPU kernels of fenris_tpu/ops/em_sweep.py:
-//   * em_vector_sweep         (body _vector_kernel)         -> fenris_em_sweep, v == NULL
-//   * em_vector_tangent_sweep (body _vector_tangent_kernel) -> fenris_banded_tangent_sweep
+//   * em_vector_sweep         (body _vector_kernel)         -> fenris_banded_sweep, v == NULL
+//                                                              (fused with the banded gather),
+//                                                              fenris_em_sweep, v == NULL
+//   * em_vector_tangent_sweep (body _vector_tangent_kernel) -> fenris_banded_sweep, v != NULL
 //                                                              (fused with the banded gather),
 //                                                              fenris_em_sweep, v != NULL
 //
@@ -21,46 +23,48 @@
 // The TPU kernel body is traced from the generic operator code; here the
 // material is written out (solid/__init__.py: stress_du, stress_tangent_du).
 //
-// Vector sweep.  One thread per element: its 24 node coordinates, 24 dofs
-// and 24 outputs stay in registers through the q loop; the basis tables sit
-// in shared memory, read as broadcasts.  Inputs and output are element-minor
-// views [node][comp][E] with arbitrary strides.
-//
-// Tangent sweep.  The one-thread-per-element form needed 168 registers (3
-// blocks of 128 threads an SM) and ran latency-bound.  Here 8 lanes share
-// an element, lane l taking quadrature points l, l + 8, ...:
+// One body, sweep_kernel<BANDED, TANGENT>, serves all four launchers.  A
+// thread per element needed 168 registers for the tangent (3 blocks of 128
+// threads an SM) and ran latency-bound, and the vector sweep's thread loaded
+// rows 96 B apart.  Here 8 lanes share an element, lane l taking quadrature
+// points l, l + 8, ...:
 //   * a block of one warp works on tiles of 4 elements, staging their
-//     X, u and v in shared memory (76 floats an element); the tables sit
-//     there re-laid per point ([q][52]); a lane reads both as float4, 24
-//     values in 6 loads, with no bank conflicts (see lds24);
+//     X and u (and v for the tangent) in shared memory (52 or 76 floats an
+//     element); the tables sit there re-laid per point ([q][52]); a lane
+//     reads both as float4, 24 values in 6 loads, with no bank conflicts
+//     (see lds24);
 //   * launch bounds of 24 one-warp blocks an SM: 80 registers, no spills
-//     (ptxas), 24 resident warps (the kernel it replaced: 168 registers,
-//     20 bytes spilled, 12 warps); blocks of 64 to 256 threads with the
-//     same 24 warps ran slower on the card (PERF.md);
+//     (ptxas), 24 resident warps (the tangent kernel it replaced: 168
+//     registers, 20 bytes spilled, 12 warps); blocks of 64 to 256 threads
+//     with the same 24 warps ran slower on the card (PERF.md); the strided
+//     vector sweep takes 20 (sweep_min_blocks);
 //   * persistent blocks (as many as fit on the card) walk the tiles with a
 //     two-stage pipeline: the next tile's cp.async copies, and the node
 //     indices of the one after, are in flight while the current tile
 //     computes, so a block does not wait out the dependent index -> u, v
 //     loads between tiles; the tables are staged once per block;
-//   * banded mode (fenris_banded_tangent_sweep): u and v are read straight
-//     from the node vectors through the plan's row -> node table, lane l
-//     copying node l of its element; padding elements get u = v = 0, as the
-//     banded gather gives them, so the gather's rows never go to device
-//     memory.  X is the padded element-minor geometry [24][E_pad], read as
-//     16 contiguous bytes of each of its 24 rows a tile.  The
-//     output, element-major rows [E_pad][8][3], is a tile's one contiguous
-//     run, written from shared memory with float4 stores;
-//   * strided mode (fenris_em_sweep with v): element-minor views with any
-//     strides (32-bit offsets) in and out, the same body;
+//   * banded mode (fenris_banded_sweep): u and v are read straight from
+//     the node vectors through the plan's row -> node table, lane l copying
+//     node l of its element; padding elements read nothing (their u and v
+//     are zero-filled, as the banded gather gives them) and their rows are
+//     zeros (the vector sweep skips their arithmetic), so the gather's rows
+//     never go to device memory.  X
+//     is the padded element-minor geometry [24][E_pad], read as 16
+//     contiguous bytes of each of its 24 rows a tile.  The output,
+//     element-major rows [E_pad][8][3], is a tile's one contiguous run,
+//     written from shared memory with float4 stores;
+//   * strided mode (fenris_em_sweep): element-minor views with any strides
+//     (32-bit offsets) in and out, the same body;
 //   * the 24 partial outputs of an element are reduced over its 8 lanes by
 //     a fixed reduce-scatter of __shfl_xor_sync (xor 4, 2, 1; 21 shuffles),
 //     after which lane l holds node l's 3 sums: no atomics, each sum taken
 //     in one fixed order, so two launches are bitwise equal.  Only the order
 //     of the sum over q differs from the plain version.
-// What bounds it on the H100: about 7.5k f32 operations per element against
-// 4 B x (24 X + 8 indices + 24 out) plus u and v from L2: operations.
-// Register pressure is the design risk: read `-Xptxas -v` in the library's
-// log, _build/libfenris_kernels_<hash>.log, for registers and spills.
+// What bounds it on the H100: about 7.5k (tangent) or 5.4k (vector) f32
+// operations per element against 4 B x (24 X + 8 indices + 24 out) plus u
+// (and v) from L2: operations.  Register pressure is the design risk: read
+// `-Xptxas -v` in the library's log, _build/libfenris_kernels_<hash>.log,
+// for registers and spills.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see fenris_tpu_torch/ops/_build.py).
@@ -72,21 +76,6 @@
 #include <algorithm>
 
 namespace {
-
-constexpr int kThreads = 128;
-constexpr int kTab = 2 * 8 * 3 + 1;  // floats of the tables per quadrature point
-
-struct Strides {  // [node][comp][element] strides, in floats
-  int64_t x[3], u[3], v[3], o[3];
-};
-
-__device__ __forceinline__ void load_nodes(const float* __restrict__ a, const int64_t* st,
-                                           int64_t e, float A[8][3]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) A[n][c] = __ldg(a + n * st[0] + c * st[1] + e * st[2]);
-}
 
 // Physical basis gradients gp[a][i] and wdet at one quadrature point.  X
 // holds the coordinates relative to node 0, [m][i] (X[0] is not read; the
@@ -195,63 +184,29 @@ __device__ __forceinline__ void tangent_stress(const float FinvT[3][3], const fl
     }
 }
 
-// out[a][c] += wdet sum_d gp[a][d] S[c][d]
-__device__ __forceinline__ void contract(const float gp[8][3], const float S[3][3], float wdet,
-                                         float out[8][3]) {
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      out[a][c] += wdet * (gp[a][0] * S[c][0] + gp[a][1] * S[c][1] + gp[a][2] * S[c][2]);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    em_vector_kernel(const float* __restrict__ X, const float* __restrict__ u,
-                     float* __restrict__ out, const Strides st, int64_t E,
-                     const float* __restrict__ tables, int q, float mu, float lam) {
-  extern __shared__ float tab[];
-  for (int i = threadIdx.x; i < q * kTab; i += blockDim.x) tab[i] = tables[i];
-  __syncthreads();
-  const int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float Xe[8][3], U[8][3], f[8][3];
-  load_nodes(X, st.x, e, Xe);
-#pragma unroll
-  for (int m = 1; m < 8; ++m)
-#pragma unroll
-    for (int i = 0; i < 3; ++i) Xe[m][i] -= Xe[0][i];
-  load_nodes(u, st.u, e, U);
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) f[a][c] = 0.0f;
-#pragma unroll 1
-  for (int iq = 0; iq < q; ++iq) {
-    float gp[8][3];
-    const float wdet = geometry(tab + iq * 24, tab + q * 24 + iq * 24, tab[q * 48 + iq], &Xe[0][0], gp);
-    float G[3][3], F[3][3], FinvT[3][3], S[3][3];
-    gradient(gp, &U[0][0], G);
-    const float alpha = kinematics(G, mu, lam, F, FinvT);
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) S[i][j] = alpha * FinvT[i][j] + mu * F[i][j];
-    contract(gp, S, wdet, f);
-  }
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) out[a * st.o[0] + c * st.o[1] + e * st.o[2]] = f[a][c];
-}
-
-// -- the tangent sweep: 8 lanes an element --------------------------------------
+// -- the sweep body: 8 lanes an element ---------------------------------------------
 
 constexpr int kLanes = 8;                             // lanes per element
-constexpr int kTanThreads = 32;
-constexpr int kTanElems = kTanThreads / kLanes;       // elements per block
-constexpr int kElem = 3 * 24 + 4;                     // shared floats per element: X, u, v, pad
+constexpr int kSweepThreads = 32;
+constexpr int kSweepElems = kSweepThreads / kLanes;   // elements per block
 constexpr int kTabS = 2 * 8 * 3 + 4;                  // shared floats per point: geo_dphi, dphi, w, pad
-constexpr int kTanMinBlocks = 24;                     // blocks an SM: caps registers at 80
+constexpr int kSweepMinBlocks = 24;                   // blocks an SM: caps registers at 80
+
+// Launch bounds' blocks an SM: 24 (80 registers, no spills) for the
+// banded sweeps and the strided tangent sweep; the strided vector sweep
+// spills 12 bytes at 80 registers (ptxas), so it takes 20 (96 registers,
+// no spills).
+template <bool BANDED, bool TANGENT>
+constexpr int sweep_min_blocks() {
+  return BANDED || TANGENT ? kSweepMinBlocks : 20;
+}
+
+// Shared floats per staged element: X, u (and v for the tangent), 4 of
+// padding, a multiple of 4 (float4 reads).
+template <bool TANGENT>
+__host__ __device__ constexpr int elem_floats() {
+  return (TANGENT ? 3 : 2) * 24 + 4;
+}
 
 struct Strides32 {  // [node][comp][element] strides, in floats; every offset < 2^31
   int x[3], u[3], v[3], o[3];
@@ -299,11 +254,12 @@ __device__ __forceinline__ void reduce_scatter8(const float f[8][3], int l, floa
   }
 }
 
-// Shared memory, each part 16-byte aligned: out [kTanElems][24], two
-// element buffers [2][kTanElems][kElem] (X, u, v as [node][comp]), tables
-// [q][kTabS] (geo_dphi [8][3], dphi [8][3], w).
-__host__ __device__ constexpr size_t tangent_smem_floats(int q) {
-  return (size_t)kTanElems * 24 + 2 * (size_t)kTanElems * kElem + (size_t)q * kTabS;
+// Shared memory, each part 16-byte aligned: out [kSweepElems][24], two
+// element buffers [2][kSweepElems][elem_floats] (X, u and v as
+// [node][comp]), tables [q][kTabS] (geo_dphi [8][3], dphi [8][3], w).
+template <bool TANGENT>
+__host__ __device__ constexpr size_t sweep_smem_floats(int q) {
+  return (size_t)kSweepElems * 24 + 2 * (size_t)kSweepElems * elem_floats<TANGENT>() + (size_t)q * kTabS;
 }
 
 // Asynchronous 4-byte copy global -> shared (cp.async, sm_80+); when valid
@@ -317,11 +273,12 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_prior() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
 // Banded mode: a lane's node in a tile, loaded a tile before the staging
-// that needs it.  The element is valid iff offset < valid_rows (its row
-// offset in its owner block against block_rows[k]); both loads are issued
-// without waiting on each other.
+// that needs it.  The element is real (not padding, not past E) iff
+// offset < valid_rows (its row offset in its owner block against
+// block_rows[k]); the two loads are in flight together.
 struct LaneNode {
   int node, offset, valid_rows;
+  __device__ bool real() const { return offset < valid_rows; }
 };
 
 __device__ __forceinline__ LaneNode lane_node(int tile, int ntiles, int E, int g, int l,
@@ -329,7 +286,7 @@ __device__ __forceinline__ LaneNode lane_node(int tile, int ntiles, int E, int g
                                               const int32_t* __restrict__ block_rows,
                                               int elements_per_block) {
   LaneNode r = {0, 1, 0};
-  const int e = tile * kTanElems + g;
+  const int e = tile * kSweepElems + g;
   if (tile < ntiles && e < E) {
     const int k = e / elements_per_block;
     r.offset = (e - k * elements_per_block) * kLanes;
@@ -339,18 +296,20 @@ __device__ __forceinline__ LaneNode lane_node(int tile, int ntiles, int E, int g
   return r;
 }
 
-// Issue the cp.asyncs of one tile's X, u and v into buf.  X (and, strided,
-// u and v) as (component row, element) pairs, element fastest: coalesced on
-// element-minor arrays; banded, lane l copies node l of element g.
-// Elements past E and padding elements are zero-filled without a read.
-template <bool BANDED>
+// Start the cp.asyncs of one tile's X and u (and v) into buf.  X (and,
+// strided, the fields) as (component row, element) pairs, element fastest:
+// coalesced on element-minor arrays; banded, lane l copies node l of
+// element g.  Elements past E and padding elements are zero-filled
+// without a read.
+template <bool BANDED, bool TANGENT>
 __device__ __forceinline__ void stage_tile(float* buf, int tile, int E, const float* __restrict__ X,
                                            const float* __restrict__ u,
                                            const float* __restrict__ v, const Strides32& st,
                                            const LaneNode& ln, int t, int g, int l) {
-  const int e0 = tile * kTanElems;
-  for (int i = t; i < 24 * kTanElems; i += kTanThreads) {
-    const int row = i / kTanElems, el = i - row * kTanElems;
+  constexpr int kElem = elem_floats<TANGENT>();
+  const int e0 = tile * kSweepElems;
+  for (int i = t; i < 24 * kSweepElems; i += kSweepThreads) {
+    const int row = i / kSweepElems, el = i - row * kSweepElems;
     const bool ok = e0 + el < E;
     const int e = ok ? e0 + el : 0;
     float* dst = buf + el * kElem + row;
@@ -360,49 +319,56 @@ __device__ __forceinline__ void stage_tile(float* buf, int tile, int E, const fl
       const int m = row / 3, c = row - m * 3;
       cp_async4(dst, X + m * st.x[0] + c * st.x[1] + e * st.x[2], ok);
       cp_async4(dst + 24, u + m * st.u[0] + c * st.u[1] + e * st.u[2], ok);
-      cp_async4(dst + 48, v + m * st.v[0] + c * st.v[1] + e * st.v[2], ok);
+      if (TANGENT) cp_async4(dst + 48, v + m * st.v[0] + c * st.v[1] + e * st.v[2], ok);
     }
   }
   if (BANDED) {
-    const bool ok = ln.offset < ln.valid_rows;
+    const bool ok = ln.real();
     const int64_t n3 = (int64_t)ln.node * 3;  // node 0 on padding rows: in range, and not read
     float* dst = buf + g * kElem + l * 3;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       cp_async4(dst + 24 + c, u + n3 + c, ok);
-      cp_async4(dst + 48 + c, v + n3 + c, ok);
+      if (TANGENT) cp_async4(dst + 48 + c, v + n3 + c, ok);
     }
   }
 }
 
-// BANDED: u, v are node vectors [N][3] read through nodes (the padded row ->
-// node table, 8 rows an element) and block_rows / elements_per_block (the
-// element's owner block and its valid rows); X is contiguous [8][3][E]; out
-// is element-major [E][8][3].  Otherwise X, u, v and out are element-minor
-// views with the strides st.  Persistent blocks walk tiles of kTanElems
-// elements (tile, tile + gridDim.x, ...); the cp.asyncs of the next tile and
-// the node indices of the one after run while the current tile computes.
-template <bool BANDED>
-__global__ void __launch_bounds__(kTanThreads, kTanMinBlocks)
-    tangent_kernel(const float* __restrict__ X, const float* __restrict__ u,
-                   const float* __restrict__ v, const int32_t* __restrict__ nodes,
-                   const int32_t* __restrict__ block_rows, int elements_per_block,
-                   float* __restrict__ out, const Strides32 st, int E,
-                   const float* __restrict__ tables, int q, float mu, float lam) {
+// BANDED: u (and v) are node vectors [N][3] read through nodes (the padded
+// row -> node table, 8 rows an element) and block_rows / elements_per_block
+// (the element's owner block and its valid rows); X is contiguous
+// [8][3][E]; out is element-major [E][8][3].  Otherwise X, u, v and out are
+// element-minor views with the strides st.  TANGENT: the Hessian actions
+// (reads v); otherwise the internal forces.  Persistent blocks walk tiles
+// of kSweepElems elements (tile, tile + gridDim.x, ...); the cp.asyncs of
+// the next tile and the node indices of the one after run while the
+// current tile computes.
+template <bool BANDED, bool TANGENT>
+__global__ void __launch_bounds__(kSweepThreads, sweep_min_blocks<BANDED, TANGENT>())
+    sweep_kernel(const float* __restrict__ X, const float* __restrict__ u,
+                 const float* __restrict__ v, const int32_t* __restrict__ nodes,
+                 const int32_t* __restrict__ block_rows, int elements_per_block,
+                 float* __restrict__ out, const Strides32 st, int E,
+                 const float* __restrict__ tables, int q, float mu, float lam) {
+  constexpr int kElem = elem_floats<TANGENT>();
   extern __shared__ __align__(16) float smem[];
   float* s_out = smem;
-  float* s_buf = s_out + kTanElems * 24;
-  float* s_tab = s_buf + 2 * kTanElems * kElem;
+  float* s_buf = s_out + kSweepElems * 24;
+  float* s_tab = s_buf + 2 * kSweepElems * kElem;
   const int t = threadIdx.x, g = t / kLanes, l = t % kLanes;
-  const int ntiles = (E + kTanElems - 1) / kTanElems, step = gridDim.x;
+  const int ntiles = (E + kSweepElems - 1) / kSweepElems, step = gridDim.x;
   int tile = blockIdx.x;
 
-  LaneNode ln = {0, 1, 0};
+  // real: element g of the tile being staged is not padding (always, strided).  The vector sweep
+  // skips the arithmetic of padding elements; the tangent sweep computes their rows from
+  // u = v = 0, which are zeros
+  LaneNode ln = {0, 0, 1};
   if (BANDED) ln = lane_node(tile, ntiles, E, g, l, nodes, block_rows, elements_per_block);
-  stage_tile<BANDED>(s_buf, tile, E, X, u, v, st, ln, t, g, l);
+  stage_tile<BANDED, TANGENT>(s_buf, tile, E, X, u, v, st, ln, t, g, l);
+  bool real = ln.real();
   cp_async_commit();
   if (BANDED) ln = lane_node(tile + step, ntiles, E, g, l, nodes, block_rows, elements_per_block);
-  for (int i = t; i < q * kTabS; i += kTanThreads) {
+  for (int i = t; i < q * kTabS; i += kSweepThreads) {
     const int iq = i / kTabS, j = i - iq * kTabS;
     s_tab[i] = j < 24   ? __ldg(tables + iq * 24 + j)
                : j < 48 ? __ldg(tables + q * 24 + iq * 24 + j - 24)
@@ -413,13 +379,14 @@ __global__ void __launch_bounds__(kTanThreads, kTanMinBlocks)
   for (int b = 0; tile < ntiles; tile += step, b ^= 1) {
     const int next = tile + step;
     if (next < ntiles)
-      stage_tile<BANDED>(s_buf + (b ^ 1) * kTanElems * kElem, next, E, X, u, v, st, ln, t, g, l);
+      stage_tile<BANDED, TANGENT>(s_buf + (b ^ 1) * kSweepElems * kElem, next, E, X, u, v, st, ln, t, g, l);
+    const bool real_next = ln.real();
     cp_async_commit();
     if (BANDED) ln = lane_node(next + step, ntiles, E, g, l, nodes, block_rows, elements_per_block);
     cp_async_wait_prior();  // this thread's copies of the current tile have landed
     __syncthreads();
-    const int e0 = tile * kTanElems, nel = min(kTanElems, E - e0);
-    float* el = s_buf + b * kTanElems * kElem + g * kElem;
+    const int e0 = tile * kSweepElems, nel = min(kSweepElems, E - e0);
+    float* el = s_buf + b * kSweepElems * kElem + g * kElem;
     if (l > 0) {  // coordinates relative to node 0 (lane 0 leaves node 0, which is not read)
 #pragma unroll
       for (int c = 0; c < 3; ++c) el[l * 3 + c] -= el[c];
@@ -435,20 +402,28 @@ __global__ void __launch_bounds__(kTanThreads, kTanMinBlocks)
     for (int round = 0; round < rounds; ++round) {
       const int iq = round * kLanes + l;
       float f[8][3];
-      if (g < nel && iq < q) {
+      if (g < nel && iq < q && (TANGENT || real)) {
         const float* tq = s_tab + iq * kTabS;
         float gd[24], dp[24], A[24], gp[8][3];
         lds24(tq, gd);
         lds24(tq + 24, dp);
         lds24(el, A);  // X relative to node 0
         const float wdet = geometry(gd, dp, tq[48], A, gp);
-        float G[3][3], F[3][3], FinvT[3][3], dG[3][3], S[3][3];
+        float G[3][3], F[3][3], FinvT[3][3], S[3][3];
         lds24(el + 24, A);  // u
         gradient(gp, A, G);
         const float alpha = kinematics(G, mu, lam, F, FinvT);
-        lds24(el + 48, A);  // v
-        gradient(gp, A, dG);
-        tangent_stress(FinvT, dG, mu, lam, alpha, S);
+        if (TANGENT) {
+          float dG[3][3];
+          lds24(el + 48, A);  // v
+          gradient(gp, A, dG);
+          tangent_stress(FinvT, dG, mu, lam, alpha, S);
+        } else {  // the weight after the sum: the sum cancels to O(strain) at small strains
+#pragma unroll
+          for (int i = 0; i < 3; ++i)
+#pragma unroll
+            for (int j = 0; j < 3; ++j) S[i][j] = alpha * FinvT[i][j] + mu * F[i][j];
+        }
 #pragma unroll
         for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -475,28 +450,35 @@ __global__ void __launch_bounds__(kTanThreads, kTanMinBlocks)
     if (BANDED) {  // the tile's rows are one contiguous run of nel * 24 floats
       const float4* src = reinterpret_cast<const float4*>(s_out);
       float4* dst = reinterpret_cast<float4*>(out + (int64_t)e0 * 24);
-      for (int i = t; i < nel * 6; i += kTanThreads) dst[i] = src[i];
+      for (int i = t; i < nel * 6; i += kSweepThreads) dst[i] = src[i];
     } else {
-      for (int i = t; i < 24 * kTanElems; i += kTanThreads) {
-        const int row = i / kTanElems, el_i = i - row * kTanElems;
+      for (int i = t; i < 24 * kSweepElems; i += kSweepThreads) {
+        const int row = i / kSweepElems, el_i = i - row * kSweepElems;
         if (el_i < nel) {
           const int m = row / 3, c = row - m * 3;
           out[m * st.o[0] + c * st.o[1] + (e0 + el_i) * st.o[2]] = s_out[el_i * 24 + row];
         }
       }
     }
+    real = real_next;
   }
 }
 
 // One persistent block per resident slot: min(tiles, blocks an SM x SMs).
-template <bool BANDED>
-unsigned int persistent_blocks(long long E, size_t smem) {
+template <bool BANDED, bool TANGENT>
+int launch_sweep(const float* X, const float* u, const float* v, const int32_t* nodes,
+                 const int32_t* block_rows, int elements_per_block, float* out, const Strides32& st,
+                 int E, const float* tables, int q, float mu, float lam, cudaStream_t stream) {
+  const size_t smem = sweep_smem_floats<TANGENT>(q) * sizeof(float);
   int dev = 0, sms = 1, per_sm = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tangent_kernel<BANDED>, kTanThreads, smem);
-  const long long tiles = (E + kTanElems - 1) / kTanElems;
-  return (unsigned int)std::max(1LL, std::min(tiles, (long long)std::max(per_sm, 1) * sms));
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_kernel<BANDED, TANGENT>, kSweepThreads, smem);
+  const long long tiles = (E + kSweepElems - 1) / kSweepElems;
+  const unsigned int blocks = (unsigned int)std::max(1LL, std::min(tiles, (long long)std::max(per_sm, 1) * sms));
+  sweep_kernel<BANDED, TANGENT><<<blocks, kSweepThreads, smem, stream>>>(
+      X, u, v, nodes, block_rows, elements_per_block, out, st, E, tables, q, mu, lam);
+  return (int)cudaGetLastError();
 }
 
 // The 12 host strides (X, u, v, out) as Strides32 for views [8][3][E];
@@ -516,76 +498,52 @@ bool strides32(const long long* strides, long long E, Strides32* st) {
   return true;
 }
 
-int launch_tangent(bool banded, const float* X, const float* u, const float* v,
-                   const int32_t* nodes, const int32_t* block_rows, int elements_per_block,
-                   float* out, const Strides32& st, long long E, const float* tables, int q,
-                   float mu, float lam, cudaStream_t stream) {
-  if (E == 0) return 0;
-  if (E * 24 >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const size_t smem = tangent_smem_floats(q) * sizeof(float);
-  if (banded) {
-    tangent_kernel<true><<<persistent_blocks<true>(E, smem), kTanThreads, smem, stream>>>(
-        X, u, v, nodes, block_rows, elements_per_block, out, st, (int)E, tables, q, mu, lam);
-  } else {
-    tangent_kernel<false><<<persistent_blocks<false>(E, smem), kTanThreads, smem, stream>>>(
-        X, u, v, nullptr, nullptr, 1, out, st, (int)E, tables, q, mu, lam);
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Launchers with a plain C interface (loaded with ctypes).  Each returns
-// cudaGetLastError() after its launch (0 = success); the tangent sweeps
-// return cudaErrorInvalidValue without launching when E * 24 >= 2^31 or a
-// strided view's offsets reach 2^31.
+// cudaGetLastError() after its launch (0 = success), or
+// cudaErrorInvalidValue without launching when E * 24 >= 2^31 or a strided
+// view's offsets reach 2^31.  v == NULL selects the vector sweep (internal
+// forces), otherwise the tangent sweep (Hessian actions of v).
 // tables: a device f32 array [q * 49]: geo_dphi [q][8][3], dphi [q][8][3],
 // weights [q].
 //
-// fenris_em_sweep: X f32 [8, 3, E], u, v (NULL for the vector sweep) and out
-// f32 [8, 3, E], all device arrays with the element-minor strides given in
-// the host array strides[12] (X, u, v, out; each node, component, element).
+// fenris_em_sweep: X f32 [8, 3, E], u, v and out f32 [8, 3, E], all device
+// arrays with the element-minor strides given in the host array
+// strides[12] (X, u, v, out; each node, component, element; v's are not
+// read when v is NULL).
 extern "C" int fenris_em_sweep(const void* X, const void* u, const void* v, void* out,
                                const long long* strides, long long E, const void* tables, int q,
                                float mu, float lam, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
   if (E == 0) return 0;
-  if (v != nullptr) {
-    Strides32 st32;
-    if (!strides32(strides, E, &st32)) return (int)cudaErrorInvalidValue;
-    return launch_tangent(false, (const float*)X, (const float*)u, (const float*)v, nullptr,
-                          nullptr, 1, (float*)out, st32, E, (const float*)tables, q, mu, lam, s);
-  }
-  Strides st;
-  for (int i = 0; i < 3; ++i) {
-    st.x[i] = strides[i];
-    st.u[i] = strides[3 + i];
-    st.v[i] = strides[6 + i];
-    st.o[i] = strides[9 + i];
-  }
-  const unsigned int blocks = (unsigned int)((E + kThreads - 1) / kThreads);
-  const size_t smem = (size_t)q * kTab * sizeof(float);
-  em_vector_kernel<<<blocks, kThreads, smem, s>>>((const float*)X, (const float*)u, (float*)out,
-                                                  st, E, (const float*)tables, q, mu, lam);
-  return (int)cudaGetLastError();
+  Strides32 st;
+  if (E * 24 >= (1LL << 31) || !strides32(strides, E, &st)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (v == nullptr)
+    return launch_sweep<false, false>((const float*)X, (const float*)u, nullptr, nullptr, nullptr, 1,
+                                      (float*)out, st, (int)E, (const float*)tables, q, mu, lam, s);
+  return launch_sweep<false, true>((const float*)X, (const float*)u, (const float*)v, nullptr, nullptr, 1,
+                                   (float*)out, st, (int)E, (const float*)tables, q, mu, lam, s);
 }
 
-// fenris_banded_tangent_sweep: the tangent sweep fused with the banded
+// fenris_banded_sweep: the vector or tangent sweep fused with the banded
 // gather.  X f32 [8, 3, E] contiguous (the padded geometry, E = E_pad);
 // u, v f32 [N, 3] contiguous node vectors; nodes int32 [E * 8] (the plan's
 // nodes_padded); block_rows int32 [E / elements_per_block] (valid rows per
 // owner block); out f32 [E, 8, 3] contiguous, 16-byte aligned.
-extern "C" int fenris_banded_tangent_sweep(const void* X, const void* u, const void* v,
-                                           const void* nodes, const void* block_rows, void* out,
-                                           long long E, int elements_per_block, const void* tables,
-                                           int q, float mu, float lam, void* stream) {
+extern "C" int fenris_banded_sweep(const void* X, const void* u, const void* v, const void* nodes,
+                                   const void* block_rows, void* out, long long E,
+                                   int elements_per_block, const void* tables, int q, float mu,
+                                   float lam, void* stream) {
+  if (E == 0) return 0;
   if (E * 24 >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  Strides32 st = {};
-  st.x[0] = (int)(3 * E);
-  st.x[1] = (int)E;
-  st.x[2] = 1;
-  return launch_tangent(true, (const float*)X, (const float*)u, (const float*)v,
-                        (const int32_t*)nodes, (const int32_t*)block_rows, elements_per_block,
-                        (float*)out, st, E, (const float*)tables, q, mu, lam,
-                        (cudaStream_t)stream);
+  const Strides32 st = {};  // not read in banded mode
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (v == nullptr)
+    return launch_sweep<true, false>((const float*)X, (const float*)u, nullptr, (const int32_t*)nodes,
+                                     (const int32_t*)block_rows, elements_per_block, (float*)out, st,
+                                     (int)E, (const float*)tables, q, mu, lam, s);
+  return launch_sweep<true, true>((const float*)X, (const float*)u, (const float*)v, (const int32_t*)nodes,
+                                  (const int32_t*)block_rows, elements_per_block, (float*)out, st, (int)E,
+                                  (const float*)tables, q, mu, lam, s);
 }

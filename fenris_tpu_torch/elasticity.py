@@ -9,8 +9,8 @@ inner solvers:
   scatter (:mod:`.ops.banded`) in the padded row layout; with
   ``fused_kernels=True`` as well, the element math of the internal forces
   and of the Hessian action runs in the fused element-sweep kernels
-  (:mod:`.ops.em_sweep`) on a CUDA f32 model, and in their plain versions
-  on the CPU;
+  (:mod:`.ops.em_sweep`), which read the node vectors through the plan
+  themselves, on a CUDA f32 model, and in their plain versions on the CPU;
 * **assembled** (``assembled=True``): each Newton step assembles the
   tangent stiffness into the block-DIA layout (:mod:`.sparse.block_dia`)
   and CG runs on the band sweep (:mod:`.sparse.dia_kernel`), preconditioned
@@ -229,16 +229,22 @@ class HyperelasticModel:
         return scatter_add_rows(out, self._node_scatter, f_el.reshape(-1, s)).reshape(-1)
 
     def _sweep_vector(self, u):
-        """Internal forces: element vectors chunk by chunk, then one scatter."""
+        """Internal forces: element vectors chunk by chunk, then one scatter.
+
+        The fused path runs :func:`~.ops.em_sweep.banded_vector_sweep`, which
+        reads ``u`` through the banded plan (no gather) and writes the
+        element-major rows the scatter reads.
+        """
+        op, params, tab = self.operator, self.params, self.tab
+        if self.fused_kernels:
+            rows = em_sweep.banded_vector_sweep(
+                self._plan, self._X_band, u.reshape(-1, self.mesh.dim), op, params, tab, self._em_tables
+            )
+            return scatter_add(self._plan, rows).reshape(-1)
         if self._plan is not None:
-            u_em = self._gather_em(u)
-            op, params, tab = self.operator, self.params, self.tab
-            if self.fused_kernels:
-                f = em_sweep.em_vector_sweep(self._X_band, u_em, op, params, tab, self._em_tables)
-            else:
-                f = self._banded_sweep(
-                    lambda X, ue: assemble_element_elliptic_vectors_em(X, ue, op, params, tab), u_em
-                )
+            f = self._banded_sweep(
+                lambda X, ue: assemble_element_elliptic_vectors_em(X, ue, op, params, tab), self._gather_em(u)
+            )
             return self._scatter_em(f)
         X = self.space.X_geo
         f_el = torch.cat(

@@ -39,8 +39,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    # u, scratch, out, nz, ny, nx, gp, wdet, mu, lam, stream
-    "fenris_nh_residual": ((_P, _P, _P, _I, _I, _I, _P, _P, _F, _F, _P), _I),
+    # u, out, nz, ny, nx, factors (host f32 [32]), mu, lam, stream
+    "fenris_nh_residual": ((_P, _P, _I, _I, _I, _P, _F, _F, _P), _I),
     # u, v, out, nz, ny, nx, factors (host f32 [32]), mu, lam, stream
     "fenris_nh_hvp": ((_P, _P, _P, _I, _I, _I, _P, _F, _F, _P), _I),
     # bands, offsets, D, x, y, N, s, stream
@@ -53,8 +53,8 @@ _SIGNATURES = {
     "fenris_banded_scatter": ((_P, _P, _P, _P, _L, _I, _P), _I),
     # X, u, v (NULL: vector sweep), out, strides[12], E, tables, q, mu, lam, stream
     "fenris_em_sweep": ((_P, _P, _P, _P, _LP, _L, _P, _I, _F, _F, _P), _I),
-    # X, u, v, nodes, block_rows, out, E, elements_per_block, tables, q, mu, lam, stream
-    "fenris_banded_tangent_sweep": ((_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _F, _F, _P), _I),
+    # X, u, v (NULL: vector sweep), nodes, block_rows, out, E, elements_per_block, tables, q, mu, lam, stream
+    "fenris_banded_sweep": ((_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _F, _F, _P), _I),
     "fenris_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -8,21 +8,23 @@ of :mod:`..assembly.local_em` (``X_em [m, d, E]``, ``u_em``/``v_em``
 * :func:`em_vector_sweep` — element internal-force vectors (replaces the
   TPU kernel ``em_vector_sweep``);
 * :func:`em_vector_tangent_sweep` — element Hessian actions with the
-  closed-form tangent stress (replaces ``em_vector_tangent_sweep``);
-* :func:`banded_tangent_sweep` — the same Hessian actions fused with the
-  banded gather: node vectors ``u``, ``v [N, 3]`` in, element-major rows
-  ``[E_pad, 8, 3]`` out (the matrix-free CG operator of the fused model).
+  closed-form tangent stress (replaces ``em_vector_tangent_sweep``).
+
+The fused model runs each fused with the banded gather, node vectors
+``u`` (``v``) ``[N, 3]`` in and element-major rows ``[E_pad, 8, 3]`` out:
+:func:`banded_vector_sweep` (its residual) and :func:`banded_tangent_sweep`
+(its matrix-free CG operator).
 
 On a CUDA tensor each wrapper launches the hand-written kernel
 (``csrc/em_sweep.cu``) when :func:`supports` holds and raises otherwise;
 on a CPU tensor it runs the plain version
 (:func:`~..assembly.local_em.assemble_element_elliptic_vectors_em`,
 :func:`~..assembly.local_em.assemble_element_elliptic_tangent_vectors_em`,
-:func:`banded_tangent_sweep_plain`).  The two element-minor wrappers take
-views with any strides, so the element-major rows of the banded gather
-(``rows.permute(1, 2, 0)``) need no transposing copy; their output has the
-strides of ``u_em``.  :func:`em_vector_tangent_sweep` and
-:func:`banded_tangent_sweep` run one kernel body.  Launches are counted in
+:func:`banded_vector_sweep_plain`, :func:`banded_tangent_sweep_plain`).  The
+two element-minor wrappers take views with any strides, so the
+element-major rows of the banded gather (``rows.permute(1, 2, 0)``) need no
+transposing copy; their output has the strides of ``u_em``.  All four
+wrappers run one kernel body.  Launches are counted in
 ``<wrapper>.launches``.
 """
 
@@ -45,6 +47,8 @@ from .banded import BandedPlan, banded_gather_plain, check_index_range
 __all__ = [
     "banded_tangent_sweep",
     "banded_tangent_sweep_plain",
+    "banded_vector_sweep",
+    "banded_vector_sweep_plain",
     "device_tables",
     "em_vector_sweep",
     "em_vector_tangent_sweep",
@@ -166,6 +170,13 @@ def em_vector_tangent_sweep(X_em, u_em, v_em, op, params, tab: Tabulation, table
     return out
 
 
+def banded_vector_sweep_plain(plan: BandedPlan, X_band, u, op, params, tab: Tabulation):
+    """Plain PyTorch version of :func:`banded_vector_sweep`: the plain gather, the plain vector
+    sweep, element-major rows ``[E_pad, 8, 3]``."""
+    f = assemble_element_elliptic_vectors_em(X_band, banded_gather_plain(plan, u).permute(1, 2, 0), op, params, tab)
+    return f.permute(2, 0, 1).contiguous()
+
+
 def banded_tangent_sweep_plain(plan: BandedPlan, X_band, u, v, op, params, tab: Tabulation):
     """Plain PyTorch version of :func:`banded_tangent_sweep`: two plain gathers, the plain
     tangent sweep, element-major rows ``[E_pad, 8, 3]``."""
@@ -174,43 +185,66 @@ def banded_tangent_sweep_plain(plan: BandedPlan, X_band, u, v, op, params, tab: 
     return f.permute(2, 0, 1).contiguous()
 
 
-def banded_tangent_sweep(plan: BandedPlan, X_band, u, v, op, params, tab: Tabulation, tables=None):
-    """Element Hessian actions of node vectors ``u``, ``v [N, 3]`` on the banded layout.
-
-    Returns element-major rows ``[E_pad, 8, 3]`` (the layout
-    :func:`..ops.banded.banded_scatter` reads): ``banded_gather`` of ``u``
-    and ``v``, then :func:`em_vector_tangent_sweep` on the padded geometry
-    ``X_band [8, 3, E_pad]``, in one kernel that reads ``u`` and ``v``
-    through the plan's row → node table (padding elements see zeros, as
-    the gather gives them).  ``tables`` as in :func:`em_vector_sweep`.
-    """
-    if all(t.device.type == "cpu" for t in (X_band, u, v)):
-        return banded_tangent_sweep_plain(plan, X_band, u, v, op, params, tab)
+def _banded_launch(name, plan: BandedPlan, X_band, fields, op, params, tab: Tabulation, tables):
+    """One launch of ``fenris_banded_sweep`` on node vectors ``fields`` (u, and v for the tangent)."""
     check_index_range(plan, 3)
     dev = X_band.device
     mu, lam, tables = _kernel_args(X_band, op, params, tab, tables)
     E = plan.padded_elements
     _check(X_band, "X_band", (8, 3, E), dev)
-    _check(u, "u", (plan.num_nodes, 3), dev)
-    _check(v, "v", (plan.num_nodes, 3), dev)
-    if not (X_band.is_contiguous() and u.is_contiguous() and v.is_contiguous()):
-        raise ValueError("banded_tangent_sweep: X_band, u and v must be contiguous")
+    for f, arg in zip(fields, ("u", "v")):
+        _check(f, arg, (plan.num_nodes, 3), dev)
+    if not all(t.is_contiguous() for t in (X_band, *fields)):
+        raise ValueError(f"{name}: X_band and the node vectors must be contiguous")
     if plan.nodes_padded.device != dev or plan.n != 8:
-        raise ValueError(f"banded_tangent_sweep: expected a hex8 banded plan on {dev}")
+        raise ValueError(f"{name}: expected a hex8 banded plan on {dev}")
+    u, v = fields[0], fields[1] if len(fields) > 1 else None
     out = torch.empty((E, 8, 3), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.fenris_banded_tangent_sweep(
-            X_band.data_ptr(), u.data_ptr(), v.data_ptr(), plan.nodes_padded.data_ptr(),
+        code = lib.fenris_banded_sweep(
+            X_band.data_ptr(), u.data_ptr(), None if v is None else v.data_ptr(), plan.nodes_padded.data_ptr(),
             plan.block_rows.data_ptr(), out.data_ptr(), E, plan.elements_per_block,
             tables.data_ptr(), tab.num_points, mu, lam, stream,
         )
-    check(lib, code, "banded_tangent_sweep")
+    check(lib, code, name)
+    return out
+
+
+def banded_vector_sweep(plan: BandedPlan, X_band, u, op, params, tab: Tabulation, tables=None):
+    """Element internal forces of node vector ``u [N, 3]`` on the banded layout.
+
+    Returns element-major rows ``[E_pad, 8, 3]`` (the layout
+    :func:`..ops.banded.banded_scatter` reads): ``banded_gather`` of ``u``,
+    then :func:`em_vector_sweep` on the padded geometry ``X_band [8, 3,
+    E_pad]``, in one kernel that reads ``u`` through the plan's row → node
+    table; padding elements get zero rows, as the gather gives them zero
+    displacements.  ``tables`` as in :func:`em_vector_sweep`.
+    """
+    if X_band.device.type == "cpu" and u.device.type == "cpu":
+        return banded_vector_sweep_plain(plan, X_band, u, op, params, tab)
+    out = _banded_launch("banded_vector_sweep", plan, X_band, (u,), op, params, tab, tables)
+    banded_vector_sweep.launches += 1
+    return out
+
+
+def banded_tangent_sweep(plan: BandedPlan, X_band, u, v, op, params, tab: Tabulation, tables=None):
+    """Element Hessian actions of node vectors ``u``, ``v [N, 3]`` on the banded layout.
+
+    Returns element-major rows ``[E_pad, 8, 3]``: ``banded_gather`` of ``u``
+    and ``v``, then :func:`em_vector_tangent_sweep` on the padded geometry,
+    in one kernel, as :func:`banded_vector_sweep` (padding elements get zero
+    rows).  ``tables`` as in :func:`em_vector_sweep`.
+    """
+    if all(t.device.type == "cpu" for t in (X_band, u, v)):
+        return banded_tangent_sweep_plain(plan, X_band, u, v, op, params, tab)
+    out = _banded_launch("banded_tangent_sweep", plan, X_band, (u, v), op, params, tab, tables)
     banded_tangent_sweep.launches += 1
     return out
 
 
 em_vector_sweep.launches = 0
 em_vector_tangent_sweep.launches = 0
+banded_vector_sweep.launches = 0
 banded_tangent_sweep.launches = 0

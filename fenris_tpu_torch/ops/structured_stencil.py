@@ -14,9 +14,10 @@ shape, with the basis-gradient table ``gp [8, 8, 3]`` and the weights
 order is the JAX package's).  On a CUDA tensor each wrapper launches its
 hand-written kernel (``csrc/structured_stencil.cu``; f32, contiguous) or
 raises; on a CPU tensor it runs the plain PyTorch version beside it.  Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.  The
-Hessian-action kernel works in the tensor-product form of a uniform grid's
-table: :func:`hvp_factors` derives its factors from ``gp`` and ``wdet`` and
+wrapper counts its kernel launches in ``<wrapper>.launches``.  Both
+kernels are one launch of one z-marching body that allocates nothing but
+its output, and work in the tensor-product form of a uniform grid's table:
+:func:`stencil_factors` derives its factors from ``gp`` and ``wdet`` and
 refuses a table without that structure.
 """
 
@@ -34,7 +35,7 @@ from ._build import check, load_library
 
 __all__ = [
     "gp_table",
-    "hvp_factors",
+    "stencil_factors",
     "neo_hookean_residual",
     "neo_hookean_hvp",
     "neo_hookean_residual_plain",
@@ -164,37 +165,8 @@ def _check_grid(g: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: grid must be contiguous")
 
 
-def _host_tables(gp, wdet):
-    gp32 = np.ascontiguousarray(gp, dtype=np.float32)
-    w32 = np.ascontiguousarray(wdet, dtype=np.float32)
-    if gp32.shape != (8, 8, 3) or w32.shape != (8,):
-        raise ValueError(f"expected gp [8, 8, 3] and wdet [8], got {gp32.shape}, {w32.shape}")
-    return gp32, w32
-
-
-def neo_hookean_residual(u_grid, gp, wdet, mu, lam):
-    """Internal forces of a Neo-Hookean structured hex8 model, grid layout."""
-    if u_grid.device.type == "cpu":
-        return neo_hookean_residual_plain(u_grid, gp, wdet, mu, lam)
-    _check_grid(u_grid, "u_grid")
-    gp32, w32 = _host_tables(gp, wdet)
-    lib = load_library()
-    _, nz, ny, nx = u_grid.shape
-    out = torch.empty_like(u_grid)
-    scratch = u_grid.new_empty((8, 3, nz - 1, ny - 1, nx - 1))
-    with torch.cuda.device(u_grid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.fenris_nh_residual(
-            u_grid.data_ptr(), scratch.data_ptr(), out.data_ptr(), nz, ny, nx,
-            gp32.ctypes.data, w32.ctypes.data, float(mu), float(lam), stream,
-        )
-    check(lib, code, "neo_hookean_residual")
-    neo_hookean_residual.launches += 1
-    return out
-
-
-def hvp_factors(gp, wdet) -> np.ndarray:
-    """The Hessian-action kernel's tensor-product factors of a uniform hex8 table, f32 ``[32]``.
+def stencil_factors(gp, wdet) -> np.ndarray:
+    """The stencil kernels' tensor-product factors of a uniform hex8 table, f32 ``[32]``.
 
     On a uniform grid ``gp[q, n, a] = ±D_a B_b1[q_b1, n_b1] B_b2[q_b2, n_b2]``
     (b1 = (a + 1) % 3, b2 = (a + 2) % 3; + where node n lies on the upper
@@ -202,9 +174,9 @@ def hvp_factors(gp, wdet) -> np.ndarray:
     of node side m at the axis' Gauss point p, with ``D_a`` the derivative
     scale (1/h).  Returns ``t1[a, p, m] = B_b1[p, m]``, ``t2[a, p, m] = D_a
     B_b2[p, m]`` and the weights ``w[qz, qy, qx] = wdet[q]``, concatenated
-    (the kernel's ``HvpFactors``).  Raises ``ValueError`` unless the table
-    rebuilt from these factors equals ``gp`` to 1e-6 of its largest entry
-    (f32 roundoff, which :func:`gp_table`'s tables meet).
+    (the kernels' ``StencilFactors``).  Raises ``ValueError`` unless the
+    table rebuilt from these factors equals ``gp`` to 1e-6 of its largest
+    entry (f32 roundoff, which :func:`gp_table`'s tables meet).
     """
     gp = np.asarray(gp, dtype=np.float64)
     wdet = np.asarray(wdet, dtype=np.float64)
@@ -232,7 +204,7 @@ def hvp_factors(gp, wdet) -> np.ndarray:
         sign = np.where(upper[:, a], 1.0, -1.0)
         rebuilt[:, :, a] = sign * Dm[a] * B[b1][pt[:, b1][:, None], off[:, b1]] * B[b2][pt[:, b2][:, None], off[:, b2]]
     if np.abs(rebuilt - gp).max() > 1e-6 * np.abs(gp).max():
-        raise ValueError("gp is not a uniform hex8 tensor-product table (the Hessian-action kernel needs one)")
+        raise ValueError("gp is not a uniform hex8 tensor-product table (the stencil kernels need one)")
     t1 = np.stack([B[(a + 1) % 3] for a in range(3)])
     t2 = np.stack([Dm[a] * B[(a + 2) % 3] for a in range(3)])
     w = np.empty((2, 2, 2))
@@ -241,40 +213,61 @@ def hvp_factors(gp, wdet) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def _hvp_factors_of(gp_bytes: bytes, wdet_bytes: bytes) -> np.ndarray:
-    """:func:`hvp_factors` once per table (the CG loop passes the same one each iteration)."""
-    return hvp_factors(np.frombuffer(gp_bytes).reshape(8, 8, 3), np.frombuffer(wdet_bytes))
+def _factors_of(gp_bytes: bytes, wdet_bytes: bytes) -> np.ndarray:
+    """:func:`stencil_factors` once per table (a solve passes the same one every call)."""
+    return stencil_factors(np.frombuffer(gp_bytes).reshape(8, 8, 3), np.frombuffer(wdet_bytes))
+
+
+def _launch(name, grids, gp, wdet, mu, lam):
+    """One launch of ``fenris_<name>`` on the checked ``grids`` (u, and v for the Hessian action);
+    returns its output, the only tensor the call allocates."""
+    for g, arg in zip(grids, ("u_grid", "v_grid")):
+        _check_grid(g, arg)
+    u_grid = grids[0]
+    if any(g.shape != u_grid.shape or g.device != u_grid.device for g in grids[1:]):
+        raise ValueError("u_grid and v_grid must have the same shape and device")
+    gp64, w64 = (np.ascontiguousarray(a, dtype=np.float64) for a in (gp, wdet))
+    if gp64.shape != (8, 8, 3) or w64.shape != (8,):
+        raise ValueError(f"expected gp [8, 8, 3] and wdet [8], got {gp64.shape}, {w64.shape}")
+    factors = _factors_of(gp64.tobytes(), w64.tobytes())
+    _, nz, ny, nx = u_grid.shape
+    if ny * nx >= 2**31:
+        raise ValueError(f"{name}: a node plane of {ny} x {nx} exceeds the kernel's 32-bit offsets")
+    lib = load_library()
+    out = torch.empty_like(u_grid)
+    with torch.cuda.device(u_grid.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, f"fenris_{name}")(
+            *(g.data_ptr() for g in grids), out.data_ptr(), nz, ny, nx,
+            factors.ctypes.data, float(mu), float(lam), stream,
+        )
+    check(lib, code, name)
+    return out
+
+
+def neo_hookean_residual(u_grid, gp, wdet, mu, lam):
+    """Internal forces of a Neo-Hookean structured hex8 model, grid layout.
+
+    The kernel takes the tensor-product factors of ``gp``
+    (:func:`stencil_factors`) and raises on a table without them.
+    """
+    if u_grid.device.type == "cpu":
+        return neo_hookean_residual_plain(u_grid, gp, wdet, mu, lam)
+    out = _launch("nh_residual", (u_grid,), gp, wdet, mu, lam)
+    neo_hookean_residual.launches += 1
+    return out
 
 
 def neo_hookean_hvp(u_grid, v_grid, gp, wdet, mu, lam):
     """Hessian action d/dε f(u + ε v) of the Neo-Hookean internal forces, grid layout.
 
     ``v_grid`` is used as given: the caller applies the Dirichlet mask.  The
-    kernel takes the tensor-product factors of ``gp`` (:func:`hvp_factors`)
+    kernel takes the tensor-product factors of ``gp`` (:func:`stencil_factors`)
     and raises on a table without them.
     """
     if u_grid.device.type == "cpu" and v_grid.device.type == "cpu":
         return neo_hookean_hvp_plain(u_grid, v_grid, gp, wdet, mu, lam)
-    _check_grid(u_grid, "u_grid")
-    _check_grid(v_grid, "v_grid")
-    if v_grid.shape != u_grid.shape or v_grid.device != u_grid.device:
-        raise ValueError("u_grid and v_grid must have the same shape and device")
-    gp64, w64 = (np.ascontiguousarray(a, dtype=np.float64) for a in (gp, wdet))
-    if gp64.shape != (8, 8, 3) or w64.shape != (8,):
-        raise ValueError(f"expected gp [8, 8, 3] and wdet [8], got {gp64.shape}, {w64.shape}")
-    factors = _hvp_factors_of(gp64.tobytes(), w64.tobytes())
-    _, nz, ny, nx = u_grid.shape
-    if ny * nx >= 2**31:
-        raise ValueError(f"neo_hookean_hvp: a node plane of {ny} x {nx} exceeds the kernel's 32-bit offsets")
-    lib = load_library()
-    out = torch.empty_like(u_grid)
-    with torch.cuda.device(u_grid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.fenris_nh_hvp(
-            u_grid.data_ptr(), v_grid.data_ptr(), out.data_ptr(), nz, ny, nx,
-            factors.ctypes.data, float(mu), float(lam), stream,
-        )
-    check(lib, code, "neo_hookean_hvp")
+    out = _launch("nh_hvp", (u_grid, v_grid), gp, wdet, mu, lam)
     neo_hookean_hvp.launches += 1
     return out
 

@@ -76,9 +76,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cells", [(5, 4, 11), (15, 7, 5), (33, 9, 17), (1, 1, 1), (64, 20, 26), (2, 17, 33)])
+@pytest.mark.parametrize("cells", [(5, 4, 11), (15, 7, 5), (33, 9, 17), (1, 1, 1), (64, 20, 26), (2, 17, 33),
+                                   (2, 17, 1)])
 def test_stencil_kernels_match_plain_on_card(cells, cuda_device):
-    """Ragged tiles (32 x 10 nodes), slabs (13 layers), a tile's extra last node on each axis, one cell."""
+    """Ragged tiles (32 x 10 nodes), slabs (13 layers), a tile's extra last node on each axis, one cell
+    or one cell layer."""
     h = 0.25
     ncx, ncy, ncz = cells
     g = rng(0)
@@ -99,7 +101,24 @@ def test_stencil_kernels_match_plain_on_card(cells, cuda_device):
 
 
 @pytest.mark.cuda
-def test_hvp_kernel_refuses_what_it_does_not_take(cuda_device):
+def test_residual_kernel_allocates_only_its_output(cuda_device):
+    """One launch, no scratch: a residual call allocates its output and nothing else."""
+    h = 0.25
+    gp, w = tss.gp_table(h)
+    u = torch.as_tensor(rng(2).uniform(-0.02 * h, 0.02 * h, (3, 14, 23, 40)), dtype=torch.float32, device=cuda_device)
+    tss.neo_hookean_residual(u, gp, w, MU, LAM)  # the library and the factors, once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0, n0 = torch.cuda.memory_allocated(), tss.neo_hookean_residual.launches
+    out = tss.neo_hookean_residual(u, gp, w, MU, LAM)
+    torch.cuda.synchronize()
+    assert tss.neo_hookean_residual.launches == n0 + 1
+    assert torch.cuda.max_memory_allocated() - m0 <= -(-out.numel() * 4 // 512) * 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["hvp", "residual"])
+def test_hvp_kernel_refuses_what_it_does_not_take(kernel, cuda_device):
     """A CUDA input launches the kernel or raises: other tables, dtypes, layouts and devices raise."""
     h = 0.25
     gp, w = tss.gp_table(h)
@@ -107,18 +126,25 @@ def test_hvp_kernel_refuses_what_it_does_not_take(cuda_device):
     g = rng(1)
     u = torch.as_tensor(g.uniform(-0.02 * h, 0.02 * h, shape), dtype=torch.float32, device=cuda_device)
     v = torch.as_tensor(g.standard_normal(shape), dtype=torch.float32, device=cuda_device)
+    if kernel == "hvp":
+        fn = tss.neo_hookean_hvp
+        call = lambda a, b, table: fn(a, b, table, w, MU, LAM)  # noqa: E731
+    else:
+        fn = tss.neo_hookean_residual
+        call = lambda a, b, table: fn(b, table, w, MU, LAM)  # noqa: E731  (the residual takes v's place)
     stretched = gp.copy()
     stretched[4:] *= 1.5  # not a uniform tensor-product table
-    before = tss.neo_hookean_hvp.launches
+    before = fn.launches
     with pytest.raises(ValueError, match="tensor-product"):
-        tss.neo_hookean_hvp(u, v, stretched, w, MU, LAM)
+        call(u, v, stretched)
     with pytest.raises(TypeError, match="f32-only"):
-        tss.neo_hookean_hvp(u.double(), v.double(), gp, w, MU, LAM)
+        call(u.double(), v.double(), gp)
     with pytest.raises(ValueError, match="contiguous"):
-        tss.neo_hookean_hvp(u.transpose(2, 3), v.transpose(2, 3), gp, w, MU, LAM)
+        call(u.transpose(2, 3), v.transpose(2, 3), gp)
+    # the Hessian action with v on the CPU; the residual on another device (on the CPU it runs the plain version)
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        tss.neo_hookean_hvp(u, v.cpu(), gp, w, MU, LAM)
-    assert tss.neo_hookean_hvp.launches == before
+        call(u, v.cpu() if kernel == "hvp" else v.to("meta"), gp)
+    assert fn.launches == before
 
 
 # -- element stiffness (csrc/stiffness_pairs.cu) --------------------------------------------
@@ -255,6 +281,33 @@ def test_banded_tangent_sweep_matches_plain_on_card(cuda_device):
     ref = tes.banded_tangent_sweep_plain(tp, X_band, ut, vt, op, params, tab)
     torch.cuda.synchronize()
     assert torch.equal(got, again)  # fixed lane reduction order, no atomics
+    assert rel_err(ref, got) < KERNEL_RTOL
+
+
+@pytest.mark.cuda
+def test_banded_vector_sweep_matches_plain_on_card(cuda_device):
+    """The fused residual sweep on an RCM-reordered, perturbed res-11 box with two owner blocks and padding
+    rows: bitwise repeats, zero rows for padding elements, the plain version to f32 roundoff."""
+    res = 11
+    mesh, _ = reorder_mesh(box(res))
+    cells, N = mesh.cells, mesh.num_vertices
+    g = rng(9)
+    pts = mesh.points + g.uniform(-0.15, 0.15, (N, 3)) / res
+    tp = tb.make_banded_plan(cells, N, s=3, r_nodes=1024, rowt=256, device=cuda_device)
+    assert tp.k_blocks == 2 and tp.padded_elements > tp.num_elements
+    op, tab, params = _neo_hookean_op(), hex8_tab(), LameParameters(MU, LAM)
+    X_band = torch.as_tensor(tp.pad_elements(pts[cells]), dtype=torch.float32,
+                             device=cuda_device).permute(1, 2, 0).contiguous()
+    ut = torch.as_tensor(g.uniform(-0.01, 0.01, (N, 3)), dtype=torch.float32, device=cuda_device)
+    before = tes.banded_vector_sweep.launches
+    got = tes.banded_vector_sweep(tp, X_band, ut, op, params, tab)
+    again = tes.banded_vector_sweep(tp, X_band, ut, op, params, tab)
+    ref = tes.banded_vector_sweep_plain(tp, X_band, ut, op, params, tab)
+    torch.cuda.synchronize()
+    assert tes.banded_vector_sweep.launches == before + 2
+    assert torch.equal(got, again)  # fixed lane reduction order, no atomics
+    padding = torch.as_tensor(tp.valid_elements(), device=cuda_device) == 0
+    assert bool(padding.any()) and not bool(got[padding].any())
     assert rel_err(ref, got) < KERNEL_RTOL
 
 

@@ -2,9 +2,9 @@
 
 The JAX ``fenris_tpu.assembly.local_em`` XLA sweeps are the reference (the
 JAX tests pin its Pallas kernels to them); the port's functions run in f64
-on the CPU on the same numpy inputs.  The fused banded tangent sweep is
-held against JAX's banded gather (its XLA fallback on the CPU) followed by
-the tangent sweep.
+on the CPU on the same numpy inputs.  The fused banded vector and tangent
+sweeps are held against JAX's banded gather (its XLA fallback on the CPU)
+followed by the vector or tangent sweep.
 """
 
 import jax
@@ -184,6 +184,41 @@ def test_banded_tangent_sweep_plain_matches_jax(res):
     assert got.shape == (tp.padded_elements, 8, 3)
     # f64, another summation order: roundoff only
     assert rel_err(np.transpose(np.asarray(ref), (2, 0, 1)), got) < 1e-12
+
+
+@pytest.mark.parametrize("res", [10, 11])
+def test_banded_vector_sweep_plain_matches_jax(res):
+    """The fused residual sweep's plain version against JAX's banded gather of u, then the vector sweep."""
+    mesh, jp, tp, Xp, u, _ = _banded_inputs(res, 9)
+    assert tp.k_blocks == 2 and tp.padded_elements > tp.num_elements and min(tp.counts) < tp.elements_per_block
+    jop, top = _ops("neo_hookean")
+    jtab, ttab = _tabs(mesh)
+    ue = np.transpose(np.asarray(jb.gather(jp, jnp.asarray(u))), (1, 2, 0))
+    ref = JLE.assemble_element_elliptic_vectors_em(jnp.asarray(np.transpose(Xp, (1, 2, 0))), jnp.asarray(ue), jop,
+                                                   JaxLame(MU, LAM), jtab)
+    X_band = torch.as_tensor(Xp).permute(1, 2, 0).contiguous()
+    got = tes.banded_vector_sweep_plain(tp, X_band, torch.as_tensor(u), top, TorchLame(MU, LAM), ttab)
+    assert got.shape == (tp.padded_elements, 8, 3)
+    # padding elements see zero displacements: zero rows
+    assert not got[torch.as_tensor(tp.valid_elements()) == 0].any()
+    # f64, another summation order: roundoff only
+    assert rel_err(np.transpose(np.asarray(ref), (2, 0, 1)), got) < 1e-12
+
+
+def test_banded_vector_sweep_takes_plain_version_on_cpu_and_refuses_other_devices():
+    mesh, _, tp, Xp, u, _ = _banded_inputs(10, 10)
+    _, top = _ops("neo_hookean")
+    _, ttab = _tabs(mesh)
+    params = TorchLame(MU, LAM)
+    X_band = torch.as_tensor(Xp, dtype=torch.float32).permute(1, 2, 0).contiguous()
+    ut = torch.as_tensor(u, dtype=torch.float32)
+    before = tes.banded_vector_sweep.launches
+    assert torch.equal(tes.banded_vector_sweep(tp, X_band, ut, top, params, ttab, tes.device_tables(ttab, "cpu")),
+                       tes.banded_vector_sweep_plain(tp, X_band, ut, top, params, ttab))
+    assert tes.banded_vector_sweep.launches == before
+    meta = [torch.empty(a.shape, device="meta") for a in (X_band, ut)]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tes.banded_vector_sweep(tp, *meta, top, params, ttab)
 
 
 def test_banded_tangent_sweep_takes_plain_version_on_cpu_and_refuses_other_devices():

@@ -112,6 +112,31 @@ def test_fused_hessian_action_runs_the_banded_tangent_sweep(monkeypatch):
     assert rel_err(ref["hvp"], hv) < 1e-10
 
 
+def test_fused_residual_runs_the_banded_vector_sweep(monkeypatch):
+    """The fused model's residual is one banded_vector_sweep (then the scatter) and no gather, matching JAX."""
+    import fenris_tpu_torch.elasticity as tel
+
+    calls = []
+    fused = em_sweep.banded_vector_sweep
+
+    def spy(*args, **kwargs):
+        calls.append(args[0])
+        return fused(*args, **kwargs)
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("the fused residual gathered")
+
+    monkeypatch.setattr(em_sweep, "banded_vector_sweep", spy)
+    monkeypatch.setattr(tel, "gather", no_gather)
+    tm = _torch_model(10, banded_r_nodes=1024, chunk_size=1, banded=True, fused_kernels=True)
+    u, v = _state(tm.space.num_dofs)
+    ref = _banded_reference(u, v)
+    r = tm.residual(torch.as_tensor(u))
+    assert len(calls) == 1 and calls[0] is tm._plan
+    # f64, another summation order: roundoff only
+    assert rel_err(ref["residual"], r) < 1e-12
+
+
 @pytest.mark.parametrize("chunk_size", [None, 7], ids=["unchunked", "chunked"])
 def test_plain_hessian_diagonal_matches_jax(chunk_size):
     jm = _jax(3, chunk_size=chunk_size)

@@ -186,7 +186,7 @@ def test_tensor_product_form_matches_dense_table(spacing):
     """f64 emulation of the kernel's gradient and adjoint against the dense gp form, and JAX's table."""
     gp, w = tss.gp_table(spacing)
     gp_jax, w_jax = (np.asarray(a) for a in jss._gp_table(spacing))
-    t1, t2, wt = _split_factors(tss.hvp_factors(gp, w).astype(np.float64))
+    t1, t2, wt = _split_factors(tss.stencil_factors(gp, w).astype(np.float64))
     pts = _points()
     g = rng(5)
     U = g.standard_normal((8, 3, 7))  # 7 cells
@@ -208,19 +208,43 @@ def test_tensor_product_form_matches_dense_table(spacing):
     assert np.abs(f_tp - f_dense).max() <= 1e-6 * np.abs(f_dense).max()
 
 
+@pytest.mark.parametrize("spacing", [0.25, 1.0 / 128])
+def test_tensor_product_residual_matches_plain(spacing):
+    """f64 emulation of the residual kernel's arithmetic (tensor-product gradient, stress at each point,
+    adjoint, the corner sum) against the plain version, which takes the dense table."""
+    cells = (3, 2, 4)
+    u, _ = _grids(cells, spacing, seed=6)
+    u *= 10.0  # displacement gradients ~0.2: the stress well into its nonlinear range
+    gp, w = tss.gp_table(spacing)
+    t1, t2, wt = _split_factors(tss.stencil_factors(gp, w).astype(np.float64))
+    ut = torch.as_tensor(u)
+    U = torch.stack(tss.corner_views(ut)).numpy().reshape(8, 3, -1)  # [n, s, cells]
+    Gt = _tp_gradient(t1, t2, U)
+    P = {}
+    for qa in _points():
+        G = [[torch.as_tensor(Gt[a, qa[(a + 1) % 3], qa[(a + 2) % 3], s]) for s in range(3)] for a in range(3)]
+        F, cof, inv_det, alpha = tss._kinematics(G, MU, LAM)
+        P[qa] = np.array([[(alpha * cof[i][j] * inv_det + MU * F[i][j]).numpy() for j in range(3)] for i in range(3)])
+    f = _tp_adjoint(t1, t2, wt, P)  # [n, s, cells]
+    got = tss.scatter_corners(torch.as_tensor(f).reshape(8, 3, cells[2], cells[1], cells[0]), ut.shape[1:])
+    ref = tss.neo_hookean_residual_plain(ut, gp, w, MU, LAM)
+    # f32 factors: f32 roundoff of the scale 1/h and the weights
+    assert rel_err(ref, got) < 1e-6
+
+
 def test_hvp_factors_refuse_other_tables():
     gp, w = tss.gp_table(0.25)
-    tss.hvp_factors(gp, w)  # the uniform table: accepted
+    tss.stencil_factors(gp, w)  # the uniform table: accepted
     bad = gp.copy()
     bad[3, 5, 1] *= 1.001  # one entry off: no longer a tensor product
     with pytest.raises(ValueError, match="tensor-product"):
-        tss.hvp_factors(bad, w)
+        tss.stencil_factors(bad, w)
     stretched = gp.copy()
     stretched[4:] *= 1.5  # another cell size at half the points
     with pytest.raises(ValueError, match="tensor-product"):
-        tss.hvp_factors(stretched, w)
+        tss.stencil_factors(stretched, w)
     with pytest.raises(ValueError, match="expected gp"):
-        tss.hvp_factors(gp[:4], w[:4])
+        tss.stencil_factors(gp[:4], w[:4])
 
 
 def _kernel_constant(name):
@@ -231,7 +255,8 @@ def _kernel_constant(name):
 
 @pytest.mark.parametrize("cells", [(33, 9, 17), (1, 1, 1), (5, 4, 11), (64, 20, 26), (2, 17, 1)])
 def test_hvp_march_plan_owns_every_node_once(cells):
-    """numpy emulation of the Hessian-action kernel's tiles, slabs and owners (csrc/structured_stencil.cu).
+    """numpy emulation of the stencil kernels' tiles, slabs and owners (csrc/structured_stencil.cu; the
+    residual and the Hessian action share them).
 
     Every node is written by exactly one block; it sums each of its adjacent
     cells exactly once, from a cell that block computed at that layer or the
