@@ -6,7 +6,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 It builds every kernel from ``fenris_tpu_torch/csrc`` (one nvcc per source,
 all started together), runs the card tests (``tests/test_torch_cuda.py``,
 JAX-free, in a pytest subprocess without ``tests/conftest.py``; every test
-must pass and none skip) and drives the port's three paths at full size:
+must pass and none skip) and drives the port's paths at full size:
 
 * the structured Neo-Hookean Newton–Krylov solve (BASELINE config 5:
   128 x 128 x 64 = 1,048,576 hex8 cells, 3.25M dofs) through the stencil
@@ -56,7 +56,24 @@ must pass and none skip) and drives the port's three paths at full size:
   banded model (``torch.func.jvp`` through the gather/scatter pair) against
   the fused one (rel <= 5e-4), then times that ``jvp`` against
   ``torch.func.linearize`` once and its linear map per application, costed
-  at the solve's CG iterations a Newton step.
+  at the solve's CG iterations a Newton step;
+* Poisson on hex8 (``fem.solve_poisson_assembled`` and
+  ``solve_poisson_matrix_free``): the reference's MMS gate at its full
+  resolutions 1-32, f64 on both routes within 1% of
+  tests/reference_values/poisson3d_mms_hex8_summary.json, and f32 (the band
+  sweep, or the banded gather and scatter at s = 1) with its deviations
+  printed; then P149, the MMS problem in f32 on path A's mesh (3,375,000
+  dofs at s = 1) on both routes, with set-up, solve and error times, the
+  true relative residual by a plain f64 operator (<= 10x the CG tolerance)
+  and the two routes' difference, and the s = 1 band sweep, gather and
+  scatter at those shapes against their plain versions, timed beside their
+  bounds and library calls (their records join the kernel line);
+* C2-MG: path C2's problem on 18^3 cells refined three times (9,145,875
+  dofs, RCM-reordered on the card in under 20 s) under
+  ``GeometricMGPreconditioner(banded=True)``, ``solve_mixed`` to the
+  independent f64 residual <= 1e-10, with CG iterations beside C2's Jacobi
+  counts, the V-cycle's share of a CG iteration and a profile of one
+  V-cycle.
 
 Every kernel check is ``max |kernel - plain| / max |plain| <= 1e-5`` (f32
 roundoff: FMA contraction and summation order) with two launches bitwise
@@ -106,6 +123,17 @@ RAGGED_B = 11  # 1,331 cells: not a multiple of the kernel's 32-element block
 RAGGED_C = [(7, False), (11, True)]
 RES_C3 = 63
 RES_DIAG = 80  # the CG-count diagnostic: 512,000 cells, 1,594,323 dofs
+# Poisson on hex8: the reference's MMS resolutions (tests/test_convergence.py:85-90), and P149, the
+# scalar problem on path A's mesh (3,375,000 dofs at s = 1).  f32 CG tolerances: an f32 solution's
+# true relative residual cannot fall below about eps / (30 h^2) on this problem (the f32 rounding of u
+# through A): ~1e-5 at res 32, ~2e-4 at res 149
+MMS_RESOLUTIONS = (1, 2, 4, 8, 16, 32)
+F32_TOL_MMS = 1e-5
+RES_P = 149
+F32_TOL_P = 1e-4
+# C2-MG: path C2's problem on 18^3 cells refined three times (144^3 = 2,985,984 hex8, 9,145,875 dofs)
+RES_MG_COARSE = 18
+MG_LEVELS = 3
 CARD_TESTS_TIMEOUT_S = 300
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
@@ -198,9 +226,11 @@ def event_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(stop) / reps
 
 
-def in_turns(run_k, run_p, reps=20, names=("kernel", "plain")):
-    """Kernel and plain times in turns (plain, kernel, kernel, plain); the lower of each pair."""
-    p1, k1, k2, p2 = (event_ms(run_p, reps), event_ms(run_k, reps), event_ms(run_k, reps), event_ms(run_p, reps))
+def in_turns(run_k, run_p, reps=20, names=("kernel", "plain"), plain_reps=None):
+    """Kernel and plain times in turns (plain, kernel, kernel, plain); the lower of each pair.
+    ``plain_reps``: fewer repeats (one warm-up) for a plain version that takes a large part of a second."""
+    run_plain = (lambda: event_ms(run_p, reps)) if plain_reps is None else (lambda: event_ms(run_p, plain_reps, 1))
+    p1, k1, k2, p2 = (run_plain(), event_ms(run_k, reps), event_ms(run_k, reps), run_plain())
     return min(k1, k2), min(p1, p2), f"{names[0]} {k1:.4f}/{k2:.4f} ms, {names[1]} {p1:.4f}/{p2:.4f} ms"
 
 
@@ -246,6 +276,7 @@ def timed(fn, times):
 PTXAS_LABELS = {"nh_marchILb1E": "neo_hookean_hvp (nh_march<true>)",
                 "nh_marchILb0E": "neo_hookean_residual (nh_march<false>)",
                 "banded_gather_kernelILi3E": "banded_gather (s = 3)",
+                "banded_gather_kernelILi0E": "banded_gather (any s)",
                 "sweep_kernelILb1ELb1E": "banded_tangent_sweep (sweep_kernel<true, true>)",
                 "sweep_kernelILb1ELb0E": "banded_vector_sweep (sweep_kernel<true, false>)",
                 "sweep_kernelILb0ELb1E": "em_vector_tangent_sweep (sweep_kernel<false, true>, strided)",
@@ -863,7 +894,8 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
     for name, (run_k, run_p, run_lib, nbytes, ops) in runs.items():
         k = kernels[name]
         reps = 20 if name.startswith("banded") else 5
-        k["ms"], k["plain_ms"], txt = in_turns(run_k, run_p, reps=reps)
+        # the tangent sweep's plain version takes ~0.4 s a call at res 149: two repeats
+        k["ms"], k["plain_ms"], txt = in_turns(run_k, run_p, reps=reps, plain_reps=None if reps == 20 else 2)
         k["library_ms"] = None
         if run_lib is not None:
             k["library_ms"] = min(event_ms(run_lib, reps), event_ms(run_lib, reps))
@@ -1022,6 +1054,7 @@ def path_c_solve(kernels, model, plan_s, x_a, dev, smi):
     check(true_r / r0 <= 1e-10, f"path C2: independent relative residual {true_r / r0:.3e} > 1e-10")
     del fresh, x64
     free_memory()
+    return cg_iters
 
 
 def path_c3(kernels, dev, smi):
@@ -1039,7 +1072,8 @@ def path_c3(kernels, dev, smi):
     torch.cuda.synchronize()
     t_model = time.perf_counter() - t0
     plan = model._plan
-    log(f"path C3 res={RES_C3}: {mesh.num_cells} hex8, {model.space.num_dofs} dofs; RCM {t_reorder:.3f} s; "
+    log(f"path C3 res={RES_C3}: {mesh.num_cells} hex8, {model.space.num_dofs} dofs; RCM {t_reorder:.3f} s "
+        f"(host, one breadth-first level a step); "
         f"model with banded plan {t_model:.3f} s (blocks={plan.k_blocks}, E_pad={plan.padded_elements}, "
         f"window {plan.wa} x 128 nodes)")
     history, cg_iters = [], []
@@ -1122,6 +1156,368 @@ def unfused_operator_choice(model, u, v, hv_jvp, cg_iters, smi):
         f"step: jvp {k * t_jvp:.3f} ms, linearize {t_trace + k * t_lin:.3f} ms; break-even {even:.1f} "
         f"iterations ({smi})")
     del lin
+    free_memory()
+
+
+# -- Poisson on hex8 and the unstructured multigrid ------------------------------------------
+
+
+def mms_problem():
+    """The MMS problem of tests/mms_common.py:32-54 in torch: source, exact solution and its gradient
+    (pointwise, run under vmap), and the Dirichlet nodes (||x - 0.5||_inf > 0.4999)."""
+    import numpy as np
+    import torch
+
+    def u_exact(x):
+        return torch.sin(np.pi * x[0]) * torch.sin(np.pi * x[1]) * torch.sin(np.pi * x[2])
+
+    def u_exact_grad(x):
+        sn, cs = torch.sin(np.pi * x), torch.cos(np.pi * x)
+        return np.pi * torch.stack([cs[0] * sn[1] * sn[2], sn[0] * cs[1] * sn[2], sn[0] * sn[1] * cs[2]])
+
+    def source(x, p):
+        return 3.0 * np.pi**2 * u_exact(x)
+
+    def dirichlet(mesh):
+        return np.flatnonzero(np.abs(mesh.points - 0.5).max(axis=1) > 0.4999)
+
+    return source, u_exact, u_exact_grad, dirichlet
+
+
+def poisson_solvers():
+    from fenris_tpu_torch import fem
+
+    return {"assembled": fem.solve_poisson_assembled, "matrix_free": fem.solve_poisson_matrix_free}
+
+
+def poisson_mms_gate(dev, smi):
+    """The reference's acceptance gate (tests/test_convergence.py:85-90) at its full hex8 resolutions on
+    the card: f64 on both routes within 1% of tests/reference_values/poisson3d_mms_hex8_summary.json
+    (resolutions to 1e-12); f32 on both routes (the band sweep, or the banded gather and scatter at
+    s = 1) at CG tolerance F32_TOL_MMS, deviations printed."""
+    import torch
+
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
+    from fenris_tpu_torch.quadrature import hexahedron_gauss
+
+    ref = json.loads((ROOT / "tests/reference_values/poisson3d_mms_hex8_summary.json").read_text())
+    source, u_exact, u_exact_grad, dirichlet = mms_problem()
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, F32_TOL_MMS)):
+        for route, solve in poisson_solvers().items():
+            t0 = time.perf_counter()
+            diam, dev_l2, dev_h1, iters = [], [], [], []
+            for i, res in enumerate(MMS_RESOLUTIONS):
+                mesh = create_unit_box_uniform_hex_mesh_3d(res)
+                r = solve(mesh, hexahedron_gauss(2), hexahedron_gauss(6), source, u_exact, u_exact_grad,
+                          dirichlet(mesh), rel_tolerance=tol, dtype=dtype, device=dev)
+                diam.append(float(mesh.diameters().max()))
+                dev_l2.append(abs(r.l2_error - ref["L2_errors"][i]) / ref["L2_errors"][i])
+                dev_h1.append(abs(r.h1_seminorm_error - ref["H1_seminorm_errors"][i]) / ref["H1_seminorm_errors"][i])
+                iters.append(r.cg_iterations)
+            torch.cuda.synchronize()
+            res_dev = max(abs(a - b) / b for a, b in zip(diam, ref["resolutions"]))
+            log(f"Poisson MMS hex8 {route} {str(dtype).removeprefix('torch.')} (CG rel {tol:g}) at resolutions "
+                f"{list(MMS_RESOLUTIONS)}: L2 deviation from the reference {[f'{d:.3e}' for d in dev_l2]}, "
+                f"H1 {[f'{d:.3e}' for d in dev_h1]}, diameters rel {res_dev:.1e}, CG iterations {iters}; "
+                f"{time.perf_counter() - t0:.3f} s ({smi})")
+            check(res_dev <= 1e-12, f"Poisson MMS {route}: resolutions differ from the reference")
+            if dtype == torch.float64:
+                check(max(dev_l2 + dev_h1) <= 0.01, f"Poisson MMS {route} f64: an error is off the reference by "
+                      f"more than 1%: L2 {dev_l2}, H1 {dev_h1}")
+    free_memory()
+
+
+def poisson_f64_operator(mesh, dirichlet_nodes, dev):
+    """The f64 Laplace operator (plain band matvec, Dirichlet dofs masked) and right-hand side of the MMS
+    problem on ``mesh``: the independent check of an f32 Poisson solution."""
+    import torch
+
+    from fenris_tpu_torch.assembly.global_ import assemble_vector
+    from fenris_tpu_torch.assembly.local import (
+        assemble_element_elliptic_matrices,
+        assemble_element_source_vectors,
+        tabulate,
+    )
+    from fenris_tpu_torch.fem import FemSpace
+    from fenris_tpu_torch.operators import LaplaceOperator
+    from fenris_tpu_torch.quadrature import hexahedron_gauss
+    from fenris_tpu_torch.sparse.block_dia import assemble_block_dia, block_dia_assembly_plan, block_dia_matvec
+
+    source = mms_problem()[0]
+    space = FemSpace.create(mesh, 1, torch.float64, dev)
+    tab = tabulate(mesh.element, hexahedron_gauss(2))
+    plan = block_dia_assembly_plan(mesh.cells, mesh.num_vertices, 1, device=dev)
+    A = assemble_block_dia(plan, assemble_element_elliptic_matrices(space.X_geo, None, LaplaceOperator(), None, tab,
+                                                                    chunk=65536), num_chunks=4)
+    free = torch.ones(mesh.num_vertices, dtype=torch.bool, device=dev)
+    free[torch.as_tensor(dirichlet_nodes, device=dev)] = False
+    b = assemble_vector(assemble_element_source_vectors(space.X_geo, source, None, 1, tab), space.dofs,
+                        space.num_dofs)
+    b = torch.where(free, b, 0.0)
+
+    def residual(u):
+        u = u.double()
+        return b - torch.where(free, block_dia_matvec(A, torch.where(free, u, 0.0)), u)
+
+    return residual, b
+
+
+def scalar_kernel_checks(kernels, bands, offsets, plan, dev, smi):
+    """The s = 1 kernels at P149's shapes: band sweep on the Laplace bands, banded gather and scatter on
+    the matrix-free route's layout; each against its plain version (bitwise repeats), timed against
+    its bound and a library call."""
+    import torch
+
+    import fenris_tpu_torch.ops.banded as bd
+    import fenris_tpu_torch.ops.dia_sweep as ds
+    from fenris_tpu_torch.sparse.block_dia import BlockDiaMatrix
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    N = bands.shape[1]
+    x2 = torch.randn((1, N), generator=g, device=dev)
+    k = kernels["dia_sweep (s=1, P149)"]
+    txt = f"P149 s=1 N={N} D={len(offsets)}"
+    k["max_abs_err"] = compare("dia_sweep", txt, ds.dia_sweep(bands, offsets, x2), ds.dia_sweep(bands, offsets, x2),
+                               ds.dia_sweep_plain(bands, offsets, x2))
+    k["ms"], k["plain_ms"], ttxt = in_turns(lambda: ds.dia_sweep(bands, offsets, x2),
+                                            lambda: ds.dia_sweep_plain(bands, offsets, x2))
+    bound_txt = set_bound(k, (bands.numel() + 2 * x2.numel()) * 4, 2 * bands.numel())
+    m = BlockDiaMatrix(offsets=offsets, bands=bands, num_nodes=N, solution_dim=1, remainder=None)
+    k["library_ms"] = csr_library_ms(m, x2, ds.dia_sweep(bands, offsets, x2), smi)
+    log(f"time dia_sweep {txt}: {ttxt}, library {k['library_ms']:.4f} ms; {bound_txt} ({smi})")
+
+    pe, n, nv = plan.padded_elements, plan.n, plan.node_rows.numel()
+    txt = f"P149 s=1 E_pad={pe} blocks={plan.k_blocks}"
+    w = torch.randn((N, 1), generator=g, device=dev)
+    f_el = torch.randn((pe, n, 1), generator=g, device=dev)
+    valid = plan.valid_rows > 0
+    got, ref = bd.banded_gather(plan, w), bd.banded_gather_plain(plan, w)
+    kg = kernels["banded_gather (s=1, P149)"]
+    kg["max_abs_err"] = compare("banded_gather", txt, got, bd.banded_gather(plan, w), ref)
+    check(bool(torch.equal(got, ref)), f"banded_gather {txt}: not bitwise equal to the plain version")
+    got, ref = bd.banded_scatter(plan, f_el), bd.banded_scatter_plain(plan, f_el)
+    ks = kernels["banded_scatter (s=1, P149)"]
+    ks["max_abs_err"] = compare("banded_scatter", txt, got, bd.banded_scatter(plan, f_el), ref)
+    log(f"banded gather and scatter {txt}: bitwise equal to the plain versions: "
+        f"{bool(torch.equal(got, ref))}")
+    del got, ref
+    idx = plan.nodes_padded.long()
+    idx_spare = torch.where(valid, idx, torch.arange(pe * n, device=dev) % 4096 + N)
+    runs = {
+        "banded_gather (s=1, P149)": (lambda: bd.banded_gather(plan, w), lambda: bd.banded_gather_plain(plan, w),
+                                      lambda: torch.index_select(w, 0, idx),
+                                      (pe * n + nv + plan.block_rows.numel() + N) * 4, 0, "index_select"),
+        "banded_scatter (s=1, P149)": (lambda: bd.banded_scatter(plan, f_el),
+                                       lambda: bd.banded_scatter_plain(plan, f_el),
+                                       lambda: torch.zeros((N + 4096, 1), device=dev).index_add_(
+                                           0, idx_spare, f_el.reshape(-1, 1)),
+                                       (nv + plan.row_ptr.numel() + nv + N) * 4, nv, "index_add_"),
+    }
+    for name, (run_k, run_p, run_lib, nbytes, ops, lib_name) in runs.items():
+        k = kernels[name]
+        k["ms"], k["plain_ms"], ttxt = in_turns(run_k, run_p)
+        k["library_ms"] = min(event_ms(run_lib), event_ms(run_lib))
+        log(f"time {name.split()[0]} {txt}: {ttxt}, library ({lib_name}) {k['library_ms']:.4f} ms "
+            f"(kernel faster: {k['ms'] < k['library_ms']}); {set_bound(k, nbytes, ops)} ({smi})")
+    free_memory()
+
+
+def poisson_p149(kernels, dev, smi):
+    """P149: f32 Poisson with the MMS source on create_unit_box_uniform_hex_mesh_3d(149) (3,307,949 hex8
+    cells, 3,375,000 dofs at s = 1), both routes at CG tolerance F32_TOL_P; set-up, solve and error
+    times, CG iterations, launches, the true f64 relative residual (limit 10x the CG tolerance) and the
+    two routes' difference; then the s = 1 kernels at these shapes."""
+    from unittest import mock
+
+    import torch
+
+    import fenris_tpu_torch.fem as fem_mod
+    import fenris_tpu_torch.ops.banded as bd
+    import fenris_tpu_torch.sparse.cg as cg_mod
+    import fenris_tpu_torch.sparse.dia_kernel as dk
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
+    from fenris_tpu_torch.quadrature import hexahedron_gauss
+
+    source, u_exact, u_exact_grad, dirichlet = mms_problem()
+    mesh = create_unit_box_uniform_hex_mesh_3d(RES_P)
+    nd = dirichlet(mesh)
+    route_kernels = {"assembled": ("dia_sweep (s=1, P149)",),
+                     "matrix_free": ("banded_gather (s=1, P149)", "banded_scatter (s=1, P149)")}
+    captured, solutions = {}, {}
+
+    def capture(name, fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            captured[name] = args[0] if name == "matrix" else out
+            return out
+        return run
+
+    for route, solve in poisson_solvers().items():
+        cg_times, err_times = [], []
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(cg_mod, "conjugate_gradient", timed(cg_mod.conjugate_gradient, cg_times)), \
+                mock.patch.object(fem_mod, "_errors", timed(fem_mod._errors, err_times)), \
+                mock.patch.object(dk, "block_dia_operator", capture("matrix", dk.block_dia_operator)), \
+                mock.patch.object(bd, "make_banded_plan", capture("plan", bd.make_banded_plan)):
+            r = solve(mesh, hexahedron_gauss(2), hexahedron_gauss(6), source, u_exact, u_exact_grad, nd,
+                      rel_tolerance=F32_TOL_P, dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name in route_kernels[route]:
+            kernels[name]["launches"] = kernels[name]["fn"].launches
+        launches = {name: kernels[name]["launches"] for name in route_kernels[route]}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t_cg, t_err = sum(cg_times), sum(err_times)
+        log(f"P149 {route}: {mesh.num_cells} hex8, {mesh.num_vertices} dofs, f32, CG rel {F32_TOL_P:g}: "
+            f"set-up (plans, assembly, right-hand side, Jacobi) {wall - t_cg - t_err:.3f} s, solve {t_cg:.3f} s "
+            f"({r.cg_iterations} CG iterations, {t_cg / max(r.cg_iterations, 1) * 1e3:.3f} ms per iteration), "
+            f"errors {t_err:.3f} s, wall {wall:.3f} s; L2 error {r.l2_error:.6e}, H1 {r.h1_seminorm_error:.6e}; launches {launches}; peak memory {peak:.2f} GB ({smi})")
+        check(bool(torch.isfinite(r.u).all()) and tuple(r.u.shape) == (mesh.num_vertices,),
+              f"P149 {route}: wrong or non-finite solution")
+        for name in route_kernels[route]:
+            check(launches[name] > 0, f"P149 {route}: kernel {name} was not launched")
+        solutions[route] = r.u
+    # the assembled route's matrix and the matrix-free route's plan, reused for the kernel checks
+    bands, offsets = captured["matrix"].bands, captured["matrix"].offsets
+
+    t0 = time.perf_counter()
+    residual, b = poisson_f64_operator(mesh, nd, dev)
+    b_norm = float(torch.linalg.vector_norm(b))
+    for route, u in solutions.items():
+        rel = float(torch.linalg.vector_norm(residual(u))) / b_norm
+        log(f"P149 {route}: true relative residual |b - A u| / |b| by the plain f64 operator {rel:.6e} "
+            f"(limit {10 * F32_TOL_P:g})")
+        check(rel <= 10 * F32_TOL_P, f"P149 {route}: true relative residual {rel:.3e} > {10 * F32_TOL_P:g}")
+    ua, um = (solutions[k].double() for k in ("assembled", "matrix_free"))
+    diff = float(torch.linalg.vector_norm(ua - um) / torch.linalg.vector_norm(ua))
+    log(f"P149: relative difference between the two routes' solutions {diff:.6e}; f64 check "
+        f"{time.perf_counter() - t0:.3f} s")
+    del residual, b, solutions, ua, um
+    free_memory()
+    scalar_kernel_checks(kernels, bands, offsets, captured["plan"], dev, smi)
+    del bands, captured
+    free_memory()
+
+
+def vcycle_profile(mg, model, wall_s, dev, smi):
+    """One V-cycle under torch.profiler: kernels launched and device-busy time against the solve's mean
+    V-cycle wall (the launch-bound share is the idle rest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    r = torch.randn(model.space.num_dofs, generator=torch.Generator(device=dev).manual_seed(51), device=dev)
+    r = torch.where(model.free_mask, r, 0.0)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mg(r)
+            torch.cuda.synchronize()
+        busy_us, launches = 0.0, 0
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                busy_us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+                launches += e.count
+    except Exception as exc:  # the profiler is a measurement aid; the run does not depend on it
+        log(f"C2-MG V-cycle profile: not measured ({type(exc).__name__}: {exc})")
+        return
+    per_level = []
+    for lvl in range(len(mg.levels_data)):
+        v = torch.zeros(model.space.num_dofs if lvl == 0 else mg.levels_data[lvl]["free"].numel(), device=dev)
+        per_level.append(event_ms(lambda: mg._apply(lvl, v), reps=3, warmup=1))
+    log(f"C2-MG V-cycle profile: {launches} device operations, device busy {busy_us / 1e3:.3f} ms of the "
+        f"solve's mean V-cycle wall {wall_s * 1e3:.3f} ms ({busy_us / 1e3 / (wall_s * 1e3) * 100:.1f}% busy); "
+        f"one level operator application, finest to coarsest: {[f'{t:.3f}' for t in per_level]} ms ({smi})")
+
+
+def path_c2_mg(kernels, c2_cg_iters, dev, smi):
+    """C2-MG: path C2's problem on 18^3 refined three times (2,985,984 hex8 cells, 9,145,875 dofs),
+    RCM-reordered on the card, solve_mixed with the banded geometric multigrid; CG iterations beside C2's
+    Jacobi counts, the operator and V-cycle shares of a CG iteration, and the independent f64 residual."""
+    from unittest import mock
+
+    import torch
+
+    import fenris_tpu_torch.mesh.refinement as refinement
+    import fenris_tpu_torch.mesh.reorder as reorder
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
+    from fenris_tpu_torch.multigrid import GeometricMGPreconditioner, rcm_refined_hierarchy
+    from fenris_tpu_torch.optimize import NEWTON_CONVERGED
+
+    coarse = create_unit_box_uniform_hex_mesh_3d(RES_MG_COARSE)
+    t_refine, t_rcm = [], []
+    torch.cuda.synchronize()
+    with mock.patch.object(refinement, "refine_uniformly_repeat", timed(refinement.refine_uniformly_repeat, t_refine)), \
+            mock.patch.object(reorder, "reorder_mesh", timed(reorder.reorder_mesh, t_rcm)):
+        fine, perm = rcm_refined_hierarchy(coarse, MG_LEVELS, device=dev)
+    t0 = time.perf_counter()
+    model = assembled_model(0, torch.float32, dev, None, mesh=fine, banded=True, fused_kernels=True)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mg = GeometricMGPreconditioner(model, coarse, MG_LEVELS, fine_permutation=perm, banded=True)
+    torch.cuda.synchronize()
+    t_mg = time.perf_counter() - t0
+    levels = [(L["num_vertices"], L["model"].mesh.num_cells) for L in mg.levels_data]
+    log(f"C2-MG: coarse res {RES_MG_COARSE} refined {MG_LEVELS} times: {fine.num_cells} hex8, "
+        f"{model.space.num_dofs} dofs; refinement {t_refine[0]:.3f} s, RCM of the finest mesh on the card "
+        f"{t_rcm[0]:.3f} s (limit 20 s), fused model {t_model:.3f} s, MG set-up (refinement again, intermediate "
+        f"RCMs, level models, Jacobi diagonals) {t_mg:.3f} s; levels (nodes, cells) {levels} ({smi})")
+    check(t_rcm[0] < 20.0, f"C2-MG: RCM of the 144^3 mesh took {t_rcm[0]:.1f} s (limit 20 s)")
+
+    inner_times, vcycle_times = [], []
+    model._matrix_free_cg = timed(model._matrix_free_cg, inner_times)
+    history, cg_iters = [], []
+
+    def record(k, fn, cg):
+        history.append(fn)
+        if cg is not None:
+            cg_iters.append(cg.num_iterations)
+        cg_txt = "" if cg is None else f" cg_iters={cg.num_iterations} cg_status={cg.status} inner={inner_times[-1]:.3f} s"
+        log(f"  newton it {k}: |F|={fn:.6e}{cg_txt}")
+
+    path = ("banded_gather", "banded_scatter", "em_vector_tangent_sweep")
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = model.solve_mixed(tolerance=1e-10, cg_rel_tolerance=1e-4, max_newton_iterations=30,
+                            preconditioner=timed(mg, vcycle_times), callback=record)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: kernels[name]["fn"].launches for name in path}
+    del model._matrix_free_cg
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t_inner, t_vc, iters = sum(inner_times), sum(vcycle_times), max(sum(cg_iters), 1)
+    log(f"C2-MG: status={res.status} newton_iters={res.iterations} cg_iters={cg_iters} (C2 with Jacobi on "
+        f"10,125,000 dofs in this run: {c2_cg_iters}) wall={wall:.3f} s |F|/|F0|={res.residual_norm / history[0]:.6e} "
+        f"launches={launches} peak memory {peak:.2f} GB ({smi})")
+    log(f"C2-MG breakdown: CG {t_inner:.3f} s, {t_inner / iters * 1e3:.3f} ms per iteration: V-cycles "
+        f"{t_vc:.3f} s ({t_vc / iters * 1e3:.3f} ms each), the fused operator and vector updates "
+        f"{(t_inner - t_vc) / iters * 1e3:.3f} ms; f64 residuals and Newton {wall - t_inner:.3f} s of {wall:.3f} s")
+    check(res.status == NEWTON_CONVERGED, f"C2-MG: status {res.status}")
+    check(bool(torch.isfinite(res.x).all()), "C2-MG: non-finite displacement")
+    for name in path:
+        check(launches[name] > 0, f"C2-MG: kernel {name} was not launched")
+    check(launches["em_vector_tangent_sweep"] >= sum(cg_iters),
+          f"C2-MG: {launches['em_vector_tangent_sweep']} tangent sweeps for {sum(cg_iters)} CG iterations")
+
+    vcycle_profile(mg, model, t_vc / max(len(vcycle_times), 1), dev, smi)
+
+    x64 = res.x.detach().double()
+    del res, mg
+    free_memory()
+    t0 = time.perf_counter()
+    fresh = assembled_model(0, torch.float64, dev, 8192, mesh=fine)
+    true_r = float(torch.linalg.vector_norm(fresh.residual(x64)))
+    r0 = float(torch.linalg.vector_norm(fresh.residual(torch.zeros_like(x64))))
+    log(f"C2-MG independent f64 residual: {true_r:.6e} (r0 {r0:.6e}, rel {true_r / r0:.6e}); "
+        f"{time.perf_counter() - t0:.3f} s")
+    check(true_r / r0 <= 1e-10, f"C2-MG: independent relative residual {true_r / r0:.3e} > 1e-10")
+    del fresh, x64, model
     free_memory()
 
 
@@ -1215,7 +1611,8 @@ def stiffness_phases(kernels, dev, smi):
         del got, ref
         free_memory()
         ms, plain_ms, txt = in_turns(
-            lambda: sp.stiffness_pairs(X, op, params, tab), lambda: sp.stiffness_pairs_plain(X, op, params, tab), reps=5
+            lambda: sp.stiffness_pairs(X, op, params, tab), lambda: sp.stiffness_pairs_plain(X, op, params, tab), reps=5,
+            plain_reps=2,
         )
         # X read and the pairs written once; the fewest operations (stiffness_ops)
         s = op.solution_dim
@@ -1317,6 +1714,17 @@ def main() -> int:
             fn=es.banded_vector_sweep, path="C", source=SOURCES["em_sweep"],
             replaces="fenris_tpu/ops/em_sweep.py:233",
         ),
+        # the scalar Poisson path P149 runs rows 4-7 at s = 1: their records at those shapes
+        "dia_sweep (s=1, P149)": dict(
+            fn=ds.dia_sweep, path="P149", source=SOURCES["dia_sweep"],
+            replaces="fenris_tpu/sparse/dia_kernel.py:380 and fenris_tpu/sparse/dia_kernel.py:186",
+        ),
+        "banded_gather (s=1, P149)": dict(
+            fn=bd.banded_gather, path="P149", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:285",
+        ),
+        "banded_scatter (s=1, P149)": dict(
+            fn=bd.banded_scatter, path="P149", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:346",
+        ),
     }
     phases = [
         ("structured path", lambda: structured_phases(kernels, dev, smi)),
@@ -1355,13 +1763,22 @@ def main() -> int:
     path_c_kernels(kernels, model, dev, smi)
     log(f"phase path C1: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    path_c_solve(kernels, model, plan_s, x_a, dev, smi)
+    c2_cg_iters = path_c_solve(kernels, model, plan_s, x_a, dev, smi)
     log(f"phase path C2: {time.perf_counter() - t0:.3f} s")
     del model, x_a
     free_memory()
     t0 = time.perf_counter()
     path_c3(kernels, dev, smi)
     log(f"phase path C3: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    poisson_mms_gate(dev, smi)
+    log(f"phase Poisson MMS gate: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    poisson_p149(kernels, dev, smi)
+    log(f"phase P149: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    path_c2_mg(kernels, c2_cg_iters, dev, smi)
+    log(f"phase C2-MG: {time.perf_counter() - t0:.3f} s")
     log(f"total: {time.perf_counter() - t_start:.3f} s ({smi})")
 
     record_line = {

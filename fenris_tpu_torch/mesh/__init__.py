@@ -59,3 +59,13 @@ class Mesh:
     def cell_points(self) -> np.ndarray:
         """Gathered node coordinates per cell: ``[E, n, dim]``."""
         return self.points[self.cells]
+
+    def diameters(self) -> np.ndarray:
+        """Per-cell diameter: the largest distance between two of its vertices.
+
+        The port's elements are isoparametric hex8, so every node is a
+        corner (``FiniteElement::diameter``).
+        """
+        X = self.points[self.cells]  # [E, n, d]
+        diff = X[:, :, None, :] - X[:, None, :, :]
+        return np.sqrt((diff**2).sum(-1)).max(axis=(1, 2))

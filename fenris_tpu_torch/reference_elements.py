@@ -25,6 +25,11 @@ class ReferenceElement:
     name: str
     ref_dim: int
     nodes: np.ndarray  # [n, d]
+    #: vertex pairs of the element's edges and vertex tuples of its faces,
+    #: in the JAX package's order (uniform refinement numbers its new
+    #: vertices in that order)
+    edges: Tuple[Tuple[int, int], ...] = ()
+    faces: Tuple[Tuple[int, ...], ...] = ()
 
     @property
     def num_nodes(self) -> int:
@@ -48,6 +53,29 @@ class ReferenceElement:
         return phi, dphi
 
 
+_HEX_FACES = (
+    (3, 2, 1, 0),
+    (0, 1, 5, 4),
+    (1, 2, 6, 5),
+    (2, 3, 7, 6),
+    (4, 7, 3, 0),
+    (5, 6, 7, 4),
+)
+_HEX_EDGES = (
+    (0, 1),
+    (0, 3),
+    (0, 4),
+    (1, 2),
+    (1, 5),
+    (2, 3),
+    (2, 6),
+    (3, 7),
+    (4, 5),
+    (4, 7),
+    (5, 6),
+    (6, 7),
+)
+
 HEX8 = ReferenceElement(
     name="hex8",
     ref_dim=3,
@@ -64,4 +92,6 @@ HEX8 = ReferenceElement(
         ],
         dtype=np.float64,
     ),
+    edges=_HEX_EDGES,
+    faces=_HEX_FACES,
 )

@@ -22,7 +22,7 @@ import fenris_tpu_torch.ops.dia_sweep as tds
 import fenris_tpu_torch.ops.em_sweep as tes
 import fenris_tpu_torch.ops.stiffness_pairs as tsk
 import fenris_tpu_torch.ops.structured_stencil as tss
-from fenris_tpu_torch.assembly.local import tabulate
+from fenris_tpu_torch.assembly.local import assemble_element_elliptic_matrices, tabulate
 from fenris_tpu_torch.elasticity import HyperelasticModel
 from fenris_tpu_torch.mesh import Mesh
 from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d as box
@@ -32,6 +32,7 @@ from fenris_tpu_torch.quadrature import canonical_stiffness
 from fenris_tpu_torch.reference_elements import HEX8
 from fenris_tpu_torch.solid import LameParameters, LinearElasticMaterial, MaterialEllipticOperator
 from fenris_tpu_torch.solid import NeoHookeanMaterial, StVKMaterial
+from fenris_tpu_torch.sparse.block_dia import assemble_block_dia, block_dia_assembly_plan
 
 MU, LAM = 384.614, 576.923  # the flagship model's Lamé parameters
 KERNEL_RTOL = 1e-5  # f32 roundoff (FMA contraction, summation order)
@@ -224,6 +225,24 @@ def test_dia_sweep_kernel_matches_plain_on_card(name, cuda_device):
     assert torch.equal(got, again)
 
 
+@pytest.mark.cuda
+def test_dia_sweep_kernel_scalar_on_card(cuda_device):
+    """The band sweep at s = 1 (the Poisson operator's layout) on a ragged N: the res-6 Laplace bands."""
+    mesh = box(6)
+    tab = hex8_tab()
+    plan = block_dia_assembly_plan(mesh.cells, mesh.num_vertices, 1, device="cpu")
+    X = torch.as_tensor(mesh.points[mesh.cells] + rng(14).uniform(-0.02, 0.02, (mesh.num_cells, 8, 3)))
+    A = assemble_block_dia(plan, assemble_element_elliptic_matrices(X, None, LaplaceOperator(), None, tab))
+    bands = A.bands.to(device=cuda_device, dtype=torch.float32)
+    x2 = torch.as_tensor(rng(15).standard_normal((1, A.num_nodes)), dtype=torch.float32, device=cuda_device)
+    got = tds.dia_sweep(bands, A.offsets, x2)
+    again = tds.dia_sweep(bands, A.offsets, x2)
+    torch.cuda.synchronize()
+    assert A.num_nodes == 343 and len(A.offsets) == 27
+    assert rel_err(tds.dia_sweep_plain(bands, A.offsets, x2), got) < KERNEL_RTOL
+    assert torch.equal(got, again)
+
+
 # -- banded gather and scatter (csrc/banded.cu) --------------------------------------------
 
 # (mesh, res, s, r_nodes, rowt): a box, an RCM-reordered box with one component,
@@ -232,6 +251,9 @@ BANDED_CASES = {
     "box5_s3": ("box", 5, 3, 1024, 256),
     "rcm6_s1": ("rcm", 6, 1, 1024, 256),
     "box12_s3_blocks": ("box", 12, 3, 1024, 256),
+    # the scalar (Poisson) layouts: one component on the boxes the s = 3 cases use
+    "box5_s1": ("box", 5, 1, 1024, 256),
+    "box12_s1_blocks": ("box", 12, 1, 1024, 256),
 }
 
 
@@ -372,3 +394,69 @@ def test_f64_banded_model_runs_on_card(cuda_device):
     torch.cuda.synchronize()
     assert tb.banded_gather.launches > before[0] and tb.banded_scatter.launches > before[1]
     assert rel_err(plain.residual(u), r32) < 1e-4  # f32 against f64
+
+
+# -- Poisson and the unstructured multigrid (fem.py, multigrid.py) --------------------------
+
+
+def _poisson_problem():
+    """The MMS problem of tests/mms_common.py in torch: source, exact solution, Dirichlet nodes."""
+
+    def u_exact(x):
+        return torch.sin(np.pi * x[0]) * torch.sin(np.pi * x[1]) * torch.sin(np.pi * x[2])
+
+    def u_exact_grad(x):
+        sn, cs = torch.sin(np.pi * x), torch.cos(np.pi * x)
+        return np.pi * torch.stack([cs[0] * sn[1] * sn[2], sn[0] * cs[1] * sn[2], sn[0] * sn[1] * cs[2]])
+
+    return (lambda x, p: 3.0 * np.pi**2 * u_exact(x)), u_exact, u_exact_grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["assembled", "matrix_free"])
+def test_poisson_route_on_card_matches_cpu(route, cuda_device):
+    """f32 Poisson at res 8 on the card (band sweep, or banded gather and scatter at s = 1) against the
+    same route on the CPU: solutions within 1e-4 relative (f32 CG at rel 1e-6 on both), errors within
+    1e-3, and the route's kernels launched."""
+    from fenris_tpu_torch import fem
+    from fenris_tpu_torch.quadrature import hexahedron_gauss
+
+    solve = fem.solve_poisson_assembled if route == "assembled" else fem.solve_poisson_matrix_free
+    counters = [tds.dia_sweep] if route == "assembled" else [tb.banded_gather, tb.banded_scatter]
+    mesh = box(8)
+    src, ue, ug = _poisson_problem()
+    nd = np.flatnonzero(np.abs(mesh.points - 0.5).max(axis=1) > 0.4999)
+    args = (mesh, hexahedron_gauss(2), hexahedron_gauss(6), src, ue, ug, nd)
+    before = [k.launches for k in counters]
+    card = solve(*args, rel_tolerance=1e-6, dtype=torch.float32, device=cuda_device)
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(counters, before))
+    cpu = solve(*args, rel_tolerance=1e-6, dtype=torch.float32, device="cpu")
+    assert rel_err(cpu.u, card.u) < 1e-4
+    assert abs(card.l2_error - cpu.l2_error) <= 1e-3 * cpu.l2_error
+    assert abs(card.h1_seminorm_error - cpu.h1_seminorm_error) <= 1e-3 * cpu.h1_seminorm_error
+
+
+@pytest.mark.cuda
+def test_unstructured_vcycle_on_card_matches_cpu(cuda_device):
+    """One banded V-cycle (coarse res 2, two levels, RCM hierarchy, f32) on the card against the CPU:
+    the levels' gathers and scatters launch the kernels; rel 1e-4 (f32 roundoff through the cycle)."""
+    from fenris_tpu_torch.multigrid import GeometricMGPreconditioner, rcm_refined_hierarchy
+
+    coarse = box(2)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        fine, perm = rcm_refined_hierarchy(coarse, 2, device=dev)
+        model = HyperelasticModel(mesh=fine, material=LinearElasticMaterial(), params=LameParameters(MU, LAM),
+                                  dirichlet_nodes=np.flatnonzero(fine.points[:, 0] < 1e-12), dtype=torch.float32,
+                                  device=dev, banded=True, banded_r_nodes=1024)
+        mg = GeometricMGPreconditioner(model, coarse, 2, fine_permutation=perm, banded=True)
+        r = torch.as_tensor(rng(16).standard_normal(model.space.num_dofs), dtype=torch.float32, device=dev)
+        before = (tb.banded_gather.launches, tb.banded_scatter.launches)
+        out[str(dev)] = (mg(r), perm)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tb.banded_gather.launches > before[0] and tb.banded_scatter.launches > before[1]
+    (cpu, perm_cpu), (card, perm_card) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_array_equal(perm_cpu, perm_card)
+    assert rel_err(cpu, card) < 1e-4
