@@ -981,7 +981,7 @@ def path_c_kernels(kernels, model, dev, smi):
     for res, rcm in RAGGED_C:
         mesh = create_unit_box_uniform_hex_mesh_3d(res)
         if rcm:
-            mesh, _ = reorder_mesh(mesh)
+            mesh, _ = reorder_mesh(mesh, device=dev)
         small = assembled_model(res, torch.float32, dev, None, mesh=mesh, banded=True, fused_kernels=True,
                                 banded_r_nodes=1024)
         p = small._plan
@@ -1065,7 +1065,7 @@ def path_c3(kernels, dev, smi):
     from fenris_tpu_torch.mesh.reorder import reorder_mesh
 
     t0 = time.perf_counter()
-    mesh, _ = reorder_mesh(create_unit_box_uniform_hex_mesh_3d(RES_C3))
+    mesh, _ = reorder_mesh(create_unit_box_uniform_hex_mesh_3d(RES_C3), device=dev)
     t_reorder = time.perf_counter() - t0
     t0 = time.perf_counter()
     model = assembled_model(RES_C3, torch.float32, dev, None, mesh=mesh, banded=True, fused_kernels=True)
@@ -1073,7 +1073,7 @@ def path_c3(kernels, dev, smi):
     t_model = time.perf_counter() - t0
     plan = model._plan
     log(f"path C3 res={RES_C3}: {mesh.num_cells} hex8, {model.space.num_dofs} dofs; RCM {t_reorder:.3f} s "
-        f"(host, one breadth-first level a step); "
+        f"(on the card, one breadth-first level a step); "
         f"model with banded plan {t_model:.3f} s (blocks={plan.k_blocks}, E_pad={plan.padded_elements}, "
         f"window {plan.wa} x 128 nodes)")
     history, cg_iters = [], []
@@ -1411,18 +1411,15 @@ def vcycle_profile(mg, model, wall_s, dev, smi):
 
     r = torch.randn(model.space.num_dofs, generator=torch.Generator(device=dev).manual_seed(51), device=dev)
     r = torch.where(model.free_mask, r, 0.0)
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            mg(r)
-            torch.cuda.synchronize()
-        busy_us, launches = 0.0, 0
-        for e in prof.key_averages():
-            if str(e.device_type).endswith("CUDA"):
-                busy_us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-                launches += e.count
-    except Exception as exc:  # the profiler is a measurement aid; the run does not depend on it
-        log(f"C2-MG V-cycle profile: not measured ({type(exc).__name__}: {exc})")
-        return
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mg(r)
+        torch.cuda.synchronize()
+    busy_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            busy_us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+            launches += e.count
+    check(busy_us > 0 and launches > 0, "C2-MG V-cycle profile: torch.profiler recorded no device time")
     per_level = []
     for lvl in range(len(mg.levels_data)):
         v = torch.zeros(model.space.num_dofs if lvl == 0 else mg.levels_data[lvl]["free"].numel(), device=dev)

@@ -6,7 +6,7 @@ quadrature, and the batched forms whose exact solution is evaluated on
 all quadrature points at once.  Pointwise callables (``u_exact(x [d]) ->
 [s]``) run under ``torch.func.vmap``; batched ones take ``points [M, d]``.
 
-Every estimator walks the elements in chunks (:func:`.integrate.element_chunk`):
+Every estimator walks the elements in chunks (:func:`.integrate.element_chunks`):
 the MMS error rule has 216 points, and all their gradients on millions of
 cells would not fit on the card.  Chunk sums are added in element order,
 so two runs give bitwise-equal errors.
@@ -18,8 +18,8 @@ from typing import Callable
 
 import torch
 
-from .assembly.local import Tabulation, _const, inv_and_det, jacobians, physical_gradients
-from .integrate import element_chunk, integrate_over_elements, volume_form
+from .assembly.local import Tabulation
+from .integrate import element_chunks, integrate_over_elements, quadrature_fields
 
 __all__ = [
     "estimate_element_L2_error_squared",
@@ -51,34 +51,19 @@ def estimate_element_H1_seminorm_error_squared(X_geo, u_el, u_exact_grad: Callab
     return integrate_over_elements(X_geo, u_el, f, tab, needs_gradient=True)
 
 
-def _fields_at_quadrature(X_geo, u_el, tab: Tabulation, with_grad: bool):
-    """Physical points, u_h, ∇u_h and w·|det J| at all (element, point) pairs of a chunk."""
-    J = jacobians(X_geo, tab.geo_dphi)
-    vol = volume_form(J)
-    x = torch.einsum("qm,emd->eqd", _const(tab.geo_phi, X_geo), X_geo)
-    u = torch.einsum("qn,ens->eqs", _const(tab.phi, X_geo), u_el)
-    G = None
-    if with_grad:
-        Jinv, _ = inv_and_det(J)
-        G = torch.einsum("eqnd,ens->eqds", physical_gradients(tab.dphi, Jinv), u_el)
-    return x, u, G, _const(tab.weights, X_geo)[None, :] * vol
-
-
 def _chunked_sum(X_geo, u_el, tab: Tabulation, term):
     """Sum over elements of ``term(X chunk, u chunk)``, chunk sums added in element order."""
-    c = element_chunk(tab)
-    total = None
-    for e0 in range(0, X_geo.shape[0], c):
-        part = term(X_geo[e0 : e0 + c], u_el[e0 : e0 + c])
-        total = part if total is None else total + part
-    return total if total is not None else X_geo.new_zeros(())
+    total = X_geo.new_zeros(())
+    for c in element_chunks(X_geo.shape[0], tab):
+        total = total + term(X_geo[c], u_el[c])
+    return total
 
 
 def estimate_L2_error_batched(X_geo, u_el, u_exact_batched: Callable, tab: Tabulation):
     """Global L² error with a batched exact solution ``u_exact_batched(points [M, d]) -> [M, s]``."""
 
     def term(X, ue):
-        x, u, _, wv = _fields_at_quadrature(X, ue, tab, with_grad=False)
+        x, u, _, wv = quadrature_fields(X, ue, tab, needs_gradient=False)
         E, q, d = x.shape
         ux = torch.as_tensor(u_exact_batched(x.reshape(E * q, d))).reshape(E, q, -1)
         return (wv * ((u - ux) ** 2).sum(-1)).sum()
@@ -90,7 +75,7 @@ def estimate_H1_seminorm_error_batched(X_geo, u_el, u_exact_grad_batched: Callab
     """Global H¹-seminorm error with a batched gradient ``u_exact_grad_batched(points [M, d]) -> [M, d, s]``."""
 
     def term(X, ue):
-        x, _, G, wv = _fields_at_quadrature(X, ue, tab, with_grad=True)
+        x, _, G, wv = quadrature_fields(X, ue, tab, needs_gradient=True)
         E, q, d = x.shape
         gx = torch.as_tensor(u_exact_grad_batched(x.reshape(E * q, d))).reshape(G.shape)
         return (wv * ((G - gx) ** 2).sum((-1, -2))).sum()

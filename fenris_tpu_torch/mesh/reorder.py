@@ -8,8 +8,8 @@ refuses wide windows).
 :func:`cuthill_mckee` returns the permutation of the JAX package's
 sequential loop (its numpy reference, pinned identical to its native C++
 implementation), computed one breadth-first level at a time with tensor
-operations on ``device`` (the host by default; the card for meshes of
-millions of vertices).
+operations on ``device``: the card by default, as every entry point of the
+port; CPU callers pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from . import Mesh
 
 __all__ = ["cuthill_mckee", "reverse_cuthill_mckee", "reorder_mesh"]
@@ -51,7 +52,7 @@ def _vertex_adjacency(mesh: Mesh, device="cpu") -> Tuple[torch.Tensor, torch.Ten
     return offsets, directed - rows * nv
 
 
-def cuthill_mckee(mesh: Mesh, device="cpu") -> np.ndarray:
+def cuthill_mckee(mesh: Mesh, device="cuda") -> np.ndarray:
     """Cuthill–McKee permutation: ``perm[new_index] = old_index``.
 
     Each connected component is seeded from its lowest-degree unvisited
@@ -62,7 +63,7 @@ def cuthill_mckee(mesh: Mesh, device="cpu") -> np.ndarray:
     degree, index) and each neighbour keeps its first occurrence, which is
     the order of the sequential loop.
     """
-    dev = torch.device(device)
+    dev = resolve_device(device)
     nv = mesh.num_vertices
     if nv == 0:
         return np.zeros(0, dtype=np.int64)
@@ -110,16 +111,17 @@ def cuthill_mckee(mesh: Mesh, device="cpu") -> np.ndarray:
     return torch.cat(parts).cpu().numpy()
 
 
-def reverse_cuthill_mckee(mesh: Mesh, device="cpu") -> np.ndarray:
+def reverse_cuthill_mckee(mesh: Mesh, device="cuda") -> np.ndarray:
     """Reverse Cuthill–McKee permutation (reorder.rs:236)."""
     return cuthill_mckee(mesh, device)[::-1].copy()
 
 
-def reorder_mesh(mesh: Mesh, perm: Optional[np.ndarray] = None, device="cpu") -> Tuple[Mesh, np.ndarray]:
+def reorder_mesh(mesh: Mesh, perm: Optional[np.ndarray] = None, device="cuda") -> Tuple[Mesh, np.ndarray]:
     """Apply a vertex permutation (default: RCM, computed on ``device``) to a mesh.
 
     Returns the permuted mesh and the permutation used (``perm[new] =
-    old``).  Cells keep their order; their node indices are relabeled.
+    old``).  Cells keep their order; their node indices are relabeled.  A
+    given ``perm`` is applied on the host and ``device`` is not used.
     """
     if perm is None:
         perm = reverse_cuthill_mckee(mesh, device)

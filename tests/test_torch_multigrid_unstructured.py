@@ -30,7 +30,7 @@ from fenris_tpu_torch.elasticity import HyperelasticModel
 from fenris_tpu_torch.mesh import Mesh
 from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d as box
 from fenris_tpu_torch.mesh.refinement import prolongation_for_refinement, refine_uniformly, refine_uniformly_repeat
-from fenris_tpu_torch.mesh.reorder import reverse_cuthill_mckee
+from fenris_tpu_torch.mesh.reorder import cuthill_mckee, reorder_mesh, reverse_cuthill_mckee
 from fenris_tpu_torch.multigrid import (
     GeometricMGPreconditioner,
     _prolong_unstructured,
@@ -83,7 +83,7 @@ def test_vectorised_rcm_matches_jax(kind):
         shift = tm.num_vertices + 3
         tm = Mesh(np.concatenate([tm.points, np.zeros((3, 3)), small.points + 2.0]),
                   np.concatenate([tm.cells, small.cells + shift]), tm.element)
-    np.testing.assert_array_equal(reverse_cuthill_mckee(tm), jax_rcm(JaxMesh(tm.points, tm.cells, JAX_HEX8)))
+    np.testing.assert_array_equal(reverse_cuthill_mckee(tm, device="cpu"), jax_rcm(JaxMesh(tm.points, tm.cells, JAX_HEX8)))
 
 
 def test_transfers_are_adjoint():
@@ -163,3 +163,12 @@ def test_hierarchy_defaults_to_the_card():
         pytest.skip("a card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         rcm_refined_hierarchy(box(1), 1)
+
+
+@pytest.mark.parametrize("entry", [cuthill_mckee, reverse_cuthill_mckee, reorder_mesh],
+                         ids=["cm", "rcm", "reorder_mesh"])
+def test_rcm_defaults_to_the_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(box(1))

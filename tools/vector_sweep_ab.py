@@ -101,7 +101,7 @@ def main() -> int:
     ab(old, model, f"res={cs.RES_A} E_pad={p.padded_elements} blocks={p.k_blocks}", smi)
     del model
     cs.free_memory()
-    mesh, _ = reorder_mesh(create_unit_box_uniform_hex_mesh_3d(cs.RES_C3))
+    mesh, _ = reorder_mesh(create_unit_box_uniform_hex_mesh_3d(cs.RES_C3), device=dev)
     model = cs.assembled_model(cs.RES_C3, torch.float32, dev, None, mesh=mesh, banded=True, fused_kernels=True)
     p = model._plan
     ab(old, model, f"res={cs.RES_C3} rcm E={mesh.num_cells} E_pad={p.padded_elements} blocks={p.k_blocks}", smi)
