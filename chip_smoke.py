@@ -29,6 +29,13 @@ must pass and none skip) and drives the port's paths at full size:
   plain version for linear elasticity, Laplace and a ragged element count,
   and, with the plain version, against an f64 evaluation of the same f32
   coordinates;
+* entry B20/B10, the same entry point on BASELINE's headline elements
+  (bench.py:137-270) at full width: hex20 on the 64^3 box (262,144 cells,
+  1,085,825 nodes) and tet10 on the BCC res-40 box (768,000 cells,
+  1,043,441 nodes), linear elasticity and Laplace; the kernel (hex20 with
+  its points in chunks) against its plain version, timed in turns beside
+  its bound with M elements/s, and again at bench.py's own sizes (hex20
+  28^3, tet10 BCC 18);
 * a CG-count diagnostic at res 80: the first Newton step's CG iterations
   on seven operators (assembled f32 with the band-sweep kernel and with
   the plain band matvec, the fused matrix-free kernel and its plain
@@ -62,12 +69,20 @@ must pass and none skip) and drives the port's paths at full size:
   resolutions 1-32, f64 on both routes within 1% of
   tests/reference_values/poisson3d_mms_hex8_summary.json, and f32 (the band
   sweep, or the banded gather and scatter at s = 1) with its deviations
-  printed; then P149, the MMS problem in f32 on path A's mesh (3,375,000
+  printed; the same gate on tet4, tet10, tet20, hex20 and hex27 at the
+  reference's resolutions (tests/test_convergence.py:95-138), f64 on the
+  assembled route with sparse deltas in the block-ELL remainder (min_fill
+  0.05), within 1% of each summary; then P149, the MMS problem in f32 on path A's mesh (3,375,000
   dofs at s = 1) on both routes, with set-up, solve and error times, the
   true relative residual by a plain f64 operator (<= 10x the CG tolerance)
   and the two routes' difference, and the s = 1 band sweep, gather and
   scatter at those shapes against their plain versions, timed beside their
-  bounds and library calls (their records join the kernel line);
+  bounds and library calls (their records join the kernel line); and
+  P40-tet10, the MMS problem in f32 on B10's mesh after the RCM (1,043,441
+  dofs at s = 1), assembled with the band-sweep kernel in every CG
+  iteration: set-up, D, fill and the remainder's share, CG iterations, ms
+  per iteration and the true f64 relative residual (<= 10x the CG
+  tolerance), the band sweep at that shape against its plain version;
 * C2-MG: path C2's problem on 18^3 cells refined three times (9,145,875
   dofs, RCM-reordered on the card in under 20 s) under
   ``GeometricMGPreconditioner(banded=True)``, ``solve_mixed`` to the
@@ -122,6 +137,11 @@ RAGGED_B = 11  # 1,331 cells: not a multiple of the kernel's 32-element block
 # 1,024 nodes each), C3 at bench.py's unstructured size
 RAGGED_C = [(7, False), (11, True)]
 RES_C3 = 63
+# entry B20/B10: the stiffness kernel on BASELINE's headline elements at 1M+ nodes (s = 3: 3.3M and
+# 3.1M dofs), and at bench.py's own sizes (hex20 28^3 = 21,952 cells, tet10 BCC 18 = 69,984 tets)
+RES_B20 = 64  # convert_mesh(create_unit_box_uniform_hex_mesh_3d(64), "hex20"): 262,144 cells
+RES_B10 = 40  # convert_mesh(create_unit_box_uniform_tet_mesh_3d(40), "tet10"): 768,000 cells
+RES_BENCH = {"hex20": 28, "tet10": 18}
 RES_DIAG = 80  # the CG-count diagnostic: 512,000 cells, 1,594,323 dofs
 # Poisson on hex8: the reference's MMS resolutions (tests/test_convergence.py:85-90), and P149, the
 # scalar problem on path A's mesh (3,375,000 dofs at s = 1).  f32 CG tolerances: an f32 solution's
@@ -131,6 +151,17 @@ MMS_RESOLUTIONS = (1, 2, 4, 8, 16, 32)
 F32_TOL_MMS = 1e-5
 RES_P = 149
 F32_TOL_P = 1e-4
+# the gate on the other elements (tests/test_convergence.py:95-138): resolutions, rule and error rule;
+# deltas populating under 5% of the rows go to the block-ELL remainder (block_dia.py:219's figure for
+# irregular meshes: every delta a band would take up to 185k bands on tet20 at res 12)
+MMS_ELEMENTS = {
+    "hex20": ((1, 2, 4, 8, 16), ("hexahedron_gauss", 4), ("hexahedron_gauss", 6)),
+    "hex27": ((1, 2, 4, 8, 16), ("hexahedron_gauss", 4), ("hexahedron_gauss", 6)),
+    "tet4": ((1, 2, 4, 8, 16), ("tetrahedron", 0), ("tetrahedron", 6)),
+    "tet10": ((1, 2, 4, 8, 12), ("tetrahedron", 2), ("tetrahedron", 6)),
+    "tet20": ((1, 2, 4, 6, 8, 12), ("tetrahedron", 4), ("tetrahedron", 6)),
+}
+MMS_MIN_FILL = 0.05
 # C2-MG: path C2's problem on 18^3 cells refined three times (144^3 = 2,985,984 hex8, 9,145,875 dofs)
 RES_MG_COARSE = 18
 MG_LEVELS = 3
@@ -177,8 +208,8 @@ def stencil_ops(cells, hvp):
 
 
 def stiffness_ops(E, m, n, q, s, sym):
-    """f32 operations of the element-stiffness function for hex-type elements (d = 3), the fewest its
-    arithmetic allows.  Per element and point: J from node-relative coordinates d^2 (2m - 3), J^-1 and
+    """f32 operations of the element-stiffness function for 3D elements (d = 3, m geometry nodes), the
+    fewest its arithmetic allows.  Per element and point: J from node-relative coordinates d^2 (2m - 3), J^-1 and
     det 42, the weight 1, the gradients G = dphi J^-1 n d (2d - 1), G scaled by w|det| n d; per element
     the node-relative coordinates (m - 1) d.  Then the fewer of two forms of the block entries needed
     (all n^2 of an off-diagonal pair, the n (n + 1) / 2 upper ones of a symmetric operator's diagonal
@@ -294,9 +325,9 @@ def ptxas_report(build_log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             label = next((v for k, v in PTXAS_LABELS.items() if k in m.group(1)), None)
-            st = re.search(r"stiffness_pairs_kernelILi(\d)ELi(\d)E", m.group(1))
+            st = re.search(r"stiffness_pairs_kernelILi(\d)ELi(\d)ELi(\d)E", m.group(1))
             if st:
-                label = f"stiffness_pairs (d = {st.group(1)}, {st.group(2)} pairs)"
+                label = f"stiffness_pairs (d = {st.group(1)}, {st.group(2)} pairs, {st.group(3)} a thread)"
         elif label and "spill stores" in line:
             found[label] = line.strip()
         elif label and "Used" in line and "registers" in line:
@@ -1162,6 +1193,23 @@ def unfused_operator_choice(model, u, v, hv_jvp, cg_iters, smi):
 # -- Poisson on hex8 and the unstructured multigrid ------------------------------------------
 
 
+def element_box(name, res):
+    """The unit box of ``name`` cells: hex8 or BCC tet4 boxes, converted (convert_mesh) for the others."""
+    from fenris_tpu_torch.mesh.convert import convert_mesh
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d, create_unit_box_uniform_tet_mesh_3d
+
+    base = (create_unit_box_uniform_tet_mesh_3d if name.startswith("tet") else create_unit_box_uniform_hex_mesh_3d)(res)
+    return base if name in ("tet4", "hex8") else convert_mesh(base, name)
+
+
+def element_rule(spec):
+    """A rule from ``(function name in quadrature or quadrature.total_order, argument)``."""
+    from fenris_tpu_torch import quadrature
+
+    fn, arg = spec
+    return getattr(quadrature.total_order if fn == "tetrahedron" else quadrature, fn)(arg)
+
+
 def mms_problem():
     """The MMS problem of tests/mms_common.py:32-54 in torch: source, exact solution and its gradient
     (pointwise, run under vmap), and the Dirichlet nodes (||x - 0.5||_inf > 0.4999)."""
@@ -1225,11 +1273,48 @@ def poisson_mms_gate(dev, smi):
                 check(max(dev_l2 + dev_h1) <= 0.01, f"Poisson MMS {route} f64: an error is off the reference by "
                       f"more than 1%: L2 {dev_l2}, H1 {dev_h1}")
     free_memory()
+    poisson_mms_elements(dev, smi)
 
 
-def poisson_f64_operator(mesh, dirichlet_nodes, dev):
-    """The f64 Laplace operator (plain band matvec, Dirichlet dofs masked) and right-hand side of the MMS
-    problem on ``mesh``: the independent check of an f32 Poisson solution."""
+def poisson_mms_elements(dev, smi):
+    """The gate on tet4, tet10, tet20, hex20 and hex27 (tests/test_convergence.py:95-138) at the
+    reference's resolutions on the card: f64, assembled route (block-DIA bands plus the block-ELL
+    remainder of deltas under MMS_MIN_FILL), within 1% of tests/reference_values/
+    poisson3d_mms_<element>_summary.json, resolutions to 1e-12."""
+    import torch
+
+    from fenris_tpu_torch.fem import solve_poisson_assembled
+
+    source, u_exact, u_exact_grad, dirichlet = mms_problem()
+    for name, (resolutions, rule, err_rule) in MMS_ELEMENTS.items():
+        ref = json.loads((ROOT / f"tests/reference_values/poisson3d_mms_{name}_summary.json").read_text())
+        t0 = time.perf_counter()
+        diam, dev_l2, dev_h1, iters = [], [], [], []
+        for i, res in enumerate(resolutions):
+            mesh = element_box(name, res)
+            r = solve_poisson_assembled(mesh, element_rule(rule), element_rule(err_rule), source, u_exact, u_exact_grad,
+                                        dirichlet(mesh), min_fill=MMS_MIN_FILL, dtype=torch.float64, device=dev)
+            diam.append(float(mesh.diameters().max()))
+            dev_l2.append(abs(r.l2_error - ref["L2_errors"][i]) / ref["L2_errors"][i])
+            dev_h1.append(abs(r.h1_seminorm_error - ref["H1_seminorm_errors"][i]) / ref["H1_seminorm_errors"][i])
+            iters.append(r.cg_iterations)
+        torch.cuda.synchronize()
+        res_dev = max(abs(a - b) / b for a, b in zip(diam, ref["resolutions"]))
+        log(f"Poisson MMS {name} assembled float64 at resolutions {list(resolutions)} ({mesh.num_vertices} dofs at "
+            f"the last): L2 deviation from the reference {[f'{d:.3e}' for d in dev_l2]}, H1 "
+            f"{[f'{d:.3e}' for d in dev_h1]}, diameters rel {res_dev:.1e}, CG iterations {iters}; "
+            f"{time.perf_counter() - t0:.3f} s ({smi})")
+        check(len(diam) == len(ref["resolutions"]) and res_dev <= 1e-12,
+              f"Poisson MMS {name}: resolutions differ from the reference")
+        check(max(dev_l2 + dev_h1) <= 0.01, f"Poisson MMS {name} f64: an error is off the reference by more than "
+              f"1%: L2 {dev_l2}, H1 {dev_h1}")
+    free_memory()
+
+
+def poisson_f64_operator(mesh, dirichlet_nodes, dev, rule=None, min_fill=0.0):
+    """The f64 Laplace operator (plain band matvec and remainder, Dirichlet dofs masked) and right-hand
+    side of the MMS problem on ``mesh`` by ``rule`` (default hexahedron_gauss(2)): the independent check
+    of an f32 Poisson solution."""
     import torch
 
     from fenris_tpu_torch.assembly.global_ import assemble_vector
@@ -1245,8 +1330,8 @@ def poisson_f64_operator(mesh, dirichlet_nodes, dev):
 
     source = mms_problem()[0]
     space = FemSpace.create(mesh, 1, torch.float64, dev)
-    tab = tabulate(mesh.element, hexahedron_gauss(2))
-    plan = block_dia_assembly_plan(mesh.cells, mesh.num_vertices, 1, device=dev)
+    tab = tabulate(mesh.element, hexahedron_gauss(2) if rule is None else rule)
+    plan = block_dia_assembly_plan(mesh.cells, mesh.num_vertices, 1, min_fill=min_fill, device=dev)
     A = assemble_block_dia(plan, assemble_element_elliptic_matrices(space.X_geo, None, LaplaceOperator(), None, tab,
                                                                     chunk=65536), num_chunks=4)
     free = torch.ones(mesh.num_vertices, dtype=torch.bool, device=dev)
@@ -1400,6 +1485,93 @@ def poisson_p149(kernels, dev, smi):
     free_memory()
     scalar_kernel_checks(kernels, bands, offsets, captured["plan"], dev, smi)
     del bands, captured
+    free_memory()
+
+
+def poisson_p40_tet10(kernels, b10, dev, smi):
+    """P40-tet10: f32 Poisson with the MMS source on B10's mesh ``b10`` (768,000 tet10 cells, 1,043,441
+    dofs at s = 1) after the RCM on the card, assembled (min_fill MMS_MIN_FILL) at CG tolerance F32_TOL_P with the
+    band-sweep kernel in every CG iteration: RCM, set-up, solve and error times, D, fill and the
+    remainder's share, CG iterations, launches, the true f64 relative residual (limit 10x the CG
+    tolerance), then the band sweep at this shape against its plain version and cuSPARSE."""
+    from unittest import mock
+
+    import torch
+
+    import fenris_tpu_torch.fem as fem_mod
+    import fenris_tpu_torch.ops.dia_sweep as ds
+    import fenris_tpu_torch.sparse.block_dia as bdia
+    import fenris_tpu_torch.sparse.cg as cg_mod
+    import fenris_tpu_torch.sparse.dia_kernel as dk
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+    from fenris_tpu_torch.sparse.block_dia import BlockDiaMatrix
+
+    source, u_exact, u_exact_grad, dirichlet = mms_problem()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh, _ = reorder_mesh(b10, device=dev)
+    rcm_s = time.perf_counter() - t0
+    nd = dirichlet(mesh)
+    rule, err_rule = element_rule(("tetrahedron", 2)), element_rule(("tetrahedron", 6))
+    captured, cg_times, err_times = {}, [], []
+
+    def capture(name, fn):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            captured[name] = args[0] if name == "matrix" else out
+            return out
+        return run
+
+    k = kernels["dia_sweep (s=1, P40-tet10)"]
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(cg_mod, "conjugate_gradient", timed(cg_mod.conjugate_gradient, cg_times)), \
+            mock.patch.object(fem_mod, "_errors", timed(fem_mod._errors, err_times)), \
+            mock.patch.object(dk, "block_dia_operator", capture("matrix", dk.block_dia_operator)), \
+            mock.patch.object(bdia, "block_dia_assembly_plan", capture("plan", bdia.block_dia_assembly_plan)):
+        r = fem_mod.solve_poisson_assembled(mesh, rule, err_rule, source, u_exact, u_exact_grad, nd,
+                                            rel_tolerance=F32_TOL_P, min_fill=MMS_MIN_FILL, dtype=torch.float32,
+                                            device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k["launches"] = k["fn"].launches
+    plan, A = captured["plan"], captured["matrix"]
+    N, D = mesh.num_vertices, plan.num_diagonals
+    on_bands = plan.fill * D * N
+    in_rem = float((plan.rem_neighbors < N).sum()) if plan.rem_k else 0.0
+    t_cg, t_err = sum(cg_times), sum(err_times)
+    log(f"P40-tet10: {mesh.num_cells} tet10, {N} dofs, f32, CG rel {F32_TOL_P:g}: RCM {rcm_s:.3f} s; set-up "
+        f"(plan, assembly, right-hand side, Jacobi) {wall - t_cg - t_err:.3f} s, solve {t_cg:.3f} s "
+        f"({r.cg_iterations} CG iterations, {t_cg / max(r.cg_iterations, 1) * 1e3:.3f} ms per iteration), errors "
+        f"{t_err:.3f} s; D = {D} bands, fill {plan.fill:.4f}, remainder width {plan.rem_k}, remainder share of the "
+        f"node pairs {in_rem / (in_rem + on_bands):.4f}; L2 error {r.l2_error:.6e}, H1 {r.h1_seminorm_error:.6e}; "
+        f"dia_sweep launches {k['launches']}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
+    check(bool(torch.isfinite(r.u).all()) and tuple(r.u.shape) == (N,), "P40-tet10: wrong or non-finite solution")
+    check(k["launches"] > 0, "P40-tet10: the band-sweep kernel was not launched")
+    t0 = time.perf_counter()
+    residual, b = poisson_f64_operator(mesh, nd, dev, rule=rule, min_fill=MMS_MIN_FILL)
+    rel = float(torch.linalg.vector_norm(residual(r.u))) / float(torch.linalg.vector_norm(b))
+    log(f"P40-tet10: true relative residual |b - A u| / |b| by the plain f64 operator {rel:.6e} (limit "
+        f"{10 * F32_TOL_P:g}); f64 check {time.perf_counter() - t0:.3f} s")
+    check(rel <= 10 * F32_TOL_P, f"P40-tet10: true relative residual {rel:.3e} > {10 * F32_TOL_P:g}")
+    del residual, b, r
+    free_memory()
+
+    bands, offsets = A.bands, A.offsets
+    x2 = torch.randn((1, N), generator=torch.Generator(device=dev).manual_seed(43), device=dev)
+    txt = f"P40-tet10 s=1 N={N} D={D}"
+    k["max_abs_err"] = compare("dia_sweep", txt, ds.dia_sweep(bands, offsets, x2), ds.dia_sweep(bands, offsets, x2),
+                               ds.dia_sweep_plain(bands, offsets, x2))
+    k["ms"], k["plain_ms"], ttxt = in_turns(lambda: ds.dia_sweep(bands, offsets, x2),
+                                            lambda: ds.dia_sweep_plain(bands, offsets, x2))
+    bound_txt = set_bound(k, (bands.numel() + 2 * x2.numel()) * 4, 2 * bands.numel())
+    m = BlockDiaMatrix(offsets=offsets, bands=bands, num_nodes=N, solution_dim=1, remainder=None)
+    k["library_ms"] = csr_library_ms(m, x2, ds.dia_sweep(bands, offsets, x2), smi)
+    log(f"time dia_sweep {txt}: {ttxt}, library {k['library_ms']:.4f} ms; {bound_txt} ({smi})")
+    del A, bands, captured, plan
     free_memory()
 
 
@@ -1640,6 +1812,90 @@ def stiffness_phases(kernels, dev, smi):
     free_memory()
 
 
+def stiffness_element_phases(kernels, dev, smi):
+    """Entry B20/B10: the stiffness kernel on hex20 (points in chunks) and tet10 at full width, linear
+    elasticity and Laplace: against its plain version (rel <= KERNEL_RTOL, bitwise repeats), timed in
+    turns with it, bound and M elements/s; the public entry point with kernel="auto" under reset counts;
+    then the kernel and its plain version at bench.py's own sizes.  Returns B10's mesh (P40-tet10's)."""
+    import torch
+
+    import fenris_tpu_torch.ops.stiffness_pairs as sp
+    from fenris_tpu_torch.assembly.local import assemble_element_elliptic_matrices_pairs, tabulate
+    from fenris_tpu_torch.fem import FemSpace
+    from fenris_tpu_torch.operators import LaplaceOperator
+    from fenris_tpu_torch.quadrature import canonical_stiffness
+    from fenris_tpu_torch.solid import LameParameters, LinearElasticMaterial, MaterialEllipticOperator
+
+    cases = {
+        "linear": (MaterialEllipticOperator(LinearElasticMaterial(), dim=3), LameParameters(mu=MU, lam=LAM)),
+        "laplace": (LaplaceOperator(), None),
+    }
+    meshes = {}
+    for name, res, cell, key in (("hex20", RES_B20, "B20", "stiffness_pairs (hex20, B20)"),
+                                 ("tet10", RES_B10, "B10", "stiffness_pairs (tet10, B10)")):
+        t0 = time.perf_counter()
+        mesh = meshes[cell] = element_box(name, res)
+        mesh_s = time.perf_counter() - t0
+        tab = tabulate(mesh.element, canonical_stiffness(name))
+        q, m, _ = tab.geo_dphi.shape
+        n = tab.dphi.shape[1]
+        k = kernels[key]
+        X = FemSpace.create(mesh, 3, torch.float32, dev).X_geo
+        E = X.shape[0]
+        log(f"entry {cell}: {name} res {res}: {E} cells, {mesh.num_vertices} nodes, mesh {mesh_s:.3f} s; kernel "
+            f"points a chunk {sp._chunk_points(m, n, q, 3)} of {q}, shared memory a block {sp._smem_bytes(m, n, q, 3)} "
+            f"bytes")
+        for kind, (op, params) in cases.items():
+            s = op.solution_dim
+            got = sp.stiffness_pairs(X, op, params, tab)
+            again = sp.stiffness_pairs(X, op, params, tab)
+            ref = sp.stiffness_pairs_plain(X, op, params, tab)
+            err = compare("stiffness_pairs", f"{name} {kind} {cell} E={E} out {got.numel() * 4 / 1e9:.3f} GB", got,
+                          again, ref)
+            del got, again, ref
+            free_memory()
+            ms, plain_ms, txt = in_turns(lambda: sp.stiffness_pairs(X, op, params, tab),
+                                         lambda: sp.stiffness_pairs_plain(X, op, params, tab), reps=5, plain_reps=2)
+            rec = {}
+            bound_txt = set_bound(rec, (X.numel() + s * s * n * n * E) * 4, stiffness_ops(E, m, n, q, s, op.symmetric))
+            log(f"time stiffness_pairs {name} {kind} {cell}: {txt}; {E / (ms * 1e-3) / 1e6:.2f} M elements/s; "
+                f"{bound_txt}, {rec['bound_ms'] / ms * 100:.1f}% of it ({smi})")
+            if kind == "linear":
+                k.update(rec, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None)
+            free_memory()
+
+        op, params = cases["linear"]
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = assemble_element_elliptic_matrices_pairs(X, None, op, params, tab, kernel="auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k["launches"] = k["fn"].launches
+        log(f"entry {cell}: assemble_element_elliptic_matrices_pairs(kernel='auto') {name}: {tuple(A.shape)} in "
+            f"{wall * 1e3:.3f} ms, stiffness_pairs launches={k['launches']} ({smi})")
+        check(tuple(A.shape) == (9, n * n, E) and bool(torch.isfinite(A).all()), f"entry {cell}: wrong or non-finite output")
+        check(k["launches"] > 0, f"entry {cell}: the stiffness kernel was not launched")
+        del A, X
+        free_memory()
+
+        # bench.py's own size of this element
+        mesh = element_box(name, RES_BENCH[name])
+        Xb = FemSpace.create(mesh, 3, torch.float32, dev).X_geo
+        Eb = Xb.shape[0]
+        compare("stiffness_pairs", f"{name} linear bench size E={Eb}", sp.stiffness_pairs(Xb, op, params, tab),
+                sp.stiffness_pairs(Xb, op, params, tab), sp.stiffness_pairs_plain(Xb, op, params, tab))
+        ms, _, txt = in_turns(lambda: sp.stiffness_pairs(Xb, op, params, tab),
+                              lambda: sp.stiffness_pairs_plain(Xb, op, params, tab), reps=10, plain_reps=3)
+        rec = {}
+        bound_txt = set_bound(rec, (Xb.numel() + 9 * n * n * Eb) * 4, stiffness_ops(Eb, m, n, q, 3, True))
+        log(f"time stiffness_pairs {name} linear bench size ({Eb} cells): {txt}; {Eb / (ms * 1e-3) / 1e6:.2f} M "
+            f"elements/s; {bound_txt}, {rec['bound_ms'] / ms * 100:.1f}% of it ({smi})")
+        del Xb
+        free_memory()
+    return meshes["B10"]
+
+
 def main() -> int:
     if not (ROOT / "fenris_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: fenris_tpu_torch/ not found next to this script; run it in a checkout")
@@ -1695,6 +1951,15 @@ def main() -> int:
             fn=sp.stiffness_pairs, path="B", source=SOURCES["stiffness_pairs"],
             replaces="fenris_tpu/ops/stiffness_kernel.py:162",
         ),
+        # BASELINE's headline elements: hex20 (points in chunks) and tet10, linear elasticity
+        "stiffness_pairs (hex20, B20)": dict(
+            fn=sp.stiffness_pairs, path="B20", source=SOURCES["stiffness_pairs"],
+            replaces="fenris_tpu/ops/stiffness_kernel.py:162",
+        ),
+        "stiffness_pairs (tet10, B10)": dict(
+            fn=sp.stiffness_pairs, path="B10", source=SOURCES["stiffness_pairs"],
+            replaces="fenris_tpu/ops/stiffness_kernel.py:162",
+        ),
         "banded_gather": dict(
             fn=bd.banded_gather, path="C", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:285",
         ),
@@ -1722,6 +1987,11 @@ def main() -> int:
         "banded_scatter (s=1, P149)": dict(
             fn=bd.banded_scatter, path="P149", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:346",
         ),
+        # the tet10 Poisson solve P40-tet10: the band sweep at s = 1 with its own diagonal count
+        "dia_sweep (s=1, P40-tet10)": dict(
+            fn=ds.dia_sweep, path="P40", source=SOURCES["dia_sweep"],
+            replaces="fenris_tpu/sparse/dia_kernel.py:380 and fenris_tpu/sparse/dia_kernel.py:186",
+        ),
     }
     phases = [
         ("structured path", lambda: structured_phases(kernels, dev, smi)),
@@ -1731,6 +2001,9 @@ def main() -> int:
         t0 = time.perf_counter()
         run()
         log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    b10 = stiffness_element_phases(kernels, dev, smi)  # tet10's mesh, kept for P40-tet10
+    log(f"phase entry B20/B10: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     model, plan_s = path_a_setup(dev, smi)
     band_sweep_phases(kernels["dia_sweep"], model, dev, smi)
@@ -1773,6 +2046,10 @@ def main() -> int:
     t0 = time.perf_counter()
     poisson_p149(kernels, dev, smi)
     log(f"phase P149: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    poisson_p40_tet10(kernels, b10, dev, smi)
+    log(f"phase P40-tet10: {time.perf_counter() - t0:.3f} s")
+    del b10
     t0 = time.perf_counter()
     path_c2_mg(kernels, c2_cg_iters, dev, smi)
     log(f"phase C2-MG: {time.perf_counter() - t0:.3f} s")

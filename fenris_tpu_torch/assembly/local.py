@@ -39,34 +39,34 @@ __all__ = [
 
 @dataclass(frozen=True)
 class Tabulation:
-    """Basis values and reference gradients at a rule's points (float64 numpy)."""
+    """Basis and geometry-basis values and reference gradients at a rule's points (float64 numpy).
+
+    ``geo_phi``/``geo_dphi`` tabulate ``element.geometry`` at the same
+    points: the element's own basis for isoparametric elements, the
+    lowest-order one for subparametric tet10/tet20/hex20/hex27.
+    """
 
     element: ReferenceElement
     weights: np.ndarray  # [q]
     points: np.ndarray  # [q, d]
     phi: np.ndarray  # [q, n]
     dphi: np.ndarray  # [q, n, d]
+    geo_phi: np.ndarray  # [q, m]
+    geo_dphi: np.ndarray  # [q, m, d]
 
     @property
     def num_points(self) -> int:
         return len(self.weights)
 
-    # the port's elements are isoparametric: the geometry basis is the basis
-    @property
-    def geo_phi(self) -> np.ndarray:
-        return self.phi
-
-    @property
-    def geo_dphi(self) -> np.ndarray:
-        return self.dphi
-
 
 def tabulate(element: ReferenceElement, rule: Rule) -> Tabulation:
-    """Tabulate ``element``'s basis at ``rule``'s points."""
+    """Tabulate ``element``'s basis and its geometry element's at ``rule``'s points."""
     w = np.asarray(rule.weights, dtype=np.float64)
     pts = np.asarray(rule.points, dtype=np.float64).reshape(len(w), element.ref_dim)
     phi, dphi = element.tabulate(pts)
-    return Tabulation(element, w, pts, phi, dphi)
+    geo = element.geometry
+    gphi, gdphi = (phi, dphi) if geo is element else geo.tabulate(pts)
+    return Tabulation(element, w, pts, phi, dphi, gphi, gdphi)
 
 
 def _const(a, like: torch.Tensor) -> torch.Tensor:

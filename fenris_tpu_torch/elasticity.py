@@ -82,7 +82,7 @@ class HyperelasticModel:
     """A hyperelastic solid on an unstructured mesh.
 
     Args:
-        mesh: volumetric hex8 mesh (solution dim = geometry dim).
+        mesh: volumetric mesh of any 3D element (solution dim = geometry dim).
         material: a :class:`~.solid.HyperelasticMaterial`.
         params: scalar material parameters (e.g. :class:`~.solid.LameParameters`).
         rule: quadrature rule (default: the canonical stiffness rule).

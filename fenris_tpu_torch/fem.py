@@ -178,6 +178,8 @@ def solve_poisson_matrix_free(
     the gather and scatter launch their kernels for f32 data on the card.
     Same masking, Jacobi preconditioner (from the element-matrix
     diagonals) and error estimation as :func:`solve_poisson_assembled`.
+    The sweeps read ``m`` geometry and ``n`` basis nodes from the
+    tabulation, so it takes every 3D element.
     """
     from .assembly import local_em as LE
     from .assembly.local import assemble_element_source_vectors, tabulate

@@ -16,11 +16,21 @@ from .solid import LameParameters, NeoHookeanMaterial
 from .structured import StructuredHyperelasticModel
 
 __all__ = [
+    "mesh_from_arrays",
     "structured_model_from_arrays",
     "hyperelastic_model_from_arrays",
     "flat_to_grid",
     "grid_to_flat",
 ]
+
+
+def mesh_from_arrays(points, cells, element_name: str):
+    """A port mesh with a JAX mesh's arrays: ``np.asarray(jax_mesh.points)``, ``.cells`` and
+    ``jax_mesh.element.name``; the node order and numbering are shared, so vectors carry over."""
+    from .mesh import Mesh
+    from .reference_elements import element
+
+    return Mesh(np.asarray(points), np.asarray(cells), element(element_name))
 
 
 def structured_model_from_arrays(
@@ -62,14 +72,16 @@ def hyperelastic_model_from_arrays(
     dirichlet_nodes=None,
     body_force=None,
     *,
+    element: str = "hex8",
     dtype: torch.dtype = DEFAULT_DTYPE,
     device="cuda",
     **kwargs,
 ):
     """A Neo-Hookean unstructured port model with the given JAX model's fields.
 
-    ``points``/``cells`` as on the JAX model's hex8 mesh
-    (``np.asarray(jax_model.mesh.points)``, ``.cells``), ``mu``/``lam`` its
+    ``points``/``cells`` as on the JAX model's mesh
+    (``np.asarray(jax_model.mesh.points)``, ``.cells``), ``element`` its
+    element's name (``jax_model.mesh.element.name``), ``mu``/``lam`` its
     Lamé parameters, ``dirichlet_nodes`` its constrained nodes and
     ``body_force`` a constant ``[3]`` array (a JAX callable is not carried
     over).  Further keyword arguments (``chunk_size``, ``rule``, ``banded``,
@@ -77,11 +89,9 @@ def hyperelastic_model_from_arrays(
     :class:`~.elasticity.HyperelasticModel` as the JAX model's fields.
     """
     from .elasticity import HyperelasticModel
-    from .mesh import Mesh
-    from .reference_elements import HEX8
 
     return HyperelasticModel(
-        mesh=Mesh(np.asarray(points), np.asarray(cells), HEX8),
+        mesh=mesh_from_arrays(points, cells, element),
         material=NeoHookeanMaterial(),
         params=LameParameters(mu=float(mu), lam=float(lam)),
         dirichlet_nodes=None if dirichlet_nodes is None else np.asarray(dirichlet_nodes),

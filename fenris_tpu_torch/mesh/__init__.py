@@ -1,6 +1,6 @@
 """Meshes as struct-of-arrays (host numpy).
 
-Counterpart of the hex8 part of ``fenris_tpu/mesh/__init__.py``: a mesh
+Counterpart of the core of ``fenris_tpu/mesh/__init__.py``: a mesh
 is ``(points [N, d] float64, cells [E, n] int32)`` plus its reference
 element.  Topology work stays on the host; :class:`~..fem.FemSpace` moves
 the arrays to the device.
@@ -61,11 +61,11 @@ class Mesh:
         return self.points[self.cells]
 
     def diameters(self) -> np.ndarray:
-        """Per-cell diameter: the largest distance between two of its vertices.
+        """Per-cell diameter: the largest distance between two of its corner vertices.
 
-        The port's elements are isoparametric hex8, so every node is a
-        corner (``FiniteElement::diameter``).
+        Higher-order elements measure their corner (geometry) element, as
+        ``FiniteElement::diameter`` does: the first ``num_vertices`` nodes.
         """
-        X = self.points[self.cells]  # [E, n, d]
+        X = self.points[self.cells[:, : self.element.num_vertices]]  # [E, v, d]
         diff = X[:, :, None, :] - X[:, None, :, :]
         return np.sqrt((diff**2).sum(-1)).max(axis=(1, 2))

@@ -9,8 +9,8 @@ order of ``np.unique(axis=0)``).  The port finds that order with integer
 keys and ``np.lexsort`` rather than ``np.unique(axis=0)``, which compares
 rows as byte strings and is slow at millions of rows.
 
-The JAX package also refines tri3, quad4 and tet4; those elements are not
-ported yet, so they raise ``NotImplementedError``.
+The JAX package also refines tri3, quad4 and tet4; their refinement is
+not ported yet, so every element but hex8 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ __all__ = ["refine_uniformly", "refine_uniformly_repeat", "prolongation_for_refi
 def _check_hex8(mesh: Mesh) -> None:
     if mesh.element.name != "hex8":
         raise NotImplementedError(
-            f"uniform refinement of {mesh.element.name} is not ported yet (the port has hex8 only)"
+            f"uniform refinement of {mesh.element.name} meshes is not ported yet (the port refines hex8 only)"
         )
 
 

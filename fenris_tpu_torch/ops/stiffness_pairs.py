@@ -13,7 +13,9 @@ On a CUDA tensor :func:`stiffness_pairs` launches the hand-written kernel
 :func:`stiffness_pairs_plain`.  The kernel forms the blocks directly from
 the physical gradients ``G_q`` of each quadrature point, ``C^{ij} : M_ab``
 with ``M_ab = Σ_q w|det| G_q[a] G_q[b]ᵀ`` per node pair; the plain version
-multiplies by the reference projector.  The kernel's output rows are
+multiplies by the reference projector.  Elements whose per-point
+gradient table does not fit a block (hex20, hex27) take their points in
+chunks (:func:`_chunk_points`).  The kernel's output rows are
 padded to a multiple of 32 elements (whole 128-byte lines for every warp
 store), so on the card the result is the view of their first E columns,
 not a contiguous tensor.  Launches are counted in
@@ -30,7 +32,10 @@ from ._build import check, load_library
 __all__ = ["stiffness_pairs", "stiffness_pairs_plain", "supports_stiffness_kernel"]
 
 _MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
+_CHUNK_SMEM = 115712  # a block of the chunked form: two blocks an SM (csrc/stiffness_pairs.cu kChunkSmem)
 _LANES = 32  # elements per block (csrc/stiffness_pairs.cu kLanes)
+_WARPS = 9  # warps a block (kWarps)
+_CHUNK_TASKS = 4  # node pairs a thread keeps across point chunks (kChunkTasks)
 _PAIR_COUNTS = (1, 3, 4, 6, 9)  # pair counts the kernel is instantiated for
 
 
@@ -63,9 +68,28 @@ def _constants(op, params, tab):
     return tables, C, dict(m=m, n=n, q=q, d=d, s=s, sym=int(sym))
 
 
+def _smem_floats(m: int, n: int, q: int, qc: int, d: int) -> int:
+    """Shared floats a block (csrc/stiffness_pairs.cu smem_floats): ``qc`` points' gradients."""
+    return qc * n * _LANES * 4 + m * d * _LANES + q * (m + n) * d + q
+
+
+def _chunk_points(m: int, n: int, q: int, d: int) -> int:
+    """Points a chunk (csrc/stiffness_pairs.cu chunk_points): ``q`` when the whole gradient table
+    fits a block, else the fewest balanced chunks of at most ``_CHUNK_SMEM`` bytes (d = 3);
+    0 when not even one point fits."""
+    if 4 * _smem_floats(m, n, q, q, d) <= _MAX_SMEM:
+        return q
+    per_point, fixed = 4 * n * _LANES * 4, 4 * _smem_floats(m, n, q, 0, d)
+    if d != 3 or fixed + per_point > _CHUNK_SMEM:
+        return 0
+    chunks = -(-q // ((_CHUNK_SMEM - fixed) // per_point))
+    return -(-q // chunks)
+
+
 def _smem_bytes(m: int, n: int, q: int, d: int) -> int:
-    """Shared memory per block (csrc/stiffness_pairs.cu smem_floats)."""
-    return 4 * (q * n * _LANES * 4 + m * d * _LANES + q * (m + n) * d + q)
+    """Shared memory a block of the launch for this element (0: the kernel does not take it)."""
+    qc = _chunk_points(m, n, q, d)
+    return 4 * _smem_floats(m, n, q, qc, d) if qc else 0
 
 
 def _fits(op, tab) -> bool:
@@ -73,7 +97,7 @@ def _fits(op, tab) -> bool:
     q, m, d = tab.geo_dphi.shape
     s = op.solution_dim
     pairs = s * (s + 1) // 2 if op.symmetric else s * s
-    return d in (2, 3) and pairs in _PAIR_COUNTS and _smem_bytes(m, tab.dphi.shape[1], q, d) <= _MAX_SMEM
+    return d in (2, 3) and pairs in _PAIR_COUNTS and _chunk_points(m, tab.dphi.shape[1], q, d) > 0
 
 
 def supports_stiffness_kernel(op, params, tab, X_geo) -> bool:
@@ -101,8 +125,8 @@ def stiffness_pairs(X_geo: torch.Tensor, op, params, tab) -> torch.Tensor:
     if not getattr(op, "constant_contraction", False):
         raise ValueError("stiffness_pairs: the operator's contraction must be constant")
     if not _fits(op, tab):
-        raise ValueError("stiffness_pairs: the kernel takes d in (2, 3), s <= 3 and elements whose "
-                         "gradient table fits in shared memory")
+        raise ValueError("stiffness_pairs: the kernel takes d in (2, 3), s <= 3 and elements of which "
+                         "one quadrature point's gradients fit in shared memory")
     tables, C, meta = _constants(op, params, tab)
     m, n, d, s = meta["m"], meta["n"], meta["d"], meta["s"]
     if X_geo.dim() != 3 or tuple(X_geo.shape[1:]) != (m, d) or not X_geo.is_contiguous():

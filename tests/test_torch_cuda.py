@@ -25,11 +25,13 @@ import fenris_tpu_torch.ops.structured_stencil as tss
 from fenris_tpu_torch.assembly.local import assemble_element_elliptic_matrices, tabulate
 from fenris_tpu_torch.elasticity import HyperelasticModel
 from fenris_tpu_torch.mesh import Mesh
+from fenris_tpu_torch.mesh.convert import convert_mesh
 from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d as box
+from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_tet_mesh_3d as tet_box
 from fenris_tpu_torch.mesh.reorder import reorder_mesh
 from fenris_tpu_torch.operators import LaplaceOperator
 from fenris_tpu_torch.quadrature import canonical_stiffness
-from fenris_tpu_torch.reference_elements import HEX8
+from fenris_tpu_torch.reference_elements import HEX8, element
 from fenris_tpu_torch.solid import LameParameters, LinearElasticMaterial, MaterialEllipticOperator
 from fenris_tpu_torch.solid import NeoHookeanMaterial, StVKMaterial
 from fenris_tpu_torch.sparse.block_dia import assemble_block_dia, block_dia_assembly_plan
@@ -209,6 +211,41 @@ def _block_dia_operator(name):
                               dirichlet_nodes=np.arange(25), dtype=torch.float64, device="cpu")
     u = rng(6).standard_normal(model.space.num_dofs) * 0.01
     return model.assemble_hessian_block_dia(torch.as_tensor(u), **kw)
+
+
+def element_mesh(name, res):
+    base = tet_box(res) if name.startswith("tet") else box(res)
+    return base if name in ("tet4", "hex8") else convert_mesh(base, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "laplace"])
+@pytest.mark.parametrize("name", ["tet4", "tet10", "tet20", "hex20", "hex27"])
+def test_stiffness_kernel_on_3d_elements_on_card(name, kind, cuda_device):
+    """The higher-order and tet elements (hex20/hex27 take their points in chunks), 77 elements (a
+    ragged last tile) of a perturbed box: against the plain version, bitwise repeats, the launch
+    count and exact mirror blocks."""
+    op, params = stiffness_case(kind)
+    mesh = element_mesh(name, 3)
+    m, n = mesh.element.geometry.num_nodes, mesh.element.num_nodes
+    pts = mesh.points + rng(7).uniform(-0.05, 0.05, mesh.points.shape)
+    X = np.concatenate([pts[mesh.cells[:, :m]]] * 4)[:77]
+    Xt = torch.as_tensor(X, dtype=torch.float32, device=cuda_device)
+    tab = tabulate(element(name), canonical_stiffness(name))
+    assert tsk.supports_stiffness_kernel(op, params, tab, Xt)
+    before = tsk.stiffness_pairs.launches
+    got = tsk.stiffness_pairs(Xt, op, params, tab)
+    again = tsk.stiffness_pairs(Xt, op, params, tab)
+    torch.cuda.synchronize()
+    assert tsk.stiffness_pairs.launches == before + 2
+    s = op.solution_dim
+    assert got.shape == (s * s, n * n, 77)
+    assert rel_err(tsk.stiffness_pairs_plain(Xt, op, params, tab), got) < KERNEL_RTOL
+    assert torch.equal(got, again)
+    blocks = got.reshape(s, s, n, n, 77)
+    for i in range(s):
+        for j in range(i + 1, s):
+            assert torch.equal(blocks[j, i], blocks[i, j].transpose(0, 1))
 
 
 @pytest.mark.cuda
@@ -460,3 +497,32 @@ def test_unstructured_vcycle_on_card_matches_cpu(cuda_device):
     (cpu, perm_cpu), (card, perm_card) = out["cpu"], out[str(cuda_device)]
     np.testing.assert_array_equal(perm_cpu, perm_card)
     assert rel_err(cpu, card) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["assembled", "matrix_free"])
+@pytest.mark.parametrize("name", ["tet10", "hex20"])
+def test_poisson_elements_on_card_match_cpu(name, route, cuda_device):
+    """f32 Poisson on a res-3 tet10 or hex20 box (the gate's rules) on the card against the same route on
+    the CPU: solutions within 1e-4 relative (CG at rel 1e-6 on both), errors within 1e-3, and the
+    route's kernels launched (band sweep; or gather and scatter on n-node rows)."""
+    from fenris_tpu_torch import fem
+    from fenris_tpu_torch.quadrature import hexahedron_gauss, total_order
+
+    solve = fem.solve_poisson_assembled if route == "assembled" else fem.solve_poisson_matrix_free
+    counters = [tds.dia_sweep] if route == "assembled" else [tb.banded_gather, tb.banded_scatter]
+    mesh = element_mesh(name, 3)
+    rule, err = ((total_order.tetrahedron(2), total_order.tetrahedron(6)) if name == "tet10"
+                 else (hexahedron_gauss(4), hexahedron_gauss(6)))
+    src, ue, ug = _poisson_problem()
+    nd = np.flatnonzero(np.abs(mesh.points - 0.5).max(axis=1) > 0.4999)
+    kw = dict(min_fill=0.05) if route == "assembled" else {}
+    args = (mesh, rule, err, src, ue, ug, nd)
+    before = [k.launches for k in counters]
+    card = solve(*args, rel_tolerance=1e-6, dtype=torch.float32, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(counters, before))
+    cpu = solve(*args, rel_tolerance=1e-6, dtype=torch.float32, device="cpu", **kw)
+    assert rel_err(cpu.u, card.u) < 1e-4
+    assert abs(card.l2_error - cpu.l2_error) <= 1e-3 * cpu.l2_error
+    assert abs(card.h1_seminorm_error - cpu.h1_seminorm_error) <= 1e-3 * cpu.h1_seminorm_error

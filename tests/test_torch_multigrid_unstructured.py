@@ -39,7 +39,7 @@ from fenris_tpu_torch.multigrid import (
     rcm_refined_hierarchy,
 )
 from fenris_tpu_torch.optimize import NEWTON_CONVERGED
-from fenris_tpu_torch.reference_elements import ReferenceElement
+from fenris_tpu_torch.reference_elements import QUAD4
 from fenris_tpu_torch.solid import LameParameters, LinearElasticMaterial, NeoHookeanMaterial
 
 
@@ -63,8 +63,7 @@ def test_refinement_matches_jax(levels):
 
 
 def test_refinement_of_unported_elements_raises():
-    quad = ReferenceElement(name="quad4", ref_dim=2, nodes=np.array([[-1, -1], [1, -1], [1, 1], [-1, 1]], float))
-    mesh = Mesh(np.array([[0, 0], [1, 0], [1, 1], [0, 1]], float), np.array([[0, 1, 2, 3]]), quad)
+    mesh = Mesh(np.array([[0, 0], [1, 0], [1, 1], [0, 1]], float), np.array([[0, 1, 2, 3]]), QUAD4)
     for fn in (refine_uniformly, prolongation_for_refinement):
         with pytest.raises(NotImplementedError, match="quad4"):
             fn(mesh)
