@@ -83,6 +83,21 @@ must pass and none skip) and drives the port's paths at full size:
   iteration: set-up, D, fill and the remainder's share, CG iterations, ms
   per iteration and the true f64 relative residual (<= 10x the CG
   tolerance), the band sweep at that shape against its plain version;
+* the element sweeps on every 3D element and material: the strided sweeps
+  of tet4, tet10, tet20, hex8, hex20 and hex27 with the Neo-Hookean, StVK
+  and linear-elastic materials on a ragged res-3 box against their plain
+  versions; M10 and M20, on B10's tet10 and B20's hex20 meshes after the RCM
+  on the card, the s = 3 gather and scatter at n = 10 and 20 nodes a row
+  and, for each material, the fused banded tangent and vector sweeps
+  against their plain versions (padding rows zero), timed in turns with
+  them beside their bounds; S10, ``HyperelasticModel(banded=True,
+  fused_kernels=True).solve_mixed()`` (Neo-Hookean, tools/solve_assembled.py's
+  problem) on the tet10 mesh (3,130,323 dofs) to the independent f64
+  residual <= 1e-10, with the tangent sweep in every CG iteration and no
+  plain tangent sweep; on the hex20 mesh (3,257,475 dofs) the same
+  ``solve_mixed``, then S20, the f32 ``solve()`` capped at 2 Newton steps;
+  and one f32 Newton step of the StVK and linear-elastic models on each
+  mesh (their records' launches);
 * C2-MG: path C2's problem on 18^3 cells refined three times (9,145,875
   dofs, RCM-reordered on the card in under 20 s) under
   ``GeometricMGPreconditioner(banded=True)``, ``solve_mixed`` to the
@@ -99,9 +114,11 @@ plain version's, one PyTorch library call's where one computes the same
 function (else null), and its bound: the larger of its bytes over 3.35
 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM peaks), from this
 run's inputs.  ``ptxas`` lines (registers, shared memory, spills) of the
-stencil, gather, sweep and stiffness kernels are printed, and a spill in
-any of them fails the run.  The card's ``nvidia-smi`` name and power limit are
-printed on a line of their own; the second-to-last line of standard
+stencil, gather, stiffness kernels and all 72 element-sweep instantiations
+(6 elements x 3 materials x 4 modes) are printed, and a spill in any of
+them, or a missing instantiation, fails the run.  The card's
+``nvidia-smi`` name and power limit are printed on a line of their own;
+the second-to-last line of standard
 output is the per-kernel JSON record, the last line the device record.
 Without a CUDA device, or outside a checkout, it exits non-zero and
 prints no result.
@@ -170,22 +187,52 @@ CARD_TESTS_TIMEOUT_S = 300
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# f32 operations per element (cell) and quadrature point that the functions
-# need, counted from the kernels' source at the fewest the arithmetic allows
-# (a multiply and an add are two, a division, reciprocal, comparison or
-# log1p one): geometry J from node-relative coordinates 117 (7 terms an
-# entry) + J^-1 and det 42 + basis gradients 120 + weight 1 = 280; grad u
-# 135; Neo-Hookean kinematics (F, gamma, log1p, adjugate, det, F^-T, alpha)
-# 78; stress P 27; tangent (tr(F^-1 dF) 17, F^-T dF^T 45, dF^-T 45, dP 46)
-# 153; contraction (the stress scaled by the weight once 9, 24 sums of 3
-# products 120, the sum over points 24) 153.  Plus, once an element, the
-# node-relative coordinates: EM_OPS_PER_ELEMENT.  The structured stencils:
-# stencil_ops.
-OPS_PER_QP = {
-    "em_vector_sweep": 280 + 135 + 78 + 27 + 153,
-    "em_vector_tangent_sweep": 280 + 2 * 135 + 78 + 153 + 153,
+# f32 operations of the element sweeps per element, counted at the fewest the arithmetic allows (a
+# multiply and an add are two, a division, reciprocal, comparison or log1p one): per point, geometry J
+# from node-relative coordinates 9 (2m - 3) + J^-1 and det 42 + weight 1; then the fewer of two forms
+# of the gradients and the contraction: with the basis gradients gp (15n), each field's gradient
+# (9 sums of n products, 9 (2n - 1)), the stress scaled by the weight 9 and the contraction 18n (3n
+# sums of 3 products and the sum over points); or with each field's reference gradient (9 (2n - 1))
+# turned physical by J^-1 (45), T = w|det| J^-1 P^T 54 and the contraction 18n; then the material
+# (EM_MATERIAL_OPS).  Once an element, the node-relative coordinates 3 (m - 1).  The fields: u for
+# the vector sweep, u and v for the tangent, v alone for the linear tangent.  The structured
+# stencils: stencil_ops.
+EM_MATERIAL_OPS = {
+    # Neo-Hookean kinematics (F, gamma, log1p, adjugate, det, F^-T, alpha) 78, then the stress P 27 or
+    # the tangent 153 (tr(F^-1 dF) 17, F^-T dF^T 45, dF^-T 45, dP 46)
+    ("NeoHookeanMaterial", False): 78 + 27,
+    ("NeoHookeanMaterial", True): 78 + 153,
+    # StVK: F 3, E = (F^T F - I) / 2 39, lam tr E 3, S 9; then P = F S 45, or F^T dF 45, lam tr 3,
+    # dS 15, dP = dF S + F dS 99
+    ("StVKMaterial", False): 54 + 45,
+    ("StVKMaterial", True): 54 + 162,
+    # linear: lam tr G 3, P = mu (G + G^T) + lam tr I 15, of G or of grad v
+    ("LinearElasticMaterial", False): 18,
+    ("LinearElasticMaterial", True): 18,
 }
-EM_OPS_PER_ELEMENT = 21
+
+
+def em_sweep_ops(m, n, q, material, tangent):
+    """f32 operations of one element's vector (``tangent=False``) or tangent sweep: ``m`` geometry and
+    ``n`` solution nodes, ``q`` points, ``material`` the material's class name (EM_MATERIAL_OPS)."""
+    fields = 1 if not tangent or material == "LinearElasticMaterial" else 2
+    grad, out = 9 * (2 * n - 1), 18 * n
+    gp_form = 15 * n + fields * grad + 9 + out
+    reference_form = fields * (grad + 45) + 54 + out
+    point = 9 * (2 * m - 3) + 42 + 1 + min(gp_form, reference_form) + EM_MATERIAL_OPS[material, tangent]
+    return 3 * (m - 1) + q * point
+
+
+def em_sweep_cost(plan, tab, op, tangent):
+    """``(bytes, f32 operations)`` of a fused banded sweep: the valid elements' X (3m floats) and node
+    indices, the per-block row counts, u (not for the linear tangent) and v once, every row written once;
+    the arithmetic of the valid elements only (a padding element's rows are zeros)."""
+    q, m, _ = tab.geo_dphi.shape
+    n, material = tab.dphi.shape[1], type(op.material).__name__
+    fields = int(tangent) + int(not tangent or material != "LinearElasticMaterial")
+    nbytes = (3 * m * plan.num_elements + plan.node_rows.numel() + plan.block_rows.numel()
+              + fields * plan.num_nodes * 3 + plan.padded_elements * plan.n * 3) * 4
+    return nbytes, em_sweep_ops(m, n, q, material, tangent) * plan.num_elements
 
 
 def stencil_ops(cells, hvp):
@@ -303,20 +350,19 @@ def timed(fn, times):
     return run
 
 
-# mangled-name fragment -> label of the kernels ptxas_report reads (the stiffness kernels by pattern)
+# mangled-name fragment -> label of the kernels ptxas_report reads (the stiffness kernels and the element
+# sweeps, 4 modes of each of ops/em_sweep's ELEMENTS and MATERIALS, by pattern)
 PTXAS_LABELS = {"nh_marchILb1E": "neo_hookean_hvp (nh_march<true>)",
                 "nh_marchILb0E": "neo_hookean_residual (nh_march<false>)",
                 "banded_gather_kernelILi3E": "banded_gather (s = 3)",
-                "banded_gather_kernelILi0E": "banded_gather (any s)",
-                "sweep_kernelILb1ELb1E": "banded_tangent_sweep (sweep_kernel<true, true>)",
-                "sweep_kernelILb1ELb0E": "banded_vector_sweep (sweep_kernel<true, false>)",
-                "sweep_kernelILb0ELb1E": "em_vector_tangent_sweep (sweep_kernel<false, true>, strided)",
-                "sweep_kernelILb0ELb0E": "em_vector_sweep (sweep_kernel<false, false>, strided)"}
+                "banded_gather_kernelILi0E": "banded_gather (any s)"}
 
 
 def ptxas_report(build_log):
     """Registers, shared memory and spill bytes of the stencil, gather, sweep and stiffness kernels,
     from the loaded library's ``-Xptxas -v`` log; returns ``{label: ptxas text}``."""
+    from fenris_tpu_torch.ops.em_sweep import ELEMENTS, MATERIALS
+
     if not build_log.is_file():
         log(f"ptxas: {build_log.name} not found (library built without a log); registers not reported")
         return {}
@@ -328,6 +374,11 @@ def ptxas_report(build_log):
             st = re.search(r"stiffness_pairs_kernelILi(\d)ELi(\d)ELi(\d)E", m.group(1))
             if st:
                 label = f"stiffness_pairs (d = {st.group(1)}, {st.group(2)} pairs, {st.group(3)} a thread)"
+            em = re.search(r"sweep_kernelILb(\d)ELb(\d)ELi(\d+)ELi(\d+)ELi(\d)E", m.group(1))
+            if em:
+                banded, tangent, mm, nn, mat = (int(x) for x in em.groups())
+                label = (f"em_sweep ({'banded' if banded else 'strided'} {'tangent' if tangent else 'vector'}, "
+                         f"{ELEMENTS[mm, nn]}, {list(MATERIALS)[mat]})")
         elif label and "spill stores" in line:
             found[label] = line.strip()
         elif label and "Used" in line and "registers" in line:
@@ -527,7 +578,7 @@ def assembled_model(res, dtype, device, chunk_size, **kwargs):
     mesh = kwargs.pop("mesh", None) or create_unit_box_uniform_hex_mesh_3d(res)
     return HyperelasticModel(
         mesh=mesh,
-        material=NeoHookeanMaterial(),
+        material=kwargs.pop("material", None) or NeoHookeanMaterial(),
         params=LameParameters(mu=MU, lam=LAM),
         dirichlet_nodes=np.flatnonzero(mesh.points[:, 2] < 1e-12),
         body_force=np.array(BODY_A),
@@ -898,43 +949,10 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
         return
     for name, err in errs.items():
         kernels[name]["max_abs_err"] = err
-    q, nv = tab.num_points, plan.node_rows.numel()  # nv: the valid rows
-    idx = plan.nodes_padded.long()
-    # index_add_'s padding rows go to 4096 spare rows past the N nodes (spread, so its atomics do not
-    # pile onto one address)
-    spare = torch.arange(pe * n, device=dev) % 4096 + N
-    idx_spare = torch.where(valid, idx, spare)
-    # bytes the functions need: the gather reads u, the valid rows' node indices and the per-block
-    # row counts and writes every row (padding rows are zeros); the scatter reads the valid rows
-    # and its CSR map and writes the nodes
-    runs = {
-        "banded_gather": (lambda: bd.banded_gather(plan, w), lambda: bd.banded_gather_plain(plan, w),
-                          lambda: torch.index_select(w, 0, idx),
-                          (pe * n * 3 + nv + plan.block_rows.numel() + N * 3) * 4, 0),
-        "banded_scatter": (lambda: bd.banded_scatter(plan, f_el), lambda: bd.banded_scatter_plain(plan, f_el),
-                           lambda: torch.zeros((N + 4096, 3), device=dev).index_add_(0, idx_spare,
-                                                                                     f_el.reshape(-1, 3)),
-                           (nv * 3 + plan.row_ptr.numel() + nv + N * 3) * 4, nv * 3),
-        # the fused sweep: the valid elements' X and node indices, u and v read once, every row written
-        # once; the arithmetic of the valid elements only (a padding element's rows are zeros)
-        "em_vector_tangent_sweep": (fused, lambda: es.banded_tangent_sweep_plain(plan, X, u, v, op, params, tab),
-                                    None, (3 * nv + nv + plan.block_rows.numel() + 2 * N * 3 + pe * n * 3) * 4,
-                                    (OPS_PER_QP["em_vector_tangent_sweep"] * q + EM_OPS_PER_ELEMENT)
-                                    * plan.num_elements),
-    }
-    for name, (run_k, run_p, run_lib, nbytes, ops) in runs.items():
-        k = kernels[name]
-        reps = 20 if name.startswith("banded") else 5
-        # the tangent sweep's plain version takes ~0.4 s a call at res 149: two repeats
-        k["ms"], k["plain_ms"], txt = in_turns(run_k, run_p, reps=reps, plain_reps=None if reps == 20 else 2)
-        k["library_ms"] = None
-        if run_lib is not None:
-            k["library_ms"] = min(event_ms(run_lib, reps), event_ms(run_lib, reps))
-            txt += f", library {k['library_ms']:.4f} ms"
-            if name == "banded_gather":
-                txt += f" (kernel faster than index_select: {k['ms'] < k['library_ms']})"
-        log(f"time {name} {shape_txt}: {txt}; {set_bound(k, nbytes, ops)} ({smi})")
-        free_memory()
+    runs = gather_scatter_runs(plan, w, f_el, dev, ("banded_gather", "banded_scatter"))
+    runs["em_vector_tangent_sweep"] = (fused, lambda: es.banded_tangent_sweep_plain(plan, X, u, v, op, params, tab),
+                                       None, *em_sweep_cost(plan, tab, op, True), 5)
+    time_records(kernels, runs, shape_txt, smi)
 
     # the fused sweep against the route it replaced, in turns: two gathers, then the element-minor
     # tangent sweep on the gathered element-major rows
@@ -951,16 +969,47 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
     vector_sweep_turns(model, u, shape_txt, smi)
 
 
-def vector_sweep_bytes(plan):
-    """Bytes the fused vector sweep needs: the valid elements' X (24 floats) and node indices, the per-block
-    row counts, u once, and every row written once."""
-    nv = plan.node_rows.numel()
-    return (3 * nv + nv + plan.block_rows.numel() + plan.num_nodes * 3 + plan.padded_elements * plan.n * 3) * 4
+def gather_scatter_runs(plan, w, f_el, dev, names):
+    """:func:`time_records` runs of the banded gather of node vectors ``w [N, s]`` and the banded scatter of
+    rows ``f_el [E_pad, n, s]`` under the record names ``names``, with ``index_select`` and ``index_add_``
+    as their library calls.  Bytes the functions need: the gather reads w, the valid rows' node indices and
+    the per-block row counts and writes every row (padding rows are zeros); the scatter reads the valid rows
+    and its CSR map and writes the nodes."""
+    import torch
+
+    import fenris_tpu_torch.ops.banded as bd
+
+    N, s, nv = w.shape[0], w.shape[1], plan.node_rows.numel()  # nv: the valid rows
+    idx = plan.nodes_padded.long()
+    valid = plan.valid_rows > 0
+    # index_add_'s padding rows go to 4096 spare rows past the N nodes (spread, so its atomics do not
+    # pile onto one address)
+    idx_spare = torch.where(valid, idx, torch.arange(idx.numel(), device=dev) % 4096 + N)
+    return {
+        names[0]: (lambda: bd.banded_gather(plan, w), lambda: bd.banded_gather_plain(plan, w),
+                   lambda: torch.index_select(w, 0, idx),
+                   (plan.padded_elements * plan.n * s + nv + plan.block_rows.numel() + N * s) * 4, 0, 20),
+        names[1]: (lambda: bd.banded_scatter(plan, f_el), lambda: bd.banded_scatter_plain(plan, f_el),
+                   lambda: torch.zeros((N + 4096, s), device=dev).index_add_(0, idx_spare, f_el.reshape(-1, s)),
+                   (nv * s + plan.row_ptr.numel() + nv + N * s) * 4, nv * s, 20),
+    }
 
 
-def vector_sweep_ops(plan, q):
-    """f32 operations of the fused vector sweep: the valid elements' (a padding element's rows are zeros)."""
-    return (OPS_PER_QP["em_vector_sweep"] * q + EM_OPS_PER_ELEMENT) * plan.num_elements
+def time_records(kernels, runs, shape_txt, smi):
+    """``runs``: ``{record name: (kernel, plain, library call or None, bytes, f32 operations, repeats)}``.
+    Times each kernel in turns with its plain version (two repeats of a plain version that runs at 5
+    repeats or fewer: it takes a large part of a second) and its library call, sets its bound, and writes
+    them into its record."""
+    for name, (run_k, run_p, run_lib, nbytes, ops, reps) in runs.items():
+        k = kernels[name]
+        k["ms"], k["plain_ms"], txt = in_turns(run_k, run_p, reps=reps, plain_reps=None if reps > 5 else 2)
+        k["library_ms"] = None
+        if run_lib is not None:
+            k["library_ms"] = min(event_ms(run_lib, reps), event_ms(run_lib, reps))
+            txt += f", library {k['library_ms']:.4f} ms (kernel faster: {k['ms'] < k['library_ms']})"
+        log(f"time {name} {shape_txt}: {txt}; {set_bound(k, nbytes, ops)}, {k['bound_ms'] / k['ms'] * 100:.1f}% of "
+            f"it ({smi})")
+        free_memory()
 
 
 def vector_sweep_turns(model, u, shape_txt, smi, record=None):
@@ -980,7 +1029,7 @@ def vector_sweep_turns(model, u, shape_txt, smi, record=None):
     plain = lambda: es.banded_vector_sweep_plain(plan, X, u, op, params, tab)  # noqa: E731
     fused_ms, old_ms, txt = in_turns(fused, old_route, reps=10, names=("fused", "old route"))
     bound = {} if record is None else record
-    bound_txt = set_bound(bound, vector_sweep_bytes(plan), vector_sweep_ops(plan, tab.num_points))
+    bound_txt = set_bound(bound, *em_sweep_cost(plan, tab, op, False))
     log(f"time banded_vector_sweep {shape_txt}: {txt} (fused faster: {fused_ms < old_ms}); {bound_txt}, "
         f"{bound['bound_ms'] / fused_ms * 100:.1f}% of it ({smi})")
     if record is not None:
@@ -1371,11 +1420,10 @@ def scalar_kernel_checks(kernels, bands, offsets, plan, dev, smi):
     k["library_ms"] = csr_library_ms(m, x2, ds.dia_sweep(bands, offsets, x2), smi)
     log(f"time dia_sweep {txt}: {ttxt}, library {k['library_ms']:.4f} ms; {bound_txt} ({smi})")
 
-    pe, n, nv = plan.padded_elements, plan.n, plan.node_rows.numel()
+    pe, n = plan.padded_elements, plan.n
     txt = f"P149 s=1 E_pad={pe} blocks={plan.k_blocks}"
     w = torch.randn((N, 1), generator=g, device=dev)
     f_el = torch.randn((pe, n, 1), generator=g, device=dev)
-    valid = plan.valid_rows > 0
     got, ref = bd.banded_gather(plan, w), bd.banded_gather_plain(plan, w)
     kg = kernels["banded_gather (s=1, P149)"]
     kg["max_abs_err"] = compare("banded_gather", txt, got, bd.banded_gather(plan, w), ref)
@@ -1386,25 +1434,8 @@ def scalar_kernel_checks(kernels, bands, offsets, plan, dev, smi):
     log(f"banded gather and scatter {txt}: bitwise equal to the plain versions: "
         f"{bool(torch.equal(got, ref))}")
     del got, ref
-    idx = plan.nodes_padded.long()
-    idx_spare = torch.where(valid, idx, torch.arange(pe * n, device=dev) % 4096 + N)
-    runs = {
-        "banded_gather (s=1, P149)": (lambda: bd.banded_gather(plan, w), lambda: bd.banded_gather_plain(plan, w),
-                                      lambda: torch.index_select(w, 0, idx),
-                                      (pe * n + nv + plan.block_rows.numel() + N) * 4, 0, "index_select"),
-        "banded_scatter (s=1, P149)": (lambda: bd.banded_scatter(plan, f_el),
-                                       lambda: bd.banded_scatter_plain(plan, f_el),
-                                       lambda: torch.zeros((N + 4096, 1), device=dev).index_add_(
-                                           0, idx_spare, f_el.reshape(-1, 1)),
-                                       (nv + plan.row_ptr.numel() + nv + N) * 4, nv, "index_add_"),
-    }
-    for name, (run_k, run_p, run_lib, nbytes, ops, lib_name) in runs.items():
-        k = kernels[name]
-        k["ms"], k["plain_ms"], ttxt = in_turns(run_k, run_p)
-        k["library_ms"] = min(event_ms(run_lib), event_ms(run_lib))
-        log(f"time {name.split()[0]} {txt}: {ttxt}, library ({lib_name}) {k['library_ms']:.4f} ms "
-            f"(kernel faster: {k['ms'] < k['library_ms']}); {set_bound(k, nbytes, ops)} ({smi})")
-    free_memory()
+    time_records(kernels, gather_scatter_runs(plan, w, f_el, dev, ("banded_gather (s=1, P149)",
+                                                                  "banded_scatter (s=1, P149)")), txt, smi)
 
 
 def poisson_p149(kernels, dev, smi):
@@ -1493,7 +1524,8 @@ def poisson_p40_tet10(kernels, b10, dev, smi):
     dofs at s = 1) after the RCM on the card, assembled (min_fill MMS_MIN_FILL) at CG tolerance F32_TOL_P with the
     band-sweep kernel in every CG iteration: RCM, set-up, solve and error times, D, fill and the
     remainder's share, CG iterations, launches, the true f64 relative residual (limit 10x the CG
-    tolerance), then the band sweep at this shape against its plain version and cuSPARSE."""
+    tolerance), then the band sweep at this shape against its plain version and cuSPARSE.  Returns the
+    mesh after the RCM and the RCM's seconds."""
     from unittest import mock
 
     import torch
@@ -1573,6 +1605,226 @@ def poisson_p40_tet10(kernels, b10, dev, smi):
     log(f"time dia_sweep {txt}: {ttxt}, library {k['library_ms']:.4f} ms; {bound_txt} ({smi})")
     del A, bands, captured, plan
     free_memory()
+    return mesh, rcm_s
+
+
+# -- the element sweeps on tet10 and hex20: M10/M20, S10/S20 -----------------------------------------
+
+
+def sweep_records(name, material):
+    """The kernel records of the fused tangent and vector sweeps on element ``name`` and ``material``."""
+    return f"em_vector_tangent_sweep ({name}, {material})", f"em_vector_sweep ({name}, {material})"
+
+
+def ragged_element_sweeps(dev):
+    """The strided sweeps of every element and material on a perturbed res-3 box (a ragged last tile),
+    u ~ 1e-2 of a cell, v ~ N(0, 1), against their plain versions with bitwise repeats."""
+    import torch
+
+    import fenris_tpu_torch.ops.em_sweep as es
+    from fenris_tpu_torch.assembly.local import tabulate
+    from fenris_tpu_torch.assembly.local_em import (
+        assemble_element_elliptic_tangent_vectors_em,
+        assemble_element_elliptic_vectors_em,
+    )
+    from fenris_tpu_torch.fem import FemSpace
+    from fenris_tpu_torch.quadrature import canonical_stiffness
+    from fenris_tpu_torch.solid import LameParameters, MaterialEllipticOperator
+
+    params = LameParameters(mu=MU, lam=LAM)
+    for name in es.ELEMENTS.values():
+        mesh = element_box(name, 3)
+        X = FemSpace.create(mesh, 3, torch.float32, dev).X_geo
+        g = torch.Generator(device=dev).manual_seed(51)
+        X = (X + (torch.rand(X.shape, generator=g, device=dev) - 0.5) * 0.02).permute(1, 2, 0)
+        tab = tabulate(mesh.element, canonical_stiffness(name))
+        E, n = X.shape[-1], tab.dphi.shape[1]
+        u = (torch.rand((n, 3, E), generator=g, device=dev) - 0.5) * (0.02 / 3)
+        v = torch.randn((n, 3, E), generator=g, device=dev)
+        for material, cls in es.MATERIALS.items():
+            op = MaterialEllipticOperator(cls(), dim=3)
+            txt = f"ragged {name} {material} E={E}"
+            compare("em_vector_sweep", txt, es.em_vector_sweep(X, u, op, params, tab),
+                    es.em_vector_sweep(X, u, op, params, tab), assemble_element_elliptic_vectors_em(X, u, op, params, tab))
+            compare("em_vector_tangent_sweep", txt, es.em_vector_tangent_sweep(X, u, v, op, params, tab),
+                    es.em_vector_tangent_sweep(X, u, v, op, params, tab),
+                    assemble_element_elliptic_tangent_vectors_em(X, u, v, op, params, tab))
+    free_memory()
+
+
+def element_sweep_checks(kernels, model, cell, dev, smi):
+    """M10/M20 on ``model``'s layout: the s = 3 gather and scatter at its n nodes a row, and for each
+    material the fused tangent and vector sweeps, against their plain versions (rel <= KERNEL_RTOL,
+    bitwise repeats, padding rows zero), timed in turns with them beside their bounds."""
+    import torch
+
+    import fenris_tpu_torch.ops.banded as bd
+    import fenris_tpu_torch.ops.em_sweep as es
+    from fenris_tpu_torch.solid import MaterialEllipticOperator
+
+    plan, X, tables, tab, params = model._plan, model._X_band, model._em_tables, model.tab, model.params
+    N, n, pe, name = plan.num_nodes, plan.n, plan.padded_elements, model.mesh.element.name
+    shape_txt = f"{cell} {name} E={plan.num_elements} E_pad={pe} blocks={plan.k_blocks}"
+    g = torch.Generator(device=dev).manual_seed(31)
+    w = torch.randn((N, 3), generator=g, device=dev)
+    f_el = torch.randn((pe, n, 3), generator=g, device=dev)
+    u = displacement(model, 32).reshape(N, 3)
+    v = torch.randn((N, 3), generator=g, device=dev)
+    padding = ~(plan.valid_rows > 0).reshape(pe, n)[:, 0]
+    names = (f"banded_gather (s=3, {name})", f"banded_scatter (s=3, {name})")
+    for rec, fn, plain, arg in zip(names, (bd.banded_gather, bd.banded_scatter),
+                                   (bd.banded_gather_plain, bd.banded_scatter_plain), (w, f_el)):
+        kernels[rec]["max_abs_err"] = compare(fn.__name__, shape_txt, fn(plan, arg), fn(plan, arg), plain(plan, arg))
+    runs = gather_scatter_runs(plan, w, f_el, dev, names)
+    for material, cls in es.MATERIALS.items():
+        op = MaterialEllipticOperator(cls(), dim=3)
+        for rec, fn, plain, args in zip(sweep_records(name, material),
+                                        (es.banded_tangent_sweep, es.banded_vector_sweep),
+                                        (es.banded_tangent_sweep_plain, es.banded_vector_sweep_plain),
+                                        ((plan, X, u, v), (plan, X, u))):
+            run = lambda fn=fn, args=args, op=op: fn(*args, op, params, tab, tables)  # noqa: E731
+            run_plain = lambda plain=plain, args=args, op=op: plain(*args, op, params, tab)  # noqa: E731
+            got = run()
+            kernels[rec]["max_abs_err"] = compare(fn.__name__, f"{shape_txt} {material}", got, run(), run_plain())
+            check(not bool(got[padding].any()), f"{fn.__name__} {shape_txt} {material}: a padding row is not zero")
+            del got
+            runs[rec] = (run, run_plain, None, *em_sweep_cost(plan, tab, op, fn is es.banded_tangent_sweep), 5)
+    free_memory()
+    time_records(kernels, runs, shape_txt, smi)
+
+
+def element_solve(kernels, model, material, cell, setup_s, dev, smi, mixed):
+    """S10/S20: the fused model's ``solve_mixed`` to 1e-10, checked by an independent f64 model (``mixed``),
+    or its f32 ``solve`` capped at 2 Newton steps (1 for StVK and linear; ``|F| / |F0| <= 1e-1``), under
+    reset counts: wall and set-up time, Newton steps, CG iterations a step, ms a CG iteration, peak memory
+    and the launches of the tangent and vector sweeps, gather and scatter; no plain tangent sweep may run,
+    and the tangent sweep must carry every CG iteration.  ``solve_mixed`` takes its residuals in f64 on
+    the plain sweeps, so there the vector sweep's launches are those of one f32 ``model.residual``, which
+    must launch it once and no gather."""
+    from unittest import mock
+
+    import torch
+
+    import fenris_tpu_torch.ops.em_sweep as es
+    from fenris_tpu_torch.optimize import NEWTON_CONVERGED
+
+    name = model.mesh.element.name
+    tangent_rec, vector_rec = sweep_records(name, material)
+    records = {"tangent": tangent_rec} if mixed else {"tangent": tangent_rec, "vector": vector_rec}
+    if material == "neo_hookean":  # the main path's run: the gather's and scatter's launches too
+        records.update(gather=f"banded_gather (s=3, {name})", scatter=f"banded_scatter (s=3, {name})")
+    inner_times, diag_times, history, cg_iters, plain_calls = [], [], [], [], []
+    # instance attributes shadow the methods for this solve only
+    model._matrix_free_cg = timed(model._matrix_free_cg, inner_times)
+    model.hessian_diagonal = timed(model.hessian_diagonal, diag_times)
+    plain_tangent = es.banded_tangent_sweep_plain
+
+    def counted_plain(*args, **kwargs):
+        plain_calls.append(1)
+        return plain_tangent(*args, **kwargs)
+
+    def record(k, fn, cg):
+        history.append(fn)
+        if cg is not None:
+            cg_iters.append(cg.num_iterations)
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(es, "banded_tangent_sweep_plain", counted_plain):
+        if mixed:
+            res = model.solve_mixed(tolerance=1e-10, cg_rel_tolerance=1e-4, max_newton_iterations=30, callback=record)
+        else:
+            res = model.solve(max_newton_iterations=2 if material == "neo_hookean" else 1, cg_rel_tolerance=1e-4,
+                              callback=record)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {role: kernels[rec]["fn"].launches for role, rec in records.items()}
+    for role, rec in records.items():
+        kernels[rec]["launches"] = launches[role]
+    del model._matrix_free_cg, model.hessian_diagonal
+    t_inner, t_diag, iters = sum(inner_times), sum(diag_times), max(sum(cg_iters), 1)
+    ratio = res.residual_norm / history[0]
+    log(f"{cell}: {'solve_mixed' if mixed else 'f32 solve'} {name} {material} dofs={model.space.num_dofs}: "
+        f"status={res.status} newton_iters={res.iterations} cg_iters={cg_iters} wall={wall:.3f} s (set-up "
+        f"{setup_s:.3f} s before it: RCM, model and banded plan) |F|/|F0|={ratio:.6e}; Jacobi diagonals "
+        f"{t_diag:.3f} s, CG {t_inner - t_diag:.3f} s ({(t_inner - t_diag) / iters * 1e3:.3f} ms per iteration), "
+        f"residuals and Newton {wall - t_inner:.3f} s; launches {launches}; plain tangent sweeps "
+        f"{len(plain_calls)}; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
+    check(bool(torch.isfinite(res.x).all()) and tuple(res.x.shape) == (model.space.num_dofs,),
+          f"{cell}: wrong or non-finite displacement")
+    check(not plain_calls, f"{cell}: the plain tangent sweep ran {len(plain_calls)} times")
+    check(launches["tangent"] >= sum(cg_iters) > 0,
+          f"{cell}: {launches['tangent']} tangent sweeps for {sum(cg_iters)} CG iterations")
+    check(all(c > 0 for c in launches.values()), f"{cell}: a kernel of the path was not launched: {launches}")
+    if not mixed:
+        check(ratio <= 1e-1, f"{cell}: |F|/|F0| = {ratio:.3e} > 1e-1")
+        return
+    check(res.status == NEWTON_CONVERGED, f"{cell}: status {res.status}")
+    x64 = res.x.detach().double()
+    del res
+    reset_counts(kernels)
+    model.residual(x64.float())
+    torch.cuda.synchronize()
+    vector, gathers = kernels[vector_rec]["fn"].launches, kernels[f"banded_gather (s=3, {name})"]["fn"].launches
+    kernels[vector_rec]["launches"] = vector
+    log(f"{cell} one f32 residual: banded_vector_sweep launches {vector}, banded_gather {gathers}")
+    check(vector == 1 and gathers == 0, f"{cell}: one residual launched {vector} vector sweeps and {gathers} gathers")
+    free_memory()
+    t0 = time.perf_counter()
+    fresh = assembled_model(None, torch.float64, dev, 8192, mesh=model.mesh)
+    true_r = float(torch.linalg.vector_norm(fresh.residual(x64)))
+    r0 = float(torch.linalg.vector_norm(fresh.residual(torch.zeros_like(x64))))
+    log(f"{cell} independent f64 residual: {true_r:.6e} (r0 {r0:.6e}, rel {true_r / r0:.6e}); "
+        f"{time.perf_counter() - t0:.3f} s")
+    check(true_r / r0 <= 1e-10, f"{cell}: independent relative residual {true_r / r0:.3e} > 1e-10")
+    del fresh, x64
+    free_memory()
+
+
+def element_sweep_phases(kernels, meshes, dev, smi):
+    """The strided sweeps on a ragged box of every element, then M10 and S10 (``solve_mixed``) on B10's
+    tet10 mesh after the RCM, M20, S20's ``solve_mixed`` and S20 (the f32 ``solve`` capped at 2 Newton steps)
+    on B20's hex20 mesh after the RCM: ``meshes`` is ``{"tet10": (mesh, RCM seconds), "hex20": (mesh before
+    the RCM, None)}``.  Then, for the StVK and linear records' launches, one f32 Newton step of each of
+    those materials on each mesh."""
+    import torch
+
+    import fenris_tpu_torch.ops.em_sweep as es
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+
+    t0 = time.perf_counter()
+    ragged_element_sweeps(dev)
+    log(f"ragged boxes, strided sweeps of 6 elements x 3 materials: {time.perf_counter() - t0:.3f} s")
+    for name, cell in (("tet10", "10"), ("hex20", "20")):
+        mesh, rcm_s = meshes[name]
+        if rcm_s is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh, _ = reorder_mesh(mesh, device=dev)
+            rcm_s = time.perf_counter() - t0
+        for material, cls in es.MATERIALS.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = assembled_model(None, torch.float32, dev, None, mesh=mesh, material=cls(), banded=True,
+                                    fused_kernels=True)
+            torch.cuda.synchronize()
+            model_s, plan = time.perf_counter() - t0, model._plan
+            log(f"{name} {material} model: {mesh.num_cells} cells, {model.space.num_dofs} dofs; RCM {rcm_s:.3f} s "
+                f"(card), model with banded plan {model_s:.3f} s (blocks={plan.k_blocks}, E_pad={plan.padded_elements}, "
+                f"window {plan.wa} x 128 nodes)")
+            main_path, setup_s = material == "neo_hookean", rcm_s + model_s
+            if main_path:  # S10 is the solve_mixed; S20 the capped f32 solve, after its solve_mixed
+                element_sweep_checks(kernels, model, f"M{cell}", dev, smi)
+                element_solve(kernels, model, material, f"S{cell}" if name == "tet10" else f"S{cell}-mixed", setup_s,
+                              dev, smi, mixed=True)
+            if not (main_path and name == "tet10"):
+                element_solve(kernels, model, material, f"S{cell}" if main_path else f"S{cell}-{material}", setup_s,
+                              dev, smi, mixed=False)
+            del model
+            free_memory()
 
 
 def vcycle_profile(mg, model, wall_s, dev, smi):
@@ -1816,7 +2068,8 @@ def stiffness_element_phases(kernels, dev, smi):
     """Entry B20/B10: the stiffness kernel on hex20 (points in chunks) and tet10 at full width, linear
     elasticity and Laplace: against its plain version (rel <= KERNEL_RTOL, bitwise repeats), timed in
     turns with it, bound and M elements/s; the public entry point with kernel="auto" under reset counts;
-    then the kernel and its plain version at bench.py's own sizes.  Returns B10's mesh (P40-tet10's)."""
+    then the kernel and its plain version at bench.py's own sizes.  Returns B20's and B10's meshes by element
+    name (P40-tet10 and the element-sweep phases reuse them)."""
     import torch
 
     import fenris_tpu_torch.ops.stiffness_pairs as sp
@@ -1893,7 +2146,7 @@ def stiffness_element_phases(kernels, dev, smi):
             f"elements/s; {bound_txt}, {rec['bound_ms'] / ms * 100:.1f}% of it ({smi})")
         del Xb
         free_memory()
-    return meshes["B10"]
+    return {"hex20": meshes["B20"], "tet10": meshes["B10"]}
 
 
 def main() -> int:
@@ -1926,10 +2179,12 @@ def main() -> int:
     load_library()
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources in parallel)")
     found = ptxas_report(build_log())
-    for prefix in ("stiffness_pairs", *PTXAS_LABELS.values()):
+    for prefix in ("stiffness_pairs", "em_sweep", *PTXAS_LABELS.values()):
         entries = {n: t for n, t in found.items() if n.startswith(prefix)}
         check(len(entries) > 0 and all("0 bytes spill stores, 0 bytes spill loads" in t for t in entries.values()),
               f"{prefix}: ptxas reports spills or no entry: {entries}")
+    em_entries, em_all = sum(n.startswith("em_sweep") for n in found), len(es.ELEMENTS) * len(es.MATERIALS) * 4
+    check(em_entries == em_all, f"em_sweep: ptxas reports {em_entries} of {em_all} instantiations")
     t0 = time.perf_counter()
     card_tests()
     log(f"phase card tests: {time.perf_counter() - t0:.3f} s")
@@ -1993,6 +2248,20 @@ def main() -> int:
             replaces="fenris_tpu/sparse/dia_kernel.py:380 and fenris_tpu/sparse/dia_kernel.py:186",
         ),
     }
+    # M10/M20 and S10/S20: the gather and scatter at n = 10 and 20 (s = 3), the fused sweeps of each material
+    for name in ("tet10", "hex20"):
+        kernels[f"banded_gather (s=3, {name})"] = dict(
+            fn=bd.banded_gather, path=name, source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:285",
+        )
+        kernels[f"banded_scatter (s=3, {name})"] = dict(
+            fn=bd.banded_scatter, path=name, source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:346",
+        )
+        for material in es.MATERIALS:
+            tangent, vector = sweep_records(name, material)
+            kernels[tangent] = dict(fn=es.banded_tangent_sweep, path=name, source=SOURCES["em_sweep"],
+                                    replaces="fenris_tpu/ops/em_sweep.py:251")
+            kernels[vector] = dict(fn=es.banded_vector_sweep, path=name, source=SOURCES["em_sweep"],
+                                   replaces="fenris_tpu/ops/em_sweep.py:233")
     phases = [
         ("structured path", lambda: structured_phases(kernels, dev, smi)),
         ("entry B", lambda: stiffness_phases(kernels, dev, smi)),
@@ -2002,7 +2271,7 @@ def main() -> int:
         run()
         log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    b10 = stiffness_element_phases(kernels, dev, smi)  # tet10's mesh, kept for P40-tet10
+    element_meshes = stiffness_element_phases(kernels, dev, smi)  # kept for P40-tet10 and M10/M20, S10/S20
     log(f"phase entry B20/B10: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     model, plan_s = path_a_setup(dev, smi)
@@ -2047,9 +2316,12 @@ def main() -> int:
     poisson_p149(kernels, dev, smi)
     log(f"phase P149: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    poisson_p40_tet10(kernels, b10, dev, smi)
+    element_meshes["tet10"] = poisson_p40_tet10(kernels, element_meshes["tet10"], dev, smi)
     log(f"phase P40-tet10: {time.perf_counter() - t0:.3f} s")
-    del b10
+    t0 = time.perf_counter()
+    element_sweep_phases(kernels, {**element_meshes, "hex20": (element_meshes["hex20"], None)}, dev, smi)
+    log(f"phase M10/M20, S10/S20: {time.perf_counter() - t0:.3f} s")
+    del element_meshes
     t0 = time.perf_counter()
     path_c2_mg(kernels, c2_cg_iters, dev, smi)
     log(f"phase C2-MG: {time.perf_counter() - t0:.3f} s")

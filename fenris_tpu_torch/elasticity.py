@@ -99,9 +99,13 @@ class HyperelasticModel:
         banded_r_nodes: owned node range per banded block (a multiple of 1024).
         fused_kernels: run the element math of the internal forces and the
             Hessian action in the fused element-sweep kernels
-            (:mod:`.ops.em_sweep`); needs ``banded=True``.  A CUDA model whose
-            material, parameters or dtype the kernels do not take raises; on
-            the CPU the kernels' plain versions run.
+            (:mod:`.ops.em_sweep`); needs ``banded=True``.  The kernels take
+            f32 Neo-Hookean, StVK and linear-elastic models with scalar Lamé
+            parameters on tet4, tet10, tet20, hex8, hex20 and hex27; a CUDA
+            model they do not take (f64, another material, a 2D mesh) raises
+            ``NotImplementedError`` (per-element parameters are refused
+            before, by every model); on the CPU the kernels' plain versions
+            run.
     """
 
     mesh: Mesh
@@ -126,12 +130,10 @@ class HyperelasticModel:
         self.operator = MaterialEllipticOperator(self.material, dim=d)
         rule = self.rule if self.rule is not None else canonical_stiffness(self.mesh.element.name)
         self.tab = tabulate(self.mesh.element, rule)
-        if (self.fused_kernels and self.device.type == "cuda"
-                and not em_sweep.supports(self.operator, self.params, self.tab, self.dtype)):
-            raise NotImplementedError(
-                "fused_kernels=True on the card needs an f32 hex8 Neo-Hookean model with scalar Lamé "
-                "parameters (what the element-sweep kernels take)"
-            )
+        if self.fused_kernels and self.device.type == "cuda":
+            missing = em_sweep.refusal(self.operator, self.params, self.tab, self.dtype)
+            if missing is not None:
+                raise NotImplementedError(f"fused_kernels=True on the card: the element-sweep kernels need {missing}")
         if self.chunk_size is None:
             # keep the (element, qp, d^4)-sized intermediates ~1 GB class
             budget = 2**28

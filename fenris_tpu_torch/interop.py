@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_DTYPE
-from .solid import LameParameters, NeoHookeanMaterial
+from .solid import LameParameters, LinearElasticMaterial, NeoHookeanMaterial, StVKMaterial
 from .structured import StructuredHyperelasticModel
 
 __all__ = [
@@ -22,6 +22,9 @@ __all__ = [
     "flat_to_grid",
     "grid_to_flat",
 ]
+
+# hyperelastic_model_from_arrays' material names
+_MATERIALS = {"neo_hookean": NeoHookeanMaterial, "stvk": StVKMaterial, "linear_elastic": LinearElasticMaterial}
 
 
 def mesh_from_arrays(points, cells, element_name: str):
@@ -73,16 +76,19 @@ def hyperelastic_model_from_arrays(
     body_force=None,
     *,
     element: str = "hex8",
+    material: str = "neo_hookean",
     dtype: torch.dtype = DEFAULT_DTYPE,
     device="cuda",
     **kwargs,
 ):
-    """A Neo-Hookean unstructured port model with the given JAX model's fields.
+    """An unstructured port model with the given JAX model's fields.
 
     ``points``/``cells`` as on the JAX model's mesh
     (``np.asarray(jax_model.mesh.points)``, ``.cells``), ``element`` its
-    element's name (``jax_model.mesh.element.name``), ``mu``/``lam`` its
-    Lamé parameters, ``dirichlet_nodes`` its constrained nodes and
+    element's name (``jax_model.mesh.element.name``), ``material`` its
+    material (``"neo_hookean"``, ``"stvk"`` or ``"linear_elastic"``),
+    ``mu``/``lam`` its Lamé parameters, ``dirichlet_nodes`` its constrained
+    nodes and
     ``body_force`` a constant ``[3]`` array (a JAX callable is not carried
     over).  Further keyword arguments (``chunk_size``, ``rule``, ``banded``,
     ``banded_r_nodes``, ``fused_kernels``) go to
@@ -92,7 +98,7 @@ def hyperelastic_model_from_arrays(
 
     return HyperelasticModel(
         mesh=mesh_from_arrays(points, cells, element),
-        material=NeoHookeanMaterial(),
+        material=_MATERIALS[material](),
         params=LameParameters(mu=float(mu), lam=float(lam)),
         dirichlet_nodes=None if dirichlet_nodes is None else np.asarray(dirichlet_nodes),
         body_force=None if body_force is None else np.asarray(body_force, dtype=np.float64),

@@ -222,8 +222,10 @@ class GeometricMGPreconditioner:
     mesh with no permutation in the hot path.  ``banded=True`` RCM-reorders
     the intermediate levels too (on the model's device) and gives every
     level the banded gather/scatter (the gather and scatter kernels for f32
-    levels on the card; the element math is the plain sweep: the fused
-    kernels take Neo-Hookean only).  Smoothing is unrolled damped Jacobi.
+    levels on the card; the element math is the plain sweep, as in the JAX
+    package, though the fused kernels would take the levels' linear-elastic
+    operators: running them there is a later performance change).
+    Smoothing is unrolled damped Jacobi.
     """
 
     model: Any  # HyperelasticModel on the fine mesh

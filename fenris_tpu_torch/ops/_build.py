@@ -3,7 +3,9 @@
 The kernels live in ``fenris_tpu_torch/csrc/*.cu`` and have a plain C
 interface, so they build with ``nvcc`` alone in seconds (no PyTorch
 headers).  The first call of :func:`load_library` compiles every source
-into an object file, all ``nvcc`` processes started together, links them
+into an object file (``em_sweep.cu`` once per element, ``-DFENRIS_EM_ELEMENT``
+0-5: its 72 instantiations would make it the one long compile), all ``nvcc``
+processes started together, links them
 into one shared library under ``fenris_tpu_torch/_build/`` named by a hash
 of the sources and flags, with the ``nvcc`` log beside it under the same
 name (:func:`build_log`), and loads it; later calls reuse the library.
@@ -29,6 +31,16 @@ _SOURCES = tuple(
     _PKG / "csrc" / name
     for name in ("structured_stencil.cu", "dia_sweep.cu", "stiffness_pairs.cu", "banded.cu", "em_sweep.cu")
 )
+# (source, object stem, extra nvcc flags): one object a source, em_sweep.cu one per element
+_UNITS = tuple(
+    unit
+    for src in _SOURCES
+    for unit in (
+        [(src, f"{src.stem}_{k}", (f"-DFENRIS_EM_ELEMENT={k}",)) for k in range(6)]
+        if src.name == "em_sweep.cu"
+        else [(src, src.stem, ())]
+    )
+)
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 _COMPILE = (*_ARCH, "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LINK = (*_ARCH, "-shared")
@@ -51,10 +63,11 @@ _SIGNATURES = {
     "fenris_banded_gather": ((_P, _P, _P, _P, _L, _I, _I, _P), _I),
     # f, row_ptr, node_rows, out, num_nodes, s, stream
     "fenris_banded_scatter": ((_P, _P, _P, _P, _L, _I, _P), _I),
-    # X, u, v (NULL: vector sweep), out, strides[12], E, tables, q, mu, lam, stream
-    "fenris_em_sweep": ((_P, _P, _P, _P, _LP, _L, _P, _I, _F, _F, _P), _I),
-    # X, u, v (NULL: vector sweep), nodes, block_rows, out, E, elements_per_block, tables, q, mu, lam, stream
-    "fenris_banded_sweep": ((_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _F, _F, _P), _I),
+    # X, u, v (NULL: vector sweep), out, strides[12], E, tables, q, m, n, material, mu, lam, stream
+    "fenris_em_sweep": ((_P, _P, _P, _P, _LP, _L, _P, _I, _I, _I, _I, _F, _F, _P), _I),
+    # X, u, v (NULL: vector sweep), nodes, block_rows, out, E, elements_per_block, tables, q, m, n, material,
+    # mu, lam, stream
+    "fenris_banded_sweep": ((_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _F, _F, _P), _I),
     "fenris_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -72,8 +85,8 @@ def _nvcc() -> str:
 
 def _key() -> str:
     h = hashlib.sha256()
-    for src in _SOURCES:
-        h.update(src.name.encode())
+    for src, stem, flags in _UNITS:
+        h.update(" ".join((src.name, stem, *flags)).encode())
         h.update(src.read_bytes())
     h.update(" ".join(_COMPILE + _LINK).encode())
     return h.hexdigest()[:16]
@@ -107,9 +120,10 @@ def load_library() -> ctypes.CDLL:
         # into place: a concurrent build never loads a half-written one
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             nvcc = _nvcc()
-            objs = [Path(tmp) / (src.stem + ".o") for src in _SOURCES]
+            objs = [Path(tmp) / (stem + ".o") for _, stem, _ in _UNITS]
             log = Path(tmp) / "build.log"
-            _run_all([[nvcc, *_COMPILE, "-o", str(o), str(s)] for s, o in zip(_SOURCES, objs)], log)
+            _run_all([[nvcc, *_COMPILE, *flags, "-o", str(o), str(src)] for (src, _, flags), o in zip(_UNITS, objs)],
+                     log)
             so = Path(tmp) / "lib.so"
             _run_all([[nvcc, *_LINK, "-o", str(so), *map(str, objs)]], log)
             os.replace(log, build_log())

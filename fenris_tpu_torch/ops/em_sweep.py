@@ -11,12 +11,16 @@ of :mod:`..assembly.local_em` (``X_em [m, d, E]``, ``u_em``/``v_em``
   closed-form tangent stress (replaces ``em_vector_tangent_sweep``).
 
 The fused model runs each fused with the banded gather, node vectors
-``u`` (``v``) ``[N, 3]`` in and element-major rows ``[E_pad, 8, 3]`` out:
+``u`` (``v``) ``[N, 3]`` in and element-major rows ``[E_pad, n, 3]`` out:
 :func:`banded_vector_sweep` (its residual) and :func:`banded_tangent_sweep`
 (its matrix-free CG operator).
 
-On a CUDA tensor each wrapper launches the hand-written kernel
-(``csrc/em_sweep.cu``) when :func:`supports` holds and raises otherwise;
+The kernels take f32, d = s = 3, the Neo-Hookean, StVK and linear-elastic
+materials with scalar Lamé parameters, and the elements tet4, tet10, tet20,
+hex8, hex20 and hex27 with any quadrature rule whose tables fit a block's
+shared memory.  On a CUDA tensor each wrapper launches the hand-written
+kernel (``csrc/em_sweep.cu``) when :func:`supports` holds and raises
+``NotImplementedError`` naming what is missing otherwise;
 on a CPU tensor it runs the plain version
 (:func:`~..assembly.local_em.assemble_element_elliptic_vectors_em`,
 :func:`~..assembly.local_em.assemble_element_elliptic_tangent_vectors_em`,
@@ -40,11 +44,13 @@ from ..assembly.local_em import (
     assemble_element_elliptic_tangent_vectors_em,
     assemble_element_elliptic_vectors_em,
 )
-from ..solid import MaterialEllipticOperator, NeoHookeanMaterial
+from ..solid import LinearElasticMaterial, MaterialEllipticOperator, NeoHookeanMaterial, StVKMaterial
 from ._build import check, load_library
 from .banded import BandedPlan, banded_gather_plain, check_index_range
 
 __all__ = [
+    "ELEMENTS",
+    "MATERIALS",
     "banded_tangent_sweep",
     "banded_tangent_sweep_plain",
     "banded_vector_sweep",
@@ -52,8 +58,14 @@ __all__ = [
     "device_tables",
     "em_vector_sweep",
     "em_vector_tangent_sweep",
+    "refusal",
     "supports",
 ]
+
+#: the kernels' materials, in the order of their codes in csrc/em_sweep.cu
+MATERIALS = {"neo_hookean": NeoHookeanMaterial, "stvk": StVKMaterial, "linear": LinearElasticMaterial}
+#: the kernels' elements by (geometry nodes, solution nodes)
+ELEMENTS = {(4, 4): "tet4", (4, 10): "tet10", (4, 20): "tet20", (8, 8): "hex8", (8, 20): "hex20", (8, 27): "hex27"}
 
 
 def _lame_scalars(params):
@@ -74,24 +86,32 @@ def _lame_scalars(params):
     return tuple(vals)
 
 
+def refusal(op, params, tab: Tabulation, dtype):
+    """What the kernels do not take in these inputs, as a phrase, or None when they take them all."""
+    if dtype != torch.float32:
+        return f"f32 (got {dtype})"
+    if not isinstance(op, MaterialEllipticOperator) or type(op.material) not in MATERIALS.values():
+        return "a Neo-Hookean, StVK or linear-elastic material operator"
+    if op.dim != 3 or op.solution_dim != 3:
+        return f"d = s = 3 (got d = {op.dim}, s = {op.solution_dim})"
+    m, n = tab.geo_dphi.shape[1], tab.dphi.shape[1]
+    if tab.geo_dphi.shape[2] != 3 or (m, n) not in ELEMENTS:
+        return f"a tet4, tet10, tet20, hex8, hex20 or hex27 element (got {m} geometry and {n} solution nodes)"
+    if _lame_scalars(params) is None:
+        return "scalar Lamé parameters"
+    return None
+
+
 def supports(op, params, tab: Tabulation, dtype) -> bool:
-    """Whether the kernels take these inputs: f32, a Neo-Hookean material
-    operator with scalar Lamé parameters, d = s = 3, and hex8 (8 geometry
-    and 8 solution nodes)."""
-    return (
-        dtype == torch.float32
-        and isinstance(op, MaterialEllipticOperator)
-        and type(op.material) is NeoHookeanMaterial
-        and op.dim == 3
-        and op.solution_dim == 3
-        and tab.geo_dphi.shape[1:] == (8, 3)
-        and tab.dphi.shape[1:] == (8, 3)
-        and _lame_scalars(params) is not None
-    )
+    """Whether the kernels take these inputs: f32, a Neo-Hookean, StVK or
+    linear-elastic material operator with scalar Lamé parameters, d = s = 3,
+    and one of the six 3D elements (:func:`refusal` names what is missing)."""
+    return refusal(op, params, tab, dtype) is None
 
 
 def device_tables(tab: Tabulation, device) -> torch.Tensor:
-    """``geo_dphi``, ``dphi`` and the weights as one f32 array on ``device``: the kernels' tables.
+    """``geo_dphi [q, m, 3]``, ``dphi [q, n, 3]`` and the weights ``[q]`` as one flat f32 array on
+    ``device``: the kernels' tables.
 
     A model uploads them once and passes them to the wrappers.
     """
@@ -109,29 +129,30 @@ def _check(t: torch.Tensor, name: str, shape, device) -> None:
 
 
 def _kernel_args(X, op, params, tab: Tabulation, tables):
-    """``(mu, lam, tables)`` for a launch on geometry ``X``'s device; raises on what the kernels do not take."""
+    """``(tables, q, m, n, material code, mu, lam)`` for a launch on geometry ``X``'s device; raises on
+    what the kernels do not take."""
     dev = X.device
     if dev.type != "cuda":
         raise ValueError(f"the element-sweep kernels run on CUDA or CPU tensors, not on {dev}")
-    if not supports(op, params, tab, X.dtype):
-        raise NotImplementedError(
-            "the element-sweep kernels take f32 hex8 Neo-Hookean operators with scalar Lamé parameters"
-        )
+    missing = refusal(op, params, tab, X.dtype)
+    if missing is not None:
+        raise NotImplementedError(f"the element-sweep kernels need {missing}")
+    q, m, n = tab.num_points, tab.geo_dphi.shape[1], tab.dphi.shape[1]
     if tables is None:
         tables = device_tables(tab, dev)
-    elif (tables.device, tables.dtype, tables.numel()) != (dev, torch.float32, tab.num_points * (2 * 8 * 3 + 1)):
+    elif (tables.device, tables.dtype, tables.numel()) != (dev, torch.float32, q * (3 * m + 3 * n + 1)):
         raise ValueError("tables: expected device_tables(tab, X_em.device)")
-    return (*_lame_scalars(params), tables)
+    return (tables, q, m, n, list(MATERIALS.values()).index(type(op.material)), *_lame_scalars(params))
 
 
 def _launch(X_em, u_em, v_em, op, params, tab: Tabulation, tables):
     dev = X_em.device
-    mu, lam, tables = _kernel_args(X_em, op, params, tab, tables)
+    tables, q, m, n, material, mu, lam = _kernel_args(X_em, op, params, tab, tables)
     E = X_em.shape[-1]
-    _check(X_em, "X_em", (8, 3, E), dev)
-    _check(u_em, "u_em", (8, 3, E), dev)
+    _check(X_em, "X_em", (m, 3, E), dev)
+    _check(u_em, "u_em", (n, 3, E), dev)
     if v_em is not None:
-        _check(v_em, "v_em", (8, 3, E), dev)
+        _check(v_em, "v_em", (n, 3, E), dev)
     out = torch.empty_like(u_em)  # dense inputs keep their strides
     strides = (ctypes.c_longlong * 12)(
         *X_em.stride(), *u_em.stride(), *(v_em if v_em is not None else u_em).stride(), *out.stride()
@@ -141,7 +162,7 @@ def _launch(X_em, u_em, v_em, op, params, tab: Tabulation, tables):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fenris_em_sweep(
             X_em.data_ptr(), u_em.data_ptr(), None if v_em is None else v_em.data_ptr(), out.data_ptr(),
-            strides, E, tables.data_ptr(), tab.num_points, mu, lam, stream,
+            strides, E, tables.data_ptr(), q, m, n, material, mu, lam, stream,
         )
     check(lib, code, "em_sweep")
     return out
@@ -172,14 +193,14 @@ def em_vector_tangent_sweep(X_em, u_em, v_em, op, params, tab: Tabulation, table
 
 def banded_vector_sweep_plain(plan: BandedPlan, X_band, u, op, params, tab: Tabulation):
     """Plain PyTorch version of :func:`banded_vector_sweep`: the plain gather, the plain vector
-    sweep, element-major rows ``[E_pad, 8, 3]``."""
+    sweep, element-major rows ``[E_pad, n, 3]``."""
     f = assemble_element_elliptic_vectors_em(X_band, banded_gather_plain(plan, u).permute(1, 2, 0), op, params, tab)
     return f.permute(2, 0, 1).contiguous()
 
 
 def banded_tangent_sweep_plain(plan: BandedPlan, X_band, u, v, op, params, tab: Tabulation):
     """Plain PyTorch version of :func:`banded_tangent_sweep`: two plain gathers, the plain
-    tangent sweep, element-major rows ``[E_pad, 8, 3]``."""
+    tangent sweep, element-major rows ``[E_pad, n, 3]``."""
     u_em, v_em = (banded_gather_plain(plan, a).permute(1, 2, 0) for a in (u, v))
     f = assemble_element_elliptic_tangent_vectors_em(X_band, u_em, v_em, op, params, tab)
     return f.permute(2, 0, 1).contiguous()
@@ -189,24 +210,24 @@ def _banded_launch(name, plan: BandedPlan, X_band, fields, op, params, tab: Tabu
     """One launch of ``fenris_banded_sweep`` on node vectors ``fields`` (u, and v for the tangent)."""
     check_index_range(plan, 3)
     dev = X_band.device
-    mu, lam, tables = _kernel_args(X_band, op, params, tab, tables)
+    tables, q, m, n, material, mu, lam = _kernel_args(X_band, op, params, tab, tables)
     E = plan.padded_elements
-    _check(X_band, "X_band", (8, 3, E), dev)
+    _check(X_band, "X_band", (m, 3, E), dev)
     for f, arg in zip(fields, ("u", "v")):
         _check(f, arg, (plan.num_nodes, 3), dev)
     if not all(t.is_contiguous() for t in (X_band, *fields)):
         raise ValueError(f"{name}: X_band and the node vectors must be contiguous")
-    if plan.nodes_padded.device != dev or plan.n != 8:
-        raise ValueError(f"{name}: expected a hex8 banded plan on {dev}")
+    if plan.nodes_padded.device != dev or plan.n != n:
+        raise ValueError(f"{name}: expected a banded plan of {n}-node elements on {dev}")
     u, v = fields[0], fields[1] if len(fields) > 1 else None
-    out = torch.empty((E, 8, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((E, n, 3), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fenris_banded_sweep(
             X_band.data_ptr(), u.data_ptr(), None if v is None else v.data_ptr(), plan.nodes_padded.data_ptr(),
             plan.block_rows.data_ptr(), out.data_ptr(), E, plan.elements_per_block,
-            tables.data_ptr(), tab.num_points, mu, lam, stream,
+            tables.data_ptr(), q, m, n, material, mu, lam, stream,
         )
     check(lib, code, name)
     return out
@@ -215,9 +236,9 @@ def _banded_launch(name, plan: BandedPlan, X_band, fields, op, params, tab: Tabu
 def banded_vector_sweep(plan: BandedPlan, X_band, u, op, params, tab: Tabulation, tables=None):
     """Element internal forces of node vector ``u [N, 3]`` on the banded layout.
 
-    Returns element-major rows ``[E_pad, 8, 3]`` (the layout
+    Returns element-major rows ``[E_pad, n, 3]`` (the layout
     :func:`..ops.banded.banded_scatter` reads): ``banded_gather`` of ``u``,
-    then :func:`em_vector_sweep` on the padded geometry ``X_band [8, 3,
+    then :func:`em_vector_sweep` on the padded geometry ``X_band [m, 3,
     E_pad]``, in one kernel that reads ``u`` through the plan's row → node
     table; padding elements get zero rows, as the gather gives them zero
     displacements.  ``tables`` as in :func:`em_vector_sweep`.
@@ -232,7 +253,7 @@ def banded_vector_sweep(plan: BandedPlan, X_band, u, op, params, tab: Tabulation
 def banded_tangent_sweep(plan: BandedPlan, X_band, u, v, op, params, tab: Tabulation, tables=None):
     """Element Hessian actions of node vectors ``u``, ``v [N, 3]`` on the banded layout.
 
-    Returns element-major rows ``[E_pad, 8, 3]``: ``banded_gather`` of ``u``
+    Returns element-major rows ``[E_pad, n, 3]``: ``banded_gather`` of ``u``
     and ``v``, then :func:`em_vector_tangent_sweep` on the padded geometry,
     in one kernel, as :func:`banded_vector_sweep` (padding elements get zero
     rows).  ``tables`` as in :func:`em_vector_sweep`.

@@ -391,6 +391,56 @@ def test_em_kernels_match_plain_on_card(cuda_device):
         assert rel_err(ref, got) < KERNEL_RTOL
 
 
+# every element and material of the sweeps: a box with two owner blocks of 1,024 nodes (RCM-reordered), and
+# 77 elements of a res-3 box (a ragged last tile for every element's tile of 4 or 8 elements)
+TWO_BLOCK_RES = {"tet4": 8, "tet10": 4, "tet20": 3, "hex8": 11, "hex20": 6, "hex27": 5}
+SWEEP_MATERIALS = {"neo_hookean": NeoHookeanMaterial, "stvk": StVKMaterial, "linear": LinearElasticMaterial}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("material", list(SWEEP_MATERIALS))
+@pytest.mark.parametrize("name", list(TWO_BLOCK_RES))
+def test_em_sweeps_on_3d_elements_on_card(name, material, cuda_device):
+    """The four element-sweep wrappers of one element and material against their plain versions with
+    bitwise repeats: the fused banded sweeps (padding rows zero) and the strided sweeps on the gathered
+    element-major rows, on the two-block box and on 77 elements, perturbed, u ~ 1e-2 of a cell, v ~ N(0, 1)."""
+    op, params = MaterialEllipticOperator(SWEEP_MATERIALS[material](), dim=3), LameParameters(MU, LAM)
+    tab = tabulate(element(name), canonical_stiffness(name))
+    m = tab.geo_dphi.shape[1]
+    for res, count in ((TWO_BLOCK_RES[name], None), (3, 77)):
+        mesh, _ = reorder_mesh(element_mesh(name, res))
+        N = mesh.num_vertices
+        cells = mesh.cells if count is None else np.concatenate([mesh.cells] * 4)[:count]
+        g = rng(res)
+        pts = mesh.points + g.uniform(-0.05, 0.05, mesh.points.shape) / res
+        tp = tb.make_banded_plan(cells, N, s=3, r_nodes=1024, rowt=256, device=cuda_device)
+        assert tp.padded_elements > tp.num_elements and (count is not None or tp.k_blocks == 2)
+        X = torch.as_tensor(tp.pad_elements(pts[cells[:, :m]]), dtype=torch.float32,
+                            device=cuda_device).permute(1, 2, 0).contiguous()
+        u, v = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+                for a in (g.uniform(-0.01, 0.01, (N, 3)) / res, g.standard_normal((N, 3))))
+        ue, ve = (tb.banded_gather(tp, a).permute(1, 2, 0) for a in (u, v))
+        padding = torch.as_tensor(tp.valid_elements(), device=cuda_device) == 0
+        launches = [f.launches for f in (tes.banded_vector_sweep, tes.banded_tangent_sweep, tes.em_vector_sweep,
+                                         tes.em_vector_tangent_sweep)]
+        cases = (
+            (tes.banded_vector_sweep, tes.banded_vector_sweep_plain, (tp, X, u)),
+            (tes.banded_tangent_sweep, tes.banded_tangent_sweep_plain, (tp, X, u, v)),
+            (tes.em_vector_sweep, TLE.assemble_element_elliptic_vectors_em, (X, ue)),
+            (tes.em_vector_tangent_sweep, TLE.assemble_element_elliptic_tangent_vectors_em, (X, ue, ve)),
+        )
+        for kernel, plain, args in cases:
+            got, again = kernel(*args, op, params, tab), kernel(*args, op, params, tab)
+            ref = plain(*args, op, params, tab)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), kernel.__name__  # fixed summation order, no atomics
+            assert rel_err(ref, got) < KERNEL_RTOL, kernel.__name__
+            if kernel.__name__.startswith("banded"):
+                assert got.shape == (tp.padded_elements, tab.dphi.shape[1], 3) and not bool(got[padding].any())
+        assert [f.launches for f in (tes.banded_vector_sweep, tes.banded_tangent_sweep, tes.em_vector_sweep,
+                                     tes.em_vector_tangent_sweep)] == [k + 2 for k in launches]
+
+
 # -- models ---------------------------------------------------------------------------------
 
 
@@ -404,12 +454,20 @@ def _box_model(res, dtype, device, **kw):
 
 @pytest.mark.cuda
 def test_fused_model_refuses_what_the_kernels_do_not_take(cuda_device):
-    """A CUDA fused model the element-sweep kernels cannot run raises; it does not fall back."""
+    """A CUDA fused model the element-sweep kernels cannot run (f64, per-element parameters) raises; it
+    does not fall back.  Every material and element the kernels take builds."""
     kw = dict(banded=True, fused_kernels=True)
     with pytest.raises(NotImplementedError, match="fused_kernels"):
-        _box_model(2, torch.float32, cuda_device, material=StVKMaterial(), **kw)
-    with pytest.raises(NotImplementedError, match="fused_kernels"):
         _box_model(2, torch.float64, cuda_device, **kw)
+    mesh = box(2)
+    with pytest.raises(NotImplementedError, match="per-element"):
+        HyperelasticModel(mesh=mesh, material=NeoHookeanMaterial(),
+                          params=LameParameters(np.full(mesh.num_cells, MU), LAM), dtype=torch.float32,
+                          device=cuda_device, **kw)
+    _box_model(2, torch.float32, cuda_device, material=StVKMaterial(), **kw)
+    tet = element_mesh("tet10", 2)
+    HyperelasticModel(mesh=tet, material=LinearElasticMaterial(), params=LameParameters(MU, LAM),
+                      dtype=torch.float32, device=cuda_device, **kw)
 
 
 @pytest.mark.cuda

@@ -145,15 +145,26 @@ def test_wrappers_take_plain_versions_on_cpu_and_refuse_other_devices():
 
 
 def test_supports_is_what_the_kernels_take():
+    from fenris_tpu_torch.reference_elements import element
+    from fenris_tpu_torch.solid import HyperelasticMaterial
+
     _, ttab = _tabs(jax_box(1))
     _, nh = _ops("neo_hookean")
-    _, stvk = _ops("stvk")
+    for material in ("stvk", "linear"):
+        assert tes.supports(_ops(material)[1], TorchLame(MU, LAM), ttab, torch.float32)
     assert tes.supports(nh, TorchLame(MU, LAM), ttab, torch.float32)
     assert tes.supports(nh, TorchLame(torch.tensor(MU), np.float64(LAM)), ttab, torch.float32)
+    for name in ("tet4", "tet10", "tet20", "hex20", "hex27"):
+        assert tes.supports(nh, TorchLame(MU, LAM), tabulate(element(name), canonical_stiffness(name)), torch.float32)
     assert not tes.supports(nh, TorchLame(MU, LAM), ttab, torch.float64)
-    assert not tes.supports(stvk, TorchLame(MU, LAM), ttab, torch.float32)
+    assert "f32" in tes.refusal(nh, TorchLame(MU, LAM), ttab, torch.float64)
+    assert not tes.supports(TorchOp(HyperelasticMaterial(), dim=3), TorchLame(MU, LAM), ttab, torch.float32)
     assert not tes.supports(nh, TorchLame(torch.full((3,), MU), LAM), ttab, torch.float32)
+    assert "scalar" in tes.refusal(nh, TorchLame(torch.full((3,), MU), LAM), ttab, torch.float32)
     assert not tes.supports(nh, None, ttab, torch.float32)
+    quad = tabulate(element("quad4"), canonical_stiffness("quad4"))
+    assert "d = s = 3" in tes.refusal(TorchOp(_ops("neo_hookean")[1].material, dim=2), TorchLame(MU, LAM), quad,
+                                      torch.float32)
 
 
 def _banded_inputs(res, seed):
