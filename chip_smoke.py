@@ -98,6 +98,19 @@ must pass and none skip) and drives the port's paths at full size:
   ``solve_mixed``, then S20, the f32 ``solve()`` capped at 2 Newton steps;
   and one f32 Newton step of the StVK and linear-elastic models on each
   mesh (their records' launches);
+* the 2D slice: B2, the stiffness kernel at d = 2 through
+  ``assemble_element_elliptic_matrices_pairs(kernel="auto")`` on the unit
+  square (quad4 and tri3 at res 1024, quad8, quad9 and tri6 at res 512;
+  Laplace and 2D linear elasticity) against its plain version, timed in
+  turns beside its bound with M elements/s; MMS2D, the reference's four
+  2D gates (tests/test_convergence.py:28-78) at resolutions 1-32 on the
+  CSR route (``fem.solve_poisson``, the JAX package's route) and the two
+  others, f64 within 1%, f32 deviations printed; P2D, the 2D MMS problem
+  in f32 on quad9 and tri6 at res 512 (1,050,625 dofs, RCM on the card)
+  on the three routes with set-up, CG iterations, ms per iteration and
+  the true f64 residual, then the CSR product's GB/s (bitwise
+  repeatable) and the s = 1 band sweep, gather and scatter at those
+  shapes (their records join the kernel line);
 * C2-MG: path C2's problem on 18^3 cells refined three times (9,145,875
   dofs, RCM-reordered on the card in under 20 s) under
   ``GeometricMGPreconditioner(banded=True)``, ``solve_mixed`` to the
@@ -179,6 +192,20 @@ MMS_ELEMENTS = {
     "tet20": ((1, 2, 4, 6, 8, 12), ("tetrahedron", 4), ("tetrahedron", 6)),
 }
 MMS_MIN_FILL = 0.05
+# the 2D slice.  B2: the stiffness kernel at d = 2 on the unit square, every mesh at 1,050,625 nodes but
+# quad8's (788,481: no centre nodes); the reference's 2D gates (tests/test_convergence.py:28-78): rule and
+# error rule by element; P2D: the 2D MMS problem at 1,050,625 dofs, f32.  Its CG tolerance comes from the
+# f32 rounding of the nodal solution through A (P149's floor, measured in the run: eps / (30 h^2) ~ 1e-3 at
+# h = 1/512 for quad4; quad9's and tri6's nodes lie h/2 apart and their floor is 4-6x that, ~5e-3)
+B2_MESHES = {"quad4": 1024, "quad8": 512, "quad9": 512, "tri3": 1024, "tri6": 512}
+MMS_2D = {
+    "quad4": (("quadrilateral_gauss", 2), ("quadrilateral_gauss", 6)),
+    "quad9": (("quadrilateral_gauss", 2), ("quadrilateral_gauss", 6)),
+    "tri3": (("triangle", 0), ("triangle", 6)),
+    "tri6": (("triangle", 2), ("triangle", 6)),
+}
+P2D_MESHES = {"quad9": (512, *MMS_2D["quad9"]), "tri6": (512, *MMS_2D["tri6"])}
+F32_TOL_P2D = 1e-2
 # C2-MG: path C2's problem on 18^3 cells refined three times (144^3 = 2,985,984 hex8, 9,145,875 dofs)
 RES_MG_COARSE = 18
 MG_LEVELS = 3
@@ -254,22 +281,27 @@ def stencil_ops(cells, hvp):
     return cells * min(dense, tensor_product)
 
 
-def stiffness_ops(E, m, n, q, s, sym):
-    """f32 operations of the element-stiffness function for 3D elements (d = 3, m geometry nodes), the
-    fewest its arithmetic allows.  Per element and point: J from node-relative coordinates d^2 (2m - 3), J^-1 and
-    det 42, the weight 1, the gradients G = dphi J^-1 n d (2d - 1), G scaled by w|det| n d; per element
-    the node-relative coordinates (m - 1) d.  Then the fewer of two forms of the block entries needed
-    (all n^2 of an off-diagonal pair, the n (n + 1) / 2 upper ones of a symmetric operator's diagonal
-    pair): per point t = (w|det| G) C^ij, P n d (2d - 1), and t . G summed over points and d, 2 q d - 1
-    an entry; or, as the kernel does, M_ab = sum_q w|det| G_a G_b^T once per node pair a <= b,
-    d^2 (2q - 1), and C^ij : M, 2 d^2 - 1 an entry."""
-    d = 3
+def stiffness_ops(E, m, n, q, s, sym, d):
+    """f32 operations of the element-stiffness function for d-dimensional elements (m geometry nodes),
+    the fewest its arithmetic allows.  Per element and point: J from node-relative coordinates
+    d^2 (2m - 3), J^-1 and det (STIFFNESS_INV_OPS), the weight 1, the gradients G = dphi J^-1
+    n d (2d - 1), G scaled by w|det| n d; per element the node-relative coordinates (m - 1) d.  Then the
+    fewer of two forms of the block entries needed (all n^2 of an off-diagonal pair, the n (n + 1) / 2
+    upper ones of a symmetric operator's diagonal pair): per point t = (w|det| G) C^ij, P n d (2d - 1),
+    and t . G summed over points and d, 2 q d - 1 an entry; or, as the kernel does,
+    M_ab = sum_q w|det| G_a G_b^T once per node pair a <= b, d^2 (2q - 1), and C^ij : M, 2 d^2 - 1 an
+    entry."""
     pairs = s * (s + 1) // 2 if sym else s * s
     entries = (s * (s - 1) // 2 * n * n + s * n * (n + 1) // 2) if sym else s * s * n * n
-    geometry = q * (d * d * (2 * m - 3) + 42 + 1 + n * d * (2 * d - 1) + n * d) + (m - 1) * d
+    geometry = q * (d * d * (2 * m - 3) + STIFFNESS_INV_OPS[d] + 1 + n * d * (2 * d - 1) + n * d) + (m - 1) * d
     per_point = q * pairs * n * d * (2 * d - 1) + entries * (2 * q * d - 1)
     node_pairs = n * (n + 1) // 2 * d * d * (2 * q - 1) + entries * (2 * d * d - 1)
     return E * (geometry + min(per_point, node_pairs))
+
+
+# J^-1 and det by cofactors: 3D 9 cofactors (27), det 5, its reciprocal 1, 9 products; 2D det 3, its
+# reciprocal 1, 4 products (the negations fold into them)
+STIFFNESS_INV_OPS = {2: 8, 3: 42}
 
 
 SOURCES = {
@@ -1256,7 +1288,7 @@ def element_rule(spec):
     from fenris_tpu_torch import quadrature
 
     fn, arg = spec
-    return getattr(quadrature.total_order if fn == "tetrahedron" else quadrature, fn)(arg)
+    return getattr(quadrature.total_order if fn in ("tetrahedron", "triangle") else quadrature, fn)(arg)
 
 
 def mms_problem():
@@ -1360,10 +1392,10 @@ def poisson_mms_elements(dev, smi):
     free_memory()
 
 
-def poisson_f64_operator(mesh, dirichlet_nodes, dev, rule=None, min_fill=0.0):
+def poisson_f64_operator(mesh, dirichlet_nodes, dev, rule=None, min_fill=0.0, source=None):
     """The f64 Laplace operator (plain band matvec and remainder, Dirichlet dofs masked) and right-hand
-    side of the MMS problem on ``mesh`` by ``rule`` (default hexahedron_gauss(2)): the independent check
-    of an f32 Poisson solution."""
+    side of the MMS problem on ``mesh`` by ``rule`` (default hexahedron_gauss(2)) with ``source``
+    (default the 3D one of mms_problem): the independent check of an f32 Poisson solution."""
     import torch
 
     from fenris_tpu_torch.assembly.global_ import assemble_vector
@@ -1377,7 +1409,7 @@ def poisson_f64_operator(mesh, dirichlet_nodes, dev, rule=None, min_fill=0.0):
     from fenris_tpu_torch.quadrature import hexahedron_gauss
     from fenris_tpu_torch.sparse.block_dia import assemble_block_dia, block_dia_assembly_plan, block_dia_matvec
 
-    source = mms_problem()[0]
+    source = mms_problem()[0] if source is None else source
     space = FemSpace.create(mesh, 1, torch.float64, dev)
     tab = tabulate(mesh.element, hexahedron_gauss(2) if rule is None else rule)
     plan = block_dia_assembly_plan(mesh.cells, mesh.num_vertices, 1, min_fill=min_fill, device=dev)
@@ -1396,10 +1428,10 @@ def poisson_f64_operator(mesh, dirichlet_nodes, dev, rule=None, min_fill=0.0):
     return residual, b
 
 
-def scalar_kernel_checks(kernels, bands, offsets, plan, dev, smi):
-    """The s = 1 kernels at P149's shapes: band sweep on the Laplace bands, banded gather and scatter on
-    the matrix-free route's layout; each against its plain version (bitwise repeats), timed against
-    its bound and a library call."""
+def scalar_kernel_checks(kernels, bands, offsets, plan, dev, smi, cell="P149"):
+    """The s = 1 kernels at a Poisson cell's shapes (P149's, or P2D's): band sweep on the Laplace bands,
+    banded gather and scatter on the matrix-free route's layout; each against its plain version (bitwise
+    repeats), timed against its bound and a library call, into the records named after ``cell``."""
     import torch
 
     import fenris_tpu_torch.ops.banded as bd
@@ -1409,8 +1441,8 @@ def scalar_kernel_checks(kernels, bands, offsets, plan, dev, smi):
     g = torch.Generator(device=dev).manual_seed(41)
     N = bands.shape[1]
     x2 = torch.randn((1, N), generator=g, device=dev)
-    k = kernels["dia_sweep (s=1, P149)"]
-    txt = f"P149 s=1 N={N} D={len(offsets)}"
+    k = kernels[f"dia_sweep (s=1, {cell})"]
+    txt = f"{cell} s=1 N={N} D={len(offsets)}"
     k["max_abs_err"] = compare("dia_sweep", txt, ds.dia_sweep(bands, offsets, x2), ds.dia_sweep(bands, offsets, x2),
                                ds.dia_sweep_plain(bands, offsets, x2))
     k["ms"], k["plain_ms"], ttxt = in_turns(lambda: ds.dia_sweep(bands, offsets, x2),
@@ -1421,21 +1453,21 @@ def scalar_kernel_checks(kernels, bands, offsets, plan, dev, smi):
     log(f"time dia_sweep {txt}: {ttxt}, library {k['library_ms']:.4f} ms; {bound_txt} ({smi})")
 
     pe, n = plan.padded_elements, plan.n
-    txt = f"P149 s=1 E_pad={pe} blocks={plan.k_blocks}"
+    txt = f"{cell} s=1 n={n} E_pad={pe} blocks={plan.k_blocks}"
     w = torch.randn((N, 1), generator=g, device=dev)
     f_el = torch.randn((pe, n, 1), generator=g, device=dev)
     got, ref = bd.banded_gather(plan, w), bd.banded_gather_plain(plan, w)
-    kg = kernels["banded_gather (s=1, P149)"]
+    kg = kernels[f"banded_gather (s=1, {cell})"]
     kg["max_abs_err"] = compare("banded_gather", txt, got, bd.banded_gather(plan, w), ref)
     check(bool(torch.equal(got, ref)), f"banded_gather {txt}: not bitwise equal to the plain version")
     got, ref = bd.banded_scatter(plan, f_el), bd.banded_scatter_plain(plan, f_el)
-    ks = kernels["banded_scatter (s=1, P149)"]
+    ks = kernels[f"banded_scatter (s=1, {cell})"]
     ks["max_abs_err"] = compare("banded_scatter", txt, got, bd.banded_scatter(plan, f_el), ref)
     log(f"banded gather and scatter {txt}: bitwise equal to the plain versions: "
         f"{bool(torch.equal(got, ref))}")
     del got, ref
-    time_records(kernels, gather_scatter_runs(plan, w, f_el, dev, ("banded_gather (s=1, P149)",
-                                                                  "banded_scatter (s=1, P149)")), txt, smi)
+    time_records(kernels, gather_scatter_runs(plan, w, f_el, dev, (f"banded_gather (s=1, {cell})",
+                                                                  f"banded_scatter (s=1, {cell})")), txt, smi)
 
 
 def poisson_p149(kernels, dev, smi):
@@ -1964,10 +1996,10 @@ def stiffness_accuracy(sp, X, op, params, tab, got, ref):
         f"{r_vs_p:.3e}; the kernel forms J as the plain version does)")
 
 
-def stiffness_row_padding(sp, X, op, params, tab, smi):
-    """The kernel with its output rows E floats apart (E odd at res 99: each warp's 128-byte store run
-    straddles two lines) against rows a multiple of 32 floats apart, as the wrapper lays them out; in
-    turns, one launch each, straight through the library (not counted as launches)."""
+def stiffness_launch(sp, X, op, params, tab):
+    """``run(ld)``: one launch of the stiffness kernel straight through the library (not counted as a
+    launch) with its tables built once, into output rows ``ld`` floats apart; and the wrapper's row
+    stride.  Its time is the kernel's without the wrapper's host work."""
     import numpy as np
     import torch
 
@@ -1986,10 +2018,18 @@ def stiffness_row_padding(sp, X, op, params, tab, smi):
                                           torch.cuda.current_stream().cuda_stream)
         check(code == 0, f"stiffness_pairs: CUDA error {code}")
 
+    return run, padded
+
+
+def stiffness_row_padding(sp, X, op, params, tab, smi):
+    """The kernel with its output rows E floats apart (E odd at res 99: each warp's 128-byte store run
+    straddles two lines) against rows a multiple of 32 floats apart, as the wrapper lays them out; in
+    turns, one launch each, straight through the library (not counted as launches)."""
+    run, padded = stiffness_launch(sp, X, op, params, tab)
+    E = X.shape[0]
     _, _, txt = in_turns(lambda: run(padded), lambda: run(E), reps=10,
                          names=(f"rows {padded} floats apart", f"rows {E} floats apart"))
     log(f"stiffness_pairs linear res={RES_B} output row stride: {txt} ({smi})")
-    del out
 
 
 def stiffness_phases(kernels, dev, smi):
@@ -2038,7 +2078,7 @@ def stiffness_phases(kernels, dev, smi):
         # X read and the pairs written once; the fewest operations (stiffness_ops)
         s = op.solution_dim
         rec = {}
-        bound_txt = set_bound(rec, (X.numel() + s * s * 64 * E) * 4, stiffness_ops(E, m, 8, q, s, op.symmetric))
+        bound_txt = set_bound(rec, (X.numel() + s * s * 64 * E) * 4, stiffness_ops(E, m, 8, q, s, op.symmetric, 3))
         log(f"time stiffness_pairs {name} res={RES_B}: {txt}; {E / (ms * 1e-3) / 1e6:.1f} M elements/s; "
             f"{bound_txt}, {rec['bound_ms'] / ms * 100:.1f}% of it ({smi})")
         if name == "linear":
@@ -2110,7 +2150,7 @@ def stiffness_element_phases(kernels, dev, smi):
             ms, plain_ms, txt = in_turns(lambda: sp.stiffness_pairs(X, op, params, tab),
                                          lambda: sp.stiffness_pairs_plain(X, op, params, tab), reps=5, plain_reps=2)
             rec = {}
-            bound_txt = set_bound(rec, (X.numel() + s * s * n * n * E) * 4, stiffness_ops(E, m, n, q, s, op.symmetric))
+            bound_txt = set_bound(rec, (X.numel() + s * s * n * n * E) * 4, stiffness_ops(E, m, n, q, s, op.symmetric, 3))
             log(f"time stiffness_pairs {name} {kind} {cell}: {txt}; {E / (ms * 1e-3) / 1e6:.2f} M elements/s; "
                 f"{bound_txt}, {rec['bound_ms'] / ms * 100:.1f}% of it ({smi})")
             if kind == "linear":
@@ -2141,13 +2181,322 @@ def stiffness_element_phases(kernels, dev, smi):
         ms, _, txt = in_turns(lambda: sp.stiffness_pairs(Xb, op, params, tab),
                               lambda: sp.stiffness_pairs_plain(Xb, op, params, tab), reps=10, plain_reps=3)
         rec = {}
-        bound_txt = set_bound(rec, (Xb.numel() + 9 * n * n * Eb) * 4, stiffness_ops(Eb, m, n, q, 3, True))
+        bound_txt = set_bound(rec, (Xb.numel() + 9 * n * n * Eb) * 4, stiffness_ops(Eb, m, n, q, 3, True, 3))
         log(f"time stiffness_pairs {name} linear bench size ({Eb} cells): {txt}; {Eb / (ms * 1e-3) / 1e6:.2f} M "
             f"elements/s; {bound_txt}, {rec['bound_ms'] / ms * 100:.1f}% of it ({smi})")
         del Xb
         free_memory()
     return {"hex20": meshes["B20"], "tet10": meshes["B10"]}
 
+
+# -- the 2D slice: B2, MMS2D, P2D ----------------------------------------------------------------
+
+
+def square_mesh(name, res):
+    """The unit square of ``name`` cells: quad4 or tri3 (each quad split in two), converted
+    (convert_mesh) for quad8, quad9 and tri6."""
+    from fenris_tpu_torch.mesh.convert import convert_mesh
+    from fenris_tpu_torch.mesh.procedural import (
+        create_unit_square_uniform_quad_mesh_2d,
+        create_unit_square_uniform_tri_mesh_2d,
+    )
+
+    base = (create_unit_square_uniform_tri_mesh_2d if name.startswith("tri") else
+            create_unit_square_uniform_quad_mesh_2d)(res)
+    return base if name in ("tri3", "quad4") else convert_mesh(base, name)
+
+
+def mms_problem_2d():
+    """The 2D MMS problem of tests/mms_common.py:17-30 in torch: source, exact solution, its gradient."""
+    import numpy as np
+    import torch
+
+    def u_exact(x):
+        return torch.sin(np.pi * x[0]) * torch.sin(np.pi * x[1])
+
+    def u_exact_grad(x):
+        return np.pi * torch.stack([torch.cos(np.pi * x[0]) * torch.sin(np.pi * x[1]),
+                                    torch.sin(np.pi * x[0]) * torch.cos(np.pi * x[1])])
+
+    def source(x, p):
+        return 2.0 * np.pi**2 * u_exact(x)
+
+    return source, u_exact, u_exact_grad
+
+
+def poisson_routes():
+    """The three Poisson routes by name: the CSR route (the JAX package's ``solve_poisson``) and the two others."""
+    from fenris_tpu_torch import fem
+
+    return {"csr": fem.solve_poisson, **poisson_solvers()}
+
+
+def stiffness_2d_phases(kernels, found, dev, smi):
+    """B2: the stiffness kernel at d = 2 on the unit square at full width (B2_MESHES), Laplace (s = 1)
+    and 2D linear elasticity (s = 2): ptxas lines of the d = 2 instantiations (a spill fails the run),
+    each element's table in one chunk, kernel against plain (rel <= KERNEL_RTOL, bitwise repeats), times in
+    turns beside the bound with M elements/s, and the public entry point with kernel="auto" under reset
+    counts (its launches go to the record)."""
+    import torch
+
+    import fenris_tpu_torch.ops.stiffness_pairs as sp
+    from fenris_tpu_torch.assembly.local import assemble_element_elliptic_matrices_pairs, tabulate
+    from fenris_tpu_torch.fem import FemSpace
+    from fenris_tpu_torch.operators import LaplaceOperator
+    from fenris_tpu_torch.quadrature import canonical_stiffness
+    from fenris_tpu_torch.solid import LameParameters, LinearElasticMaterial, MaterialEllipticOperator
+
+    d2 = {n: t for n, t in found.items() if n.startswith("stiffness_pairs (d = 2,")}
+    for name, txt in d2.items():
+        log(f"B2 ptxas {name}: {txt}")
+    check(any(", 1 pairs," in n for n in d2) and any(", 3 pairs," in n for n in d2),
+          f"B2: ptxas reports no d = 2 instantiation for 1 or 3 pairs: {list(d2)}")
+    check(all("0 bytes spill stores, 0 bytes spill loads" in t for t in d2.values()), f"B2: spills in {d2}")
+    cases = {
+        "linear": (MaterialEllipticOperator(LinearElasticMaterial(), dim=2), LameParameters(mu=MU, lam=LAM)),
+        "laplace": (LaplaceOperator(), None),
+    }
+    for name, res in B2_MESHES.items():
+        t0 = time.perf_counter()
+        mesh = square_mesh(name, res)
+        mesh_s = time.perf_counter() - t0
+        tab = tabulate(mesh.element, canonical_stiffness(name))
+        q, m, _ = tab.geo_dphi.shape
+        n = tab.dphi.shape[1]
+        X = FemSpace.create(mesh, 1, torch.float32, dev).X_geo
+        E = X.shape[0]
+        qc = sp._chunk_points(m, n, q, 2)
+        log(f"entry B2: {name} res {res}: {E} cells, {mesh.num_vertices} nodes, mesh {mesh_s:.3f} s; {q} points, "
+            f"points a chunk {qc}, shared memory a block {sp._smem_bytes(m, n, q, 2)} bytes")
+        check(qc == q, f"B2 {name}: the gradient table must fit one block (points a chunk {qc} of {q})")
+        for kind, (op, params) in cases.items():
+            s = op.solution_dim
+            k = kernels[f"stiffness_pairs ({name} {kind}, B2)"]
+            got = sp.stiffness_pairs(X, op, params, tab)
+            again = sp.stiffness_pairs(X, op, params, tab)
+            ref = sp.stiffness_pairs_plain(X, op, params, tab)
+            k["max_abs_err"] = compare("stiffness_pairs", f"{name} {kind} B2 E={E} out {got.numel() * 4 / 1e9:.3f} GB",
+                                       got, again, ref)
+            del got, again, ref
+            free_memory()
+            k["ms"], k["plain_ms"], txt = in_turns(lambda: sp.stiffness_pairs(X, op, params, tab),
+                                                   lambda: sp.stiffness_pairs_plain(X, op, params, tab), reps=5,
+                                                   plain_reps=2)
+            k["library_ms"] = None
+            run, padded = stiffness_launch(sp, X, op, params, tab)
+            alone = min(event_ms(lambda: run(padded), reps=10), event_ms(lambda: run(padded), reps=10))
+            bound_txt = set_bound(k, (X.numel() + s * s * n * n * E) * 4, stiffness_ops(E, m, n, q, s, op.symmetric, 2))
+            log(f"time stiffness_pairs {name} {kind} B2: {txt}; {E / (k['ms'] * 1e-3) / 1e6:.1f} M elements/s; "
+                f"{bound_txt}, {k['bound_ms'] / k['ms'] * 100:.1f}% of it; the launch alone (tables built once, "
+                f"straight through the library) {alone:.4f} ms, {k['bound_ms'] / alone * 100:.1f}% of the bound ({smi})")
+            del run
+            free_memory()
+            reset_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            A = assemble_element_elliptic_matrices_pairs(X, None, op, params, tab, kernel="auto")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k["launches"] = k["fn"].launches
+            log(f"entry B2: assemble_element_elliptic_matrices_pairs(kernel='auto') {name} {kind}: {tuple(A.shape)} "
+                f"in {wall * 1e3:.3f} ms, stiffness_pairs launches={k['launches']} ({smi})")
+            check(tuple(A.shape) == (s * s, n * n, E) and bool(torch.isfinite(A).all()),
+                  f"entry B2 {name} {kind}: wrong or non-finite output")
+            check(k["launches"] > 0, f"entry B2 {name} {kind}: the stiffness kernel was not launched")
+            del A
+            free_memory()
+        del X
+        free_memory()
+
+
+def poisson2d_mms_gate(dev, smi):
+    """MMS2D: the reference's 2D gates (tests/test_convergence.py:28-78) at their full resolutions 1-32
+    on the card, on the three routes: f64 within 1% of tests/reference_values/
+    poisson2d_mms_<element>_summary.json (resolutions to 1e-12); f32 at CG tolerance F32_TOL_MMS with its
+    deviations printed.  The assembled route takes min_fill MMS_MIN_FILL (the converted meshes' sparse
+    deltas go to the block-ELL remainder)."""
+    import torch
+
+    source, u_exact, u_exact_grad = mms_problem_2d()
+    dirichlet = mms_problem()[3]
+    for name, (rule, err_rule) in MMS_2D.items():
+        ref = json.loads((ROOT / f"tests/reference_values/poisson2d_mms_{name}_summary.json").read_text())
+        meshes = [square_mesh(name, res) for res in MMS_RESOLUTIONS]
+        for dtype, tol in ((torch.float64, 1e-9), (torch.float32, F32_TOL_MMS)):
+            for route, solve in poisson_routes().items():
+                kw = dict(min_fill=MMS_MIN_FILL) if route == "assembled" else {}
+                t0 = time.perf_counter()
+                diam, dev_l2, dev_h1, iters = [], [], [], []
+                for i, mesh in enumerate(meshes):
+                    r = solve(mesh, element_rule(rule), element_rule(err_rule), source, u_exact, u_exact_grad,
+                              dirichlet(mesh), rel_tolerance=tol, dtype=dtype, device=dev, **kw)
+                    diam.append(float(mesh.diameters().max()))
+                    dev_l2.append(abs(r.l2_error - ref["L2_errors"][i]) / ref["L2_errors"][i])
+                    dev_h1.append(abs(r.h1_seminorm_error - ref["H1_seminorm_errors"][i]) / ref["H1_seminorm_errors"][i])
+                    iters.append(r.cg_iterations)
+                torch.cuda.synchronize()
+                res_dev = max(abs(a - b) / b for a, b in zip(diam, ref["resolutions"]))
+                log(f"Poisson MMS {name} {route} {str(dtype).removeprefix('torch.')} (CG rel {tol:g}) at resolutions "
+                    f"{list(MMS_RESOLUTIONS)} ({meshes[-1].num_vertices} dofs at the last): L2 deviation from the "
+                    f"reference {[f'{d:.3e}' for d in dev_l2]}, H1 {[f'{d:.3e}' for d in dev_h1]}, diameters rel "
+                    f"{res_dev:.1e}, CG iterations {iters}; {time.perf_counter() - t0:.3f} s ({smi})")
+                check(len(diam) == len(ref["resolutions"]) and res_dev <= 1e-12,
+                      f"Poisson MMS {name} {route}: resolutions differ from the reference")
+                if dtype == torch.float64:
+                    check(max(dev_l2 + dev_h1) <= 0.01, f"Poisson MMS {name} {route} f64: an error is off the "
+                          f"reference by more than 1%: L2 {dev_l2}, H1 {dev_h1}")
+    free_memory()
+
+
+def csr_spmv_record(A, dev, smi, cell):
+    """The CSR product of the CSR route's matrix ``A`` (f32, on the card): ten products bitwise equal to
+    the first, its time and GB/s (values and column indices of every stored entry, the row pointers, x
+    and y once each, over its time).  Logged, not a kernel record: the JAX package has no TPU kernel
+    for it."""
+    import torch
+
+    x = torch.randn(A.shape[1], generator=torch.Generator(device=dev).manual_seed(47), device=dev)
+    y = A @ x
+    same = all(bool(torch.equal(y, A @ x)) for _ in range(10))
+    sp = A.sparse
+    nbytes = (A.nnz * (A.values.element_size() + sp.col_indices().element_size())
+              + sp.crow_indices().numel() * sp.crow_indices().element_size() + (A.shape[0] + A.shape[1]) * 4)
+    ms = min(event_ms(lambda: A @ x, reps=20), event_ms(lambda: A @ x, reps=20))
+    log(f"{cell} CSR product (torch.sparse_csr_tensor, cuSPARSE): {A.shape[0]} rows, nnz {A.nnz}, "
+        f"{str(sp.col_indices().dtype).removeprefix('torch.')} indices; ten products bitwise equal to the first: "
+        f"{same}; {ms:.4f} ms, {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s ({nbytes / 1e9:.4f} GB; bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s, {nbytes / HBM_BYTES_PER_S * 1e3 / ms * 100:.1f}% of "
+        f"it) ({smi})")
+    check(same, f"{cell}: two CSR products on one input differ")
+    check(bool(torch.isfinite(y).all()), f"{cell}: non-finite CSR product")
+
+
+def poisson_p2d(kernels, dev, smi):
+    """P2D: the 2D MMS problem in f32 on quad9 and tri6 at res 512 (1,050,625 dofs), RCM-reordered on the
+    card, on the three routes at CG tolerance F32_TOL_P2D.  First the plain f64 operator and two f32 floors
+    of the true relative residual |b - A u| / |b|: the rounding of the exact solution's nodal values to f32
+    through A (P149's floor; F32_TOL_P2D must not be below it), and, after each route's solve, the rounding
+    of that route's own f32 operator (its CG operator against the f64 one on those f32 values, free dofs).
+    Per route: set-up (the CSR pattern built on the card and the CSR assembly, or the plans), solve and
+    error times, CG iterations and ms per iteration, launches, and the true f64 relative residual, limit
+    10x the larger of the CG tolerance and the route's operator floor; the routes' differences; then the
+    CSR product's GB/s and the s = 1 band sweep, gather and scatter at these shapes (their records join
+    the kernel line)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    import fenris_tpu_torch.assembly.global_ as G
+    import fenris_tpu_torch.fem as fem_mod
+    import fenris_tpu_torch.ops.banded as bd
+    import fenris_tpu_torch.sparse.block_dia as bdia
+    import fenris_tpu_torch.sparse.cg as cg_mod
+    import fenris_tpu_torch.sparse.dia_kernel as dk
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+
+    source, u_exact, u_exact_grad = mms_problem_2d()
+    dirichlet = mms_problem()[3]
+    for name, (res, rule, err_rule) in P2D_MESHES.items():
+        cell = f"P2D {name}"
+        route_kernels = {"csr": (), "assembled": (f"dia_sweep (s=1, {cell})",),
+                         "matrix_free": (f"banded_gather (s=1, {cell})", f"banded_scatter (s=1, {cell})")}
+        t0 = time.perf_counter()
+        mesh = square_mesh(name, res)
+        mesh_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh, _ = reorder_mesh(mesh, device=dev)
+        rcm_s = time.perf_counter() - t0
+        nd = dirichlet(mesh)
+        t0 = time.perf_counter()
+        residual, b = poisson_f64_operator(mesh, nd, dev, rule=element_rule(rule), min_fill=MMS_MIN_FILL,
+                                           source=source)
+        b_norm = float(torch.linalg.vector_norm(b))
+        free = torch.ones(mesh.num_vertices, dtype=torch.bool, device=dev)
+        free[torch.as_tensor(nd, device=dev)] = False
+        x = torch.as_tensor(mesh.points, device=dev)
+        u_nodal = torch.sin(np.pi * x[:, 0]) * torch.sin(np.pi * x[:, 1])
+        u32 = u_nodal.float()
+        floor_u = float(torch.linalg.vector_norm(residual(u32) - residual(u_nodal))) / b_norm
+        log(f"{cell}: {mesh.num_cells} cells, {mesh.num_vertices} dofs; mesh {mesh_s:.3f} s, RCM on the card "
+            f"{rcm_s:.3f} s; f64 operator {time.perf_counter() - t0:.3f} s; f32 floor of |b - A u| / |b| from the "
+            f"rounding of the exact nodal values {floor_u:.3e} (eps / (30 h^2) = {2.0**-23 / 30 * res**2:.3e}); CG "
+            f"tolerance {F32_TOL_P2D:g}")
+        check(F32_TOL_P2D >= floor_u, f"{cell}: CG tolerance {F32_TOL_P2D:g} below the f32 floor {floor_u:.3e}")
+        captured, solutions = {}, {}
+
+        def capture(key, fn):
+            def run(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                captured[key] = args[0] if key in ("matrix", "operator") else out
+                return out
+            return run
+
+        for route, solve in poisson_routes().items():
+            cg_times, err_times, pattern_times, csr_times = [], [], [], []
+            free_memory()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kw = dict(min_fill=MMS_MIN_FILL) if route == "assembled" else {}
+            with mock.patch.object(cg_mod, "conjugate_gradient",
+                                   timed(capture("operator", cg_mod.conjugate_gradient), cg_times)), \
+                    mock.patch.object(fem_mod, "_errors", timed(fem_mod._errors, err_times)), \
+                    mock.patch.object(G, "csr_pattern", timed(G.csr_pattern, pattern_times)), \
+                    mock.patch.object(G, "assemble_csr", timed(G.assemble_csr, csr_times)), \
+                    mock.patch.object(fem_mod, "assemble_poisson_system",
+                                      capture("csr", fem_mod.assemble_poisson_system)), \
+                    mock.patch.object(dk, "block_dia_operator", capture("matrix", dk.block_dia_operator)), \
+                    mock.patch.object(bdia, "block_dia_assembly_plan", capture("dia_plan", bdia.block_dia_assembly_plan)), \
+                    mock.patch.object(bd, "make_banded_plan", capture("plan", bd.make_banded_plan)):
+                r = solve(mesh, element_rule(rule), element_rule(err_rule), source, u_exact, u_exact_grad, nd,
+                          rel_tolerance=F32_TOL_P2D, dtype=torch.float32, device=dev, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for key in route_kernels[route]:
+                kernels[key]["launches"] = kernels[key]["fn"].launches
+            launches = {key: kernels[key]["launches"] for key in route_kernels[route]}
+            t_cg, t_err = sum(cg_times), sum(err_times)
+            extra = ""
+            if route == "csr":
+                A = captured["csr"][0]
+                extra = (f"; CSR pattern on the card {sum(pattern_times):.3f} s (nnz {A.nnz}), CSR assembly "
+                         f"{sum(csr_times):.3f} s")
+            elif route == "assembled":
+                plan = captured["dia_plan"]
+                extra = f"; D = {plan.num_diagonals} bands, fill {plan.fill:.4f}, remainder width {plan.rem_k}"
+            log(f"{cell} {route}: f32, CG rel {F32_TOL_P2D:g}: set-up {wall - t_cg - t_err:.3f} s{extra}; solve "
+                f"{t_cg:.3f} s ({r.cg_iterations} CG iterations, {t_cg / max(r.cg_iterations, 1) * 1e3:.3f} ms per "
+                f"iteration), errors {t_err:.3f} s, wall {wall:.3f} s; L2 error {r.l2_error:.6e}, H1 "
+                f"{r.h1_seminorm_error:.6e}; launches {launches}; peak memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
+            check(bool(torch.isfinite(r.u).all()) and tuple(r.u.shape) == (mesh.num_vertices,),
+                  f"{cell} {route}: wrong or non-finite solution")
+            for key in route_kernels[route]:
+                check(launches[key] > 0, f"{cell} {route}: kernel {key} was not launched")
+            # the route's own operator against the f64 one on the same f32 values (b - residual(u) = A u there)
+            op_diff = torch.where(free, captured.pop("operator")(u32).double() - (b - residual(u32)), 0.0)
+            floor_op = float(torch.linalg.vector_norm(op_diff)) / b_norm
+            rel = float(torch.linalg.vector_norm(residual(r.u))) / b_norm
+            limit = 10 * max(F32_TOL_P2D, floor_op)
+            log(f"{cell} {route}: true relative residual |b - A u| / |b| by the plain f64 operator {rel:.6e}; the "
+                f"route's f32 operator floor |(A_f32 - A) u| / |b| {floor_op:.3e}; limit {limit:.3e}")
+            check(rel <= limit, f"{cell} {route}: true relative residual {rel:.3e} > {limit:.3e}")
+            solutions[route] = r.u
+            del r, op_diff
+        ref = solutions["csr"].double()
+        diffs = {route: float(torch.linalg.vector_norm(u.double() - ref) / torch.linalg.vector_norm(ref))
+                 for route, u in solutions.items() if route != "csr"}
+        log(f"{cell}: relative difference of each route's solution from the CSR route's {diffs}")
+        del residual, b, solutions, ref
+        free_memory()
+        csr_spmv_record(captured["csr"][0], dev, smi, cell)
+        matrix = captured["matrix"]
+        scalar_kernel_checks(kernels, matrix.bands, matrix.offsets, captured["plan"], dev, smi, cell=cell)
+        del captured, matrix
+        free_memory()
 
 def main() -> int:
     if not (ROOT / "fenris_tpu_torch").is_dir():
@@ -2262,6 +2611,26 @@ def main() -> int:
                                     replaces="fenris_tpu/ops/em_sweep.py:251")
             kernels[vector] = dict(fn=es.banded_vector_sweep, path=name, source=SOURCES["em_sweep"],
                                    replaces="fenris_tpu/ops/em_sweep.py:233")
+    # B2: the stiffness kernel at d = 2, each element and operator
+    for name in B2_MESHES:
+        for kind in ("linear", "laplace"):
+            kernels[f"stiffness_pairs ({name} {kind}, B2)"] = dict(
+                fn=sp.stiffness_pairs, path="B2", source=SOURCES["stiffness_pairs"],
+                replaces="fenris_tpu/ops/stiffness_kernel.py:162",
+            )
+    # P2D: rows 4-7 at s = 1 on the 2D meshes (n = 9 and 6 nodes a row)
+    for name in P2D_MESHES:
+        cell = f"P2D {name}"
+        kernels[f"dia_sweep (s=1, {cell})"] = dict(
+            fn=ds.dia_sweep, path=cell, source=SOURCES["dia_sweep"],
+            replaces="fenris_tpu/sparse/dia_kernel.py:380 and fenris_tpu/sparse/dia_kernel.py:186",
+        )
+        kernels[f"banded_gather (s=1, {cell})"] = dict(
+            fn=bd.banded_gather, path=cell, source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:285",
+        )
+        kernels[f"banded_scatter (s=1, {cell})"] = dict(
+            fn=bd.banded_scatter, path=cell, source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:346",
+        )
     phases = [
         ("structured path", lambda: structured_phases(kernels, dev, smi)),
         ("entry B", lambda: stiffness_phases(kernels, dev, smi)),
@@ -2273,6 +2642,9 @@ def main() -> int:
     t0 = time.perf_counter()
     element_meshes = stiffness_element_phases(kernels, dev, smi)  # kept for P40-tet10 and M10/M20, S10/S20
     log(f"phase entry B20/B10: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    stiffness_2d_phases(kernels, found, dev, smi)
+    log(f"phase entry B2: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     model, plan_s = path_a_setup(dev, smi)
     band_sweep_phases(kernels["dia_sweep"], model, dev, smi)
@@ -2313,8 +2685,14 @@ def main() -> int:
     poisson_mms_gate(dev, smi)
     log(f"phase Poisson MMS gate: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
+    poisson2d_mms_gate(dev, smi)
+    log(f"phase MMS2D: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
     poisson_p149(kernels, dev, smi)
     log(f"phase P149: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    poisson_p2d(kernels, dev, smi)
+    log(f"phase P2D: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     element_meshes["tet10"] = poisson_p40_tet10(kernels, element_meshes["tet10"], dev, smi)
     log(f"phase P40-tet10: {time.perf_counter() - t0:.3f} s")

@@ -1,6 +1,6 @@
 """fenris_tpu_torch — the PyTorch/CUDA port of fenris_tpu.
 
-This package holds five slices of the port: the structured Neo-Hookean
+This package holds six slices of the port: the structured Neo-Hookean
 Newton–Krylov solve (stencil kernels, structured multigrid), the assembled
 block-DIA solve on unstructured hex8 meshes (band sweep and stiffness
 kernels), the matrix-free banded solve (banded gather/scatter and fused
@@ -10,7 +10,9 @@ unstructured geometric multigrid over a refinement hierarchy
 (``mesh.refinement``, ``multigrid.GeometricMGPreconditioner``), and the 3D
 higher-order elements (``reference_elements``, ``quadrature``,
 ``mesh.convert``: tet4/10/20, hex20/27) on the Poisson routes and the
-stiffness kernel.  Entry points run on
+stiffness kernel, and the 2D slice: quad and tri meshes, CSR assembly
+(``assembly.global_``, ``sparse.csr``), the CSR Poisson route
+``fem.solve_poisson`` and the stiffness kernel at d = 2.  Entry points run on
 the card unless the caller passes ``device="cpu"``.  It imports ``torch``
 and numpy only; the JAX package ``fenris_tpu`` is its reference.
 """

@@ -33,7 +33,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from .assembly.global_ import scatter_add_rows, scatter_plan
+from .assembly.global_ import apply_homogeneous_dirichlet_bc_csr, assemble_csr, scatter_add_rows, scatter_plan
 from .assembly.local import (
     _check_scalar_params,
     assemble_element_elliptic_matrices,
@@ -353,6 +353,13 @@ class HyperelasticModel:
         return assemble_element_elliptic_matrices(
             self.space.X_geo, self._local(u), self.operator, self.params, self.tab, chunk=chunk
         )
+
+    def assemble_hessian_csr(self, u) -> torch.Tensor:
+        """CSR values of the Hessian on ``space.pattern``, the Dirichlet dofs eliminated (``elasticity.py:660``)."""
+        values = assemble_csr(self.assemble_hessian_matrices(u), self.space.pattern)
+        if self.dirichlet_nodes is not None and len(self.dirichlet_nodes):
+            values = apply_homogeneous_dirichlet_bc_csr(values, self.space.pattern, self.dirichlet_nodes)
+        return values
 
     # -- block-DIA assembly -------------------------------------------------------
 

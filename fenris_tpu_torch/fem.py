@@ -2,16 +2,17 @@
 
 Counterpart of ``fenris_tpu/fem.py``:
 
-* ``FemSpace`` (:36-84): the gathered geometry nodes and the per-element
-  dof map on the device.  The lazily built CSR pattern is not ported yet;
+* ``FemSpace`` (:36-84): the gathered geometry and full node coordinates
+  and the per-element dof map on the device, and the dof-level CSR
+  pattern, built on first use;
 * the generalized Poisson pipeline ``-div g(∇u) = f`` (assemble or apply
-  the operator, mask the Dirichlet dofs, Jacobi-preconditioned CG,
-  estimate the L² and H¹-seminorm errors) on the two routes the JAX
-  package runs without CSR: :func:`solve_poisson_assembled` (block-DIA
-  bands, the band-sweep kernel in every CG iteration on the card) and
-  :func:`solve_poisson_matrix_free` (banded gather, plain element-minor
-  sweep, banded scatter).  The CSR route ``solve_poisson`` waits for the
-  port's CSR.
+  the operator, constrain the Dirichlet dofs, Jacobi-preconditioned CG,
+  estimate the L² and H¹-seminorm errors) on the JAX package's three
+  routes: :func:`solve_poisson` (the CSR route: element matrices scattered
+  into CSR, symmetric Dirichlet elimination, CG on the CSR product),
+  :func:`solve_poisson_assembled` (block-DIA bands, the band-sweep kernel
+  in every CG iteration on the card) and :func:`solve_poisson_matrix_free`
+  (banded gather, plain element-minor sweep, banded scatter).
 
 Pointwise callables (``source(x, params)``, ``u_exact(x)``,
 ``u_exact_grad(x)``) take torch tensors and run under ``torch.func.vmap``.
@@ -21,32 +22,56 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .assembly import global_ as G
 from .assembly.global_ import assemble_vector, element_dof_indices
 from .config import DEFAULT_DTYPE, resolve_device
 from .mesh import Mesh
+from .sparse.csr import from_pattern
 
-__all__ = ["FemSpace", "PoissonResult", "solve_poisson_assembled", "solve_poisson_matrix_free"]
+__all__ = [
+    "FemSpace",
+    "PoissonResult",
+    "assemble_poisson_system",
+    "solve_poisson",
+    "solve_poisson_assembled",
+    "solve_poisson_matrix_free",
+]
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, eq=False)
 class FemSpace:
+    """Device-resident assembly view of a mesh.
+
+    ``X_full [E, n, d]`` holds every node's coordinates, ``X_geo [E, m, d]``
+    (contiguous) the geometry element's.  The dof-level CSR pattern
+    (:func:`~.assembly.global_.csr_pattern`, on the space's device) is built
+    on first access, so matrix-free and block-DIA pipelines never pay for it.
+    """
+
     mesh: Mesh
     solution_dim: int
     X_geo: torch.Tensor  # [E, m, d]
+    X_full: torch.Tensor  # [E, n, d]
     dofs: torch.Tensor  # [E, n*s] int64
 
     @staticmethod
     def create(mesh: Mesh, solution_dim: int = 1, dtype=DEFAULT_DTYPE, device="cuda") -> "FemSpace":
         dev = resolve_device(device)
         m = mesh.element.geometry.num_nodes
-        X = torch.as_tensor(mesh.cell_points()[:, :m, :], dtype=dtype, device=dev)
+        X = torch.as_tensor(mesh.cell_points(), dtype=dtype, device=dev)
         dofs = torch.as_tensor(element_dof_indices(mesh.cells, solution_dim), device=dev)
-        return FemSpace(mesh=mesh, solution_dim=int(solution_dim), X_geo=X, dofs=dofs)
+        return FemSpace(mesh=mesh, solution_dim=int(solution_dim), X_geo=X[:, :m].contiguous(), X_full=X, dofs=dofs)
+
+    @cached_property
+    def pattern(self) -> G.CsrPattern:
+        """Dof-level CSR pattern (symbolic assembly), built on first use."""
+        return G.csr_pattern(self.mesh.cells, self.mesh.num_vertices, self.solution_dim, self.X_geo.device)
 
     @property
     def num_dofs(self) -> int:
@@ -90,6 +115,67 @@ def _errors(space: "FemSpace", u, error_rule, u_exact, u_exact_grad):
     return l2, h1
 
 
+def _element_chunk(E: int, n: int, s: int) -> Optional[int]:
+    """Elements a chunk of element matrices: bounds the contraction transients past 2**27 entries."""
+    return 65536 if E * (n * s) ** 2 > 2**27 else None
+
+
+def assemble_poisson_system(space: FemSpace, rule, source: Callable, operator=None, dirichlet_nodes=None):
+    """The CSR system of ``-div g(∇u) = f`` with the Dirichlet dofs eliminated (``fem.py:94``).
+
+    Element matrices of the operator (default Laplace) scattered into CSR,
+    the source vector, then the symmetric homogeneous Dirichlet
+    elimination.  Returns ``(CsrMatrix, b)``.
+    """
+    from .assembly.local import assemble_element_elliptic_matrices, assemble_element_source_vectors, tabulate
+    from .operators import LaplaceOperator
+
+    op = operator or LaplaceOperator()
+    tab = tabulate(space.mesh.element, rule)
+    n, s = space.mesh.element.num_nodes, op.solution_dim
+    A_el = assemble_element_elliptic_matrices(space.X_geo, None, op, None, tab,
+                                              chunk=_element_chunk(space.mesh.num_cells, n, s))
+    values = G.assemble_csr(A_el, space.pattern)
+    del A_el
+    b = assemble_vector(assemble_element_source_vectors(space.X_geo, source, None, s, tab), space.dofs,
+                        space.num_dofs)
+    if dirichlet_nodes is not None and len(dirichlet_nodes):
+        values = G.apply_homogeneous_dirichlet_bc_csr(values, space.pattern, dirichlet_nodes)
+        b = G.apply_homogeneous_dirichlet_bc_rhs(b, dirichlet_nodes, space.solution_dim)
+    return from_pattern(space.pattern, values), b
+
+
+def solve_poisson(
+    mesh: Mesh,
+    rule,
+    error_rule,
+    source: Callable,
+    u_exact: Optional[Callable] = None,
+    u_exact_grad: Optional[Callable] = None,
+    dirichlet_nodes=None,
+    rel_tolerance: float = 1e-9,
+    max_iter: int = 10000,
+    dtype=DEFAULT_DTYPE,
+    device="cuda",
+) -> PoissonResult:
+    """The CSR route, end to end (``fem.py:126``; poisson_mms_common.rs:173).
+
+    :func:`assemble_poisson_system` on a scalar space, Jacobi from the CSR
+    diagonal, CG on the CSR product (:mod:`.sparse.csr`), then the L² and
+    H¹-seminorm errors by ``error_rule``.
+    """
+    from .sparse.cg import conjugate_gradient
+
+    space = FemSpace.create(mesh, 1, dtype, device)
+    A, b = assemble_poisson_system(space, rule, source, dirichlet_nodes=dirichlet_nodes)
+    diag = A.diagonal()
+    inv_diag = torch.where(diag != 0.0, 1.0 / diag, 1.0)
+    res = conjugate_gradient(A, b, preconditioner=lambda v: inv_diag * v, rel_tolerance=rel_tolerance,
+                             max_iter=max_iter)
+    l2, h1 = _errors(space, res.x, error_rule, u_exact, u_exact_grad)
+    return PoissonResult(u=res.x, l2_error=l2, h1_seminorm_error=h1, cg_iterations=int(res.num_iterations))
+
+
 def solve_poisson_assembled(
     mesh: Mesh,
     rule,
@@ -127,9 +213,7 @@ def solve_poisson_assembled(
     dev = space.X_geo.device
     tab = tabulate(mesh.element, rule)
     E, n = mesh.num_cells, mesh.element.num_nodes
-    # the element matrices in chunks bound the contraction transients (same per-element math)
-    chunk = 65536 if E * (n * s) ** 2 > 2**27 else None
-    A_el = assemble_element_elliptic_matrices(space.X_geo, None, op, None, tab, chunk=chunk)
+    A_el = assemble_element_elliptic_matrices(space.X_geo, None, op, None, tab, chunk=_element_chunk(E, n, s))
     plan = block_dia_assembly_plan(mesh.cells, mesh.num_vertices, s, max_diagonals=max_diagonals,
                                    min_fill=min_fill, device=dev)
     num_chunks = max(1, -(-(E * (n * s) ** 2) // 2**27))

@@ -1,25 +1,67 @@
-"""Procedural hex8 and tet4 meshes.
+"""Procedural quad4, tri3, hex8 and tet4 meshes.
 
-Counterpart of ``create_rectangular_uniform_hex_mesh``,
+Counterpart of ``create_rectangular_uniform_quad_mesh_2d``,
+``create_unit_square_uniform_quad_mesh_2d``,
+``create_unit_square_uniform_tri_mesh_2d``,
+``create_rectangular_uniform_hex_mesh``,
 ``create_unit_box_uniform_hex_mesh_3d``, ``create_rectangular_uniform_tet_mesh``
 and ``create_unit_box_uniform_tet_mesh_3d`` in ``fenris_tpu/mesh/procedural.py``
-(procedural.rs:216, :30, :286, :37), with the same vertex and cell
-numbering, so vectors compare one to one.
+(procedural.rs:46, :15, :22, :216, :30, :286, :37), with the same vertex
+and cell numbering, so vectors compare one to one.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..reference_elements import HEX8, TET4
+from ..reference_elements import HEX8, QUAD4, TET4
 from . import Mesh
 
 __all__ = [
+    "create_rectangular_uniform_quad_mesh_2d",
+    "create_unit_square_uniform_quad_mesh_2d",
+    "create_unit_square_uniform_tri_mesh_2d",
     "create_rectangular_uniform_hex_mesh",
     "create_unit_box_uniform_hex_mesh_3d",
     "create_rectangular_uniform_tet_mesh",
     "create_unit_box_uniform_tet_mesh_3d",
 ]
+
+
+def create_rectangular_uniform_quad_mesh_2d(
+    unit_length: float, units_x: int, units_y: int, cells_per_unit: int, top_left=(0.0, 1.0)
+) -> Mesh:
+    """Uniform quad mesh of ``units_x x units_y`` squares of side ``unit_length`` below and right of
+    ``top_left``.
+
+    Vertices are numbered row by row from the top left (x fastest, rows
+    going down in y); cells likewise, each as (bottom left, bottom right,
+    top right, top left).
+    """
+    if cells_per_unit == 0 or units_x == 0 or units_y == 0:
+        return Mesh(np.zeros((0, 2)), np.zeros((0, 4), np.int32), QUAD4)
+    cell = float(unit_length) / cells_per_unit
+    ncx, ncy = units_x * cells_per_unit, units_y * cells_per_unit
+    j, i = np.meshgrid(np.arange(ncy + 1), np.arange(ncx + 1), indexing="ij")
+    pts = np.stack([top_left[0] + i.reshape(-1) * cell, top_left[1] - j.reshape(-1) * cell], axis=-1)
+
+    def vid(ii, jj):
+        return (ncx + 1) * jj + ii
+
+    cj, ci = np.meshgrid(np.arange(ncy), np.arange(ncx), indexing="ij")
+    ci, cj = ci.reshape(-1), cj.reshape(-1)
+    cells = np.stack([vid(ci, cj + 1), vid(ci + 1, cj + 1), vid(ci + 1, cj), vid(ci, cj)], axis=-1)
+    return Mesh(pts, cells, QUAD4)
+
+
+def create_unit_square_uniform_quad_mesh_2d(cells_per_dim: int) -> Mesh:
+    """Uniform quad mesh of the unit square with ``cells_per_dim`` cells per axis."""
+    return create_rectangular_uniform_quad_mesh_2d(1.0, 1, 1, cells_per_dim, (0.0, 1.0))
+
+
+def create_unit_square_uniform_tri_mesh_2d(cells_per_dim: int) -> Mesh:
+    """The unit square's quad mesh with every quad split into two triangles (``Mesh.split_into_triangles``)."""
+    return create_unit_square_uniform_quad_mesh_2d(cells_per_dim).split_into_triangles()
 
 
 def create_rectangular_uniform_hex_mesh(

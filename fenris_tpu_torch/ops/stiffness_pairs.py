@@ -114,6 +114,21 @@ def supports_stiffness_kernel(op, params, tab, X_geo) -> bool:
     )
 
 
+_table_cache: dict = {}
+
+
+def device_tables(tables: np.ndarray, device) -> torch.Tensor:
+    """The kernel's f32 tables on ``device``, copied once per content (callers pass the same tabulation
+    every call), so a launch does no host-to-device copy."""
+    key = (tables.tobytes(), str(device))
+    t = _table_cache.get(key)
+    if t is None:
+        if len(_table_cache) > 16:
+            _table_cache.clear()
+        t = _table_cache[key] = torch.from_numpy(tables.astype(np.float32)).to(device)
+    return t
+
+
 def stiffness_pairs(X_geo: torch.Tensor, op, params, tab) -> torch.Tensor:
     """Constant-contraction element matrices in the pairs layout ``[s², n², E]``."""
     if X_geo.device.type == "cpu":
@@ -133,8 +148,7 @@ def stiffness_pairs(X_geo: torch.Tensor, op, params, tab) -> torch.Tensor:
         raise ValueError(f"stiffness_pairs: X_geo must be contiguous [E, {m}, {d}]")
     E = X_geo.shape[0]
     ld = -(-E // _LANES) * _LANES  # row stride: 128-byte aligned rows
-    # pinned and asynchronous: a pageable copy would synchronise the stream
-    tables_d = torch.from_numpy(tables.astype(np.float32)).pin_memory().to(X_geo.device, non_blocking=True)
+    tables_d = device_tables(tables, X_geo.device)
     cf = np.ascontiguousarray(C, dtype=np.float32)  # read by the launcher on the host
     out = torch.empty((s * s, n * n, ld), dtype=torch.float32, device=X_geo.device)
     lib = load_library()

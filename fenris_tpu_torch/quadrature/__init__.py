@@ -4,7 +4,8 @@ Counterpart of ``fenris_tpu/quadrature/``: univariate Gauss and
 Gauss-Jacobi rules, tensor-product rules for quads and hexes, the
 minimum-point Witherden–Vincent tables (``polyquad``, the port's own copy
 of ``_polyquad_data.npz``), collapsed-coordinate simplex rules beyond the
-tables, total-order selection and the canonical per-element rules.  Point
+tables, total-order selection, the canonical per-element rules and
+composite rules by subdivision (``subdivide``).  Point
 orders are the JAX package's, so tabulations match it entry for entry.
 
 A rule is a ``Rule(weights[q], points[q, d])`` pair of float64 arrays.
@@ -28,6 +29,9 @@ __all__ = [
     "polyquad",
     "simplex",
     "total_order",
+    "subdivide",
+    "subdivide_univariate",
+    "subdivide_triangle",
 ]
 
 
@@ -46,7 +50,8 @@ class Rule(NamedTuple):
         return self.points.shape[1]
 
 
-from . import polyquad, simplex, total_order  # noqa: E402
+from . import polyquad, simplex, subdivide, total_order  # noqa: E402
 from .canonical import canonical_mass, canonical_stiffness  # noqa: E402
+from .subdivide import subdivide_triangle, subdivide_univariate  # noqa: E402
 from .tensor import hexahedron_gauss, quadrilateral_gauss, tensor_product  # noqa: E402
 from .univariate import gauss, gauss_jacobi  # noqa: E402

@@ -1,4 +1,4 @@
-"""Sparse linear algebra: the Krylov solver and the block-DIA/ELL operators."""
+"""Sparse linear algebra: the Krylov solver, CSR matrices and the block-DIA/ELL operators."""
 
 from .block_dia import (
     BlockDiaMatrix,
@@ -17,6 +17,7 @@ from .cg import (
     CgResult,
     conjugate_gradient,
 )
+from .csr import CsrMatrix, from_pattern, spmv, to_dense
 from .dia_kernel import block_dia_operator
 
 __all__ = [
@@ -26,6 +27,10 @@ __all__ = [
     "CG_MAX_ITER",
     "CG_INDEFINITE_OPERATOR",
     "CG_INDEFINITE_PRECONDITIONER",
+    "CsrMatrix",
+    "from_pattern",
+    "spmv",
+    "to_dense",
     "BlockDiaMatrix",
     "BlockEllMatrix",
     "assemble_block_dia",

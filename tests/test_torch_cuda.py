@@ -584,3 +584,102 @@ def test_poisson_elements_on_card_match_cpu(name, route, cuda_device):
     assert rel_err(cpu.u, card.u) < 1e-4
     assert abs(card.l2_error - cpu.l2_error) <= 1e-3 * cpu.l2_error
     assert abs(card.h1_seminorm_error - cpu.h1_seminorm_error) <= 1e-3 * cpu.h1_seminorm_error
+
+
+# -- the 2D slice: the stiffness kernel at d = 2, CSR assembly and the CSR product ----------------
+
+
+def square_mesh(name, res):
+    """The unit square of ``name`` cells: quad4 or tri3 (split quads), converted for the others."""
+    from fenris_tpu_torch.mesh.procedural import create_unit_square_uniform_quad_mesh_2d as square
+    from fenris_tpu_torch.mesh.procedural import create_unit_square_uniform_tri_mesh_2d as tri_square
+
+    base = (tri_square if name.startswith("tri") else square)(res)
+    return base if name in ("tri3", "quad4") else convert_mesh(base, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "laplace"])
+@pytest.mark.parametrize("name", ["quad4", "quad8", "quad9", "tri3", "tri6"])
+def test_stiffness_kernel_on_2d_elements_on_card(name, kind, cuda_device):
+    """The kernel's d = 2 branch (2x2 Jacobian and inverse), 77 elements (a ragged last tile) of a
+    perturbed square, Laplace (s = 1) and 2D linear elasticity (s = 2): against the plain version,
+    bitwise repeats, the launch count and exact mirror blocks."""
+    op, params = ((LaplaceOperator(), None) if kind == "laplace" else
+                  (MaterialEllipticOperator(LinearElasticMaterial(), dim=2), LameParameters(MU, LAM)))
+    mesh = square_mesh(name, 4)
+    m, n = mesh.element.geometry.num_nodes, mesh.element.num_nodes
+    pts = mesh.points + rng(17).uniform(-0.03, 0.03, mesh.points.shape)
+    X = np.concatenate([pts[mesh.cells[:, :m]]] * -(-77 // mesh.num_cells))[:77]
+    Xt = torch.as_tensor(X, dtype=torch.float32, device=cuda_device)
+    tab = tabulate(element(name), canonical_stiffness(name))
+    assert tsk.supports_stiffness_kernel(op, params, tab, Xt)
+    before = tsk.stiffness_pairs.launches
+    got = tsk.stiffness_pairs(Xt, op, params, tab)
+    again = tsk.stiffness_pairs(Xt, op, params, tab)
+    torch.cuda.synchronize()
+    assert tsk.stiffness_pairs.launches == before + 2
+    s = op.solution_dim
+    assert got.shape == (s * s, n * n, 77)
+    assert rel_err(tsk.stiffness_pairs_plain(Xt, op, params, tab), got) < KERNEL_RTOL
+    assert torch.equal(got, again)
+    blocks = got.reshape(s, s, n, n, 77)
+    for i in range(s):
+        for j in range(i + 1, s):
+            assert torch.equal(blocks[j, i], blocks[i, j].transpose(0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2])
+def test_csr_assembly_and_product_on_card(s, cuda_device):
+    """The CSR pattern built on the card equals the CPU's; ``assemble_csr`` and the CSR product are
+    bitwise repeatable on the card and equal the CPU's f64 results to f32 roundoff (1e-5)."""
+    from fenris_tpu_torch.assembly import global_ as G
+    from fenris_tpu_torch.sparse.csr import from_pattern
+
+    mesh = square_mesh("tri6", 6)
+    card, cpu = (G.csr_pattern(mesh.cells, mesh.num_vertices, s, device=d) for d in (cuda_device, "cpu"))
+    for field in ("row_ptr", "col_indices", "scatter_indices", "rows_of_nnz", "diag_positions"):
+        assert torch.equal(getattr(card, field).cpu(), getattr(cpu, field)), field
+    E, nd, _ = cpu.scatter_indices.shape
+    el = rng(18).standard_normal((E, nd, nd))
+    el32 = torch.as_tensor(el, dtype=torch.float32, device=cuda_device)
+    values = G.assemble_csr(el32, card)
+    assert torch.equal(values, G.assemble_csr(el32, card))
+    ref = G.assemble_csr(torch.as_tensor(el), cpu)
+    assert rel_err(ref, values) < KERNEL_RTOL
+    x = rng(19).standard_normal(cpu.num_cols)
+    A = from_pattern(card, values)
+    x32 = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+    y = A @ x32
+    for _ in range(5):
+        assert torch.equal(y, A @ x32)
+    assert rel_err(from_pattern(cpu, ref) @ torch.as_tensor(x), y) < KERNEL_RTOL
+    assert rel_err(from_pattern(cpu, ref).diagonal(), A.diagonal()) < KERNEL_RTOL
+
+
+@pytest.mark.cuda
+def test_solve_poisson_on_card_matches_cpu(cuda_device):
+    """The CSR route, f32 on a res-8 tri6 square on the card against the CPU: solutions within 1e-4
+    relative (CG at rel 1e-6 on both), errors within 1e-3."""
+    from fenris_tpu_torch import fem
+    from fenris_tpu_torch.quadrature import total_order
+
+    mesh = square_mesh("tri6", 8)
+
+    def u_exact(x):
+        return torch.sin(np.pi * x[0]) * torch.sin(np.pi * x[1])
+
+    def u_exact_grad(x):
+        return np.pi * torch.stack([torch.cos(np.pi * x[0]) * torch.sin(np.pi * x[1]),
+                                    torch.sin(np.pi * x[0]) * torch.cos(np.pi * x[1])])
+
+    nd = np.flatnonzero(np.abs(mesh.points - 0.5).max(axis=1) > 0.4999)
+    args = (mesh, total_order.triangle(2), total_order.triangle(6), lambda x, p: 2.0 * np.pi**2 * u_exact(x), u_exact,
+            u_exact_grad, nd)
+    card = fem.solve_poisson(*args, rel_tolerance=1e-6, dtype=torch.float32, device=cuda_device)
+    cpu = fem.solve_poisson(*args, rel_tolerance=1e-6, dtype=torch.float32, device="cpu")
+    assert card.u.device.type == "cuda"
+    assert rel_err(cpu.u, card.u) < 1e-4
+    assert abs(card.l2_error - cpu.l2_error) <= 1e-3 * cpu.l2_error
+    assert abs(card.h1_seminorm_error - cpu.h1_seminorm_error) <= 1e-3 * cpu.h1_seminorm_error

@@ -51,16 +51,26 @@ GATE = {
 }
 
 
+# the base (corner) element and unit-cube or unit-square producer of each element family
+BASE = {"tet": ("tet4", "create_unit_box_uniform_tet_mesh_3d"), "hex": ("hex8", "create_unit_box_uniform_hex_mesh_3d"),
+        "tri": ("tri3", "create_unit_square_uniform_tri_mesh_2d"),
+        "quad": ("quad4", "create_unit_square_uniform_quad_mesh_2d")}
+
+
+def base_element(name):
+    return BASE[name.rstrip("0123456789")][0]
+
+
 def torch_mesh(name, res):
-    base = TP.create_unit_box_uniform_tet_mesh_3d(res) if name.startswith("tet") else \
-        TP.create_unit_box_uniform_hex_mesh_3d(res)
-    return base if name in ("tet4", "hex8") else convert_mesh(base, name)
+    base_name, producer = BASE[name.rstrip("0123456789")]
+    base = getattr(TP, producer)(res)
+    return base if name == base_name else convert_mesh(base, name)
 
 
 def jax_mesh(name, res):
-    base = JP.create_unit_box_uniform_tet_mesh_3d(res) if name.startswith("tet") else \
-        JP.create_unit_box_uniform_hex_mesh_3d(res)
-    return base if name in ("tet4", "hex8") else jax_convert(base, name)
+    base_name, producer = BASE[name.rstrip("0123456789")]
+    base = getattr(JP, producer)(res)
+    return base if name == base_name else jax_convert(base, name)
 
 
 # -- the MMS problem (tests/mms_common.py:32-54) ---------------------------------------------
@@ -132,14 +142,14 @@ def test_total_order_rules_match_jax(domain):
 # -- meshes --------------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ELEMENTS_3D)
+@pytest.mark.parametrize("name", ELEMENTS_3D + ["tri6", "quad8", "quad9"])
 def test_procedural_and_converted_meshes_match_jax(name):
     tm, jm = torch_mesh(name, 2), jax_mesh(name, 2)
     np.testing.assert_array_equal(tm.cells, jm.cells)
     assert np.abs(tm.points - jm.points).max() <= 1e-15
     np.testing.assert_array_equal(tm.diameters(), jm.diameters())
     # the corner vertices keep their indices
-    base = torch_mesh(name[:3] + ("4" if name.startswith("tet") else "8"), 2)
+    base = torch_mesh(base_element(name), 2)
     np.testing.assert_array_equal(tm.cells[:, : base.cells.shape[1]], base.cells)
     carried = mesh_from_arrays(np.asarray(jm.points), np.asarray(jm.cells), jm.element.name)
     assert carried.element is element(name) and np.array_equal(carried.cells, tm.cells)
