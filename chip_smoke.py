@@ -111,6 +111,21 @@ must pass and none skip) and drives the port's paths at full size:
   the true f64 residual, then the CSR product's GB/s (bitwise
   repeatable) and the s = 1 band sweep, gather and scatter at those
   shapes (their records join the kernel line);
+* the element sweeps at d = 2 and with per-element Lame parameters: the
+  strided sweeps of the five 2D elements on ragged squares beside the 3D
+  ones; M2D, on B2's meshes after the RCM, the s = 2 gather and scatter
+  (against ``index_select`` and ``index_add_``) and each material's fused
+  sweeps against their plain versions, timed, with one capped f32 Newton
+  step of each material for their launches; S2D, ``solve_mixed`` of
+  tools/solve_assembled.py's problem in 2D (x = 0 clamped, gravity
+  (0, -4)) on quad9 and tri6 at res 128 to an independent f64 residual
+  <= 1e-10, the tangent sweep in every CG iteration (and two Newton steps
+  at res 512, where the f32 inner solves stall, logged); ME, the fused sweeps
+  with two-material per-element parameters at C1's hex8 layout and on
+  tet10 against their plain versions, an array of one repeated value
+  bitwise equal to the scalar launch, timed beside it; PE10,
+  ``solve_mixed`` on S10's tet10 mesh with those parameters, checked by an
+  independent f64 model holding them in the mesh's element order;
 * C2-MG: path C2's problem on 18^3 cells refined three times (9,145,875
   dofs, RCM-reordered on the card in under 20 s) under
   ``GeometricMGPreconditioner(banded=True)``, ``solve_mixed`` to the
@@ -127,8 +142,8 @@ plain version's, one PyTorch library call's where one computes the same
 function (else null), and its bound: the larger of its bytes over 3.35
 TB/s and its f32 operations over 67 TFLOP/s (H100 SXM peaks), from this
 run's inputs.  ``ptxas`` lines (registers, shared memory, spills) of the
-stencil, gather, stiffness kernels and all 72 element-sweep instantiations
-(6 elements x 3 materials x 4 modes) are printed, and a spill in any of
+stencil, gather, stiffness kernels and all 132 element-sweep instantiations
+(11 elements x 3 materials x 4 modes) are printed, and a spill in any of
 them, or a missing instantiation, fails the run.  The card's
 ``nvidia-smi`` name and power limit are printed on a line of their own;
 the second-to-last line of standard
@@ -206,6 +221,18 @@ MMS_2D = {
 }
 P2D_MESHES = {"quad9": (512, *MMS_2D["quad9"]), "tri6": (512, *MMS_2D["tri6"])}
 F32_TOL_P2D = 1e-2
+# the element sweeps at d = 2 and with per-element Lame parameters.  M2D: the fused sweeps on B2's meshes after
+# the RCM (P2D's for quad9 and tri6).  S2D: tools/solve_assembled.py's problem in 2D (Neo-Hookean, x = 0
+# clamped, gravity BODY_2D) on quad9 and tri6, solve_mixed to 1e-10, at res RES_S2D (132,098 dofs): the f32
+# inner solves contract ~kappa eps_f32 a Newton step, and kappa grows as res^2 in 2D; at res 512 (2,101,250
+# dofs) a step cuts the residual by ~0.3% (s2d_stall logs it) and at res 256 tri6 stalled at 1.2e-10, while
+# at res 128 both meshes converge in 5 steps.  Its Jacobi CG takes ~11 x res iterations a Newton step.  PE10: S10's mesh and load
+# with two materials PE10_CONTRAST apart (the element's centroid at x > 0.5), each value varied by up to 10%
+# (seed 13).  Both raise the CG cap past the default 2,000 to SLICE_CG_MAX_ITER.
+BODY_2D = (0.0, -4.0)
+RES_S2D = 128
+PE10_CONTRAST = 10.0
+SLICE_CG_MAX_ITER = 20000
 # C2-MG: path C2's problem on 18^3 cells refined three times (144^3 = 2,985,984 hex8, 9,145,875 dofs)
 RES_MG_COARSE = 18
 MG_LEVELS = 3
@@ -215,51 +242,56 @@ CARD_TESTS_TIMEOUT_S = 300
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # f32 operations of the element sweeps per element, counted at the fewest the arithmetic allows (a
-# multiply and an add are two, a division, reciprocal, comparison or log1p one): per point, geometry J
-# from node-relative coordinates 9 (2m - 3) + J^-1 and det 42 + weight 1; then the fewer of two forms
-# of the gradients and the contraction: with the basis gradients gp (15n), each field's gradient
-# (9 sums of n products, 9 (2n - 1)), the stress scaled by the weight 9 and the contraction 18n (3n
-# sums of 3 products and the sum over points); or with each field's reference gradient (9 (2n - 1))
-# turned physical by J^-1 (45), T = w|det| J^-1 P^T 54 and the contraction 18n; then the material
-# (EM_MATERIAL_OPS).  Once an element, the node-relative coordinates 3 (m - 1).  The fields: u for
-# the vector sweep, u and v for the tangent, v alone for the linear tangent.  The structured
-# stencils: stencil_ops.
+# multiply and an add are two, a division, reciprocal, comparison or log1p one), for d = s in {2, 3}: per
+# point, geometry J from node-relative coordinates d^2 (2m - 3) + J^-1 and det (STIFFNESS_INV_OPS) + weight 1;
+# then the fewer of two forms of the gradients and the contraction: with the basis gradients gp
+# (n d (2d - 1)), each field's gradient (d^2 sums of n products, d^2 (2n - 1)), the stress scaled by the
+# weight d^2 and the contraction 2 n d^2 (n d sums of d products and the sum over points); or with each
+# field's reference gradient (d^2 (2n - 1)) turned physical by J^-1 (d^2 (2d - 1)), T = w|det| J^-1 P^T
+# (2 d^3) and the contraction 2 n d^2; then the material (EM_MATERIAL_OPS).  Once an element, the
+# node-relative coordinates d (m - 1).  The fields: u for the vector sweep, u and v for the tangent, v alone
+# for the linear tangent.  The structured stencils: stencil_ops.
 EM_MATERIAL_OPS = {
-    # Neo-Hookean kinematics (F, gamma, log1p, adjugate, det, F^-T, alpha) 78, then the stress P 27 or
-    # the tangent 153 (tr(F^-1 dF) 17, F^-T dF^T 45, dF^-T 45, dP 46)
-    ("NeoHookeanMaterial", False): 78 + 27,
-    ("NeoHookeanMaterial", True): 78 + 153,
-    # StVK: F 3, E = (F^T F - I) / 2 39, lam tr E 3, S 9; then P = F S 45, or F^T dF 45, lam tr 3,
-    # dS 15, dP = dF S + F dS 99
-    ("StVKMaterial", False): 54 + 45,
-    ("StVKMaterial", True): 54 + 162,
-    # linear: lam tr G 3, P = mu (G + G^T) + lam tr I 15, of G or of grad v
-    ("LinearElasticMaterial", False): 18,
-    ("LinearElasticMaterial", True): 18,
+    # Neo-Hookean kinematics (F, gamma, log1p, adjugate, det, F^-T, alpha): 3D 78, 2D 19 (F 2, gamma 5,
+    # log1p 2, det 3, its reciprocal 1, F^-T 4, alpha 2); then the stress P 27 / 12 or the tangent 153 / 52
+    # (tr(F^-1 dF) 17 / 7, F^-T dF^T 45 / 12, dF^-T 45 / 12, dP 46 / 21)
+    ("NeoHookeanMaterial", False): {3: 78 + 27, 2: 19 + 12},
+    ("NeoHookeanMaterial", True): {3: 78 + 153, 2: 19 + 52},
+    # StVK: F 3 / 2, E = (F^T F - I) / 2 39 / 14, lam tr E 3 / 2, S 9 / 5; then P = F S 45 / 12, or
+    # F^T dF 45 / 12, lam tr 3 / 2, dS 15 / 8, dP = dF S + F dS 99 / 28
+    ("StVKMaterial", False): {3: 54 + 45, 2: 23 + 12},
+    ("StVKMaterial", True): {3: 54 + 162, 2: 23 + 50},
+    # linear: lam tr G 3 / 2, P = mu (G + G^T) + lam tr I 15 / 8, of G or of grad v
+    ("LinearElasticMaterial", False): {3: 18, 2: 10},
+    ("LinearElasticMaterial", True): {3: 18, 2: 10},
 }
 
 
-def em_sweep_ops(m, n, q, material, tangent):
-    """f32 operations of one element's vector (``tangent=False``) or tangent sweep: ``m`` geometry and
-    ``n`` solution nodes, ``q`` points, ``material`` the material's class name (EM_MATERIAL_OPS)."""
+def em_sweep_ops(m, n, q, material, tangent, d=3):
+    """f32 operations of one element's vector (``tangent=False``) or tangent sweep: d-dimensional elements of
+    ``m`` geometry and ``n`` solution nodes, ``q`` points, ``material`` the material's class name
+    (EM_MATERIAL_OPS)."""
     fields = 1 if not tangent or material == "LinearElasticMaterial" else 2
-    grad, out = 9 * (2 * n - 1), 18 * n
-    gp_form = 15 * n + fields * grad + 9 + out
-    reference_form = fields * (grad + 45) + 54 + out
-    point = 9 * (2 * m - 3) + 42 + 1 + min(gp_form, reference_form) + EM_MATERIAL_OPS[material, tangent]
-    return 3 * (m - 1) + q * point
+    grad, out = d * d * (2 * n - 1), 2 * n * d * d
+    gp_form = n * d * (2 * d - 1) + fields * grad + d * d + out
+    reference_form = fields * (grad + d * d * (2 * d - 1)) + 2 * d**3 + out
+    point = (d * d * (2 * m - 3) + STIFFNESS_INV_OPS[d] + 1 + min(gp_form, reference_form)
+             + EM_MATERIAL_OPS[material, tangent][d])
+    return d * (m - 1) + q * point
 
 
-def em_sweep_cost(plan, tab, op, tangent):
-    """``(bytes, f32 operations)`` of a fused banded sweep: the valid elements' X (3m floats) and node
-    indices, the per-block row counts, u (not for the linear tangent) and v once, every row written once;
-    the arithmetic of the valid elements only (a padding element's rows are zeros)."""
-    q, m, _ = tab.geo_dphi.shape
+def em_sweep_cost(plan, tab, op, tangent, per_element=False):
+    """``(bytes, f32 operations)`` of a fused banded sweep: the valid elements' X (d m floats) and node
+    indices, the per-block row counts, u (not for the linear tangent) and v once, every row written once, and
+    with ``per_element`` the valid elements' mu and lam (8 bytes an element); the arithmetic of the valid
+    elements only (a padding element's rows are zeros)."""
+    q, m, d = tab.geo_dphi.shape
     n, material = tab.dphi.shape[1], type(op.material).__name__
     fields = int(tangent) + int(not tangent or material != "LinearElasticMaterial")
-    nbytes = (3 * m * plan.num_elements + plan.node_rows.numel() + plan.block_rows.numel()
-              + fields * plan.num_nodes * 3 + plan.padded_elements * plan.n * 3) * 4
-    return nbytes, em_sweep_ops(m, n, q, material, tangent) * plan.num_elements
+    nbytes = (d * m * plan.num_elements + plan.node_rows.numel() + plan.block_rows.numel()
+              + fields * plan.num_nodes * d + plan.padded_elements * plan.n * d
+              + (2 * plan.num_elements if per_element else 0)) * 4
+    return nbytes, em_sweep_ops(m, n, q, material, tangent, d) * plan.num_elements
 
 
 def stencil_ops(cells, hvp):
@@ -406,11 +438,11 @@ def ptxas_report(build_log):
             st = re.search(r"stiffness_pairs_kernelILi(\d)ELi(\d)ELi(\d)E", m.group(1))
             if st:
                 label = f"stiffness_pairs (d = {st.group(1)}, {st.group(2)} pairs, {st.group(3)} a thread)"
-            em = re.search(r"sweep_kernelILb(\d)ELb(\d)ELi(\d+)ELi(\d+)ELi(\d)E", m.group(1))
+            em = re.search(r"sweep_kernelILb(\d)ELb(\d)ELi(\d)ELi(\d+)ELi(\d+)ELi(\d)E", m.group(1))
             if em:
-                banded, tangent, mm, nn, mat = (int(x) for x in em.groups())
+                banded, tangent, dd, mm, nn, mat = (int(x) for x in em.groups())
                 label = (f"em_sweep ({'banded' if banded else 'strided'} {'tangent' if tangent else 'vector'}, "
-                         f"{ELEMENTS[mm, nn]}, {list(MATERIALS)[mat]})")
+                         f"{ELEMENTS[dd, mm, nn]}, {list(MATERIALS)[mat]})")
         elif label and "spill stores" in line:
             found[label] = line.strip()
         elif label and "Used" in line and "registers" in line:
@@ -600,7 +632,8 @@ def structured_phases(kernels, dev, smi):
 
 
 def assembled_model(res, dtype, device, chunk_size, **kwargs):
-    """tools/solve_assembled.py's model: unit box, z = 0 clamped, body force (0, 0, -4)."""
+    """tools/solve_assembled.py's model: unit box, z = 0 clamped, body force (0, 0, -4); ``params``
+    (scalar by default) and ``mesh``, ``material`` may be given."""
     import numpy as np
 
     from fenris_tpu_torch.elasticity import HyperelasticModel
@@ -611,7 +644,7 @@ def assembled_model(res, dtype, device, chunk_size, **kwargs):
     return HyperelasticModel(
         mesh=mesh,
         material=kwargs.pop("material", None) or NeoHookeanMaterial(),
-        params=LameParameters(mu=MU, lam=LAM),
+        params=kwargs.pop("params", None) or LameParameters(mu=MU, lam=LAM),
         dirichlet_nodes=np.flatnonzero(mesh.points[:, 2] < 1e-12),
         body_force=np.array(BODY_A),
         dtype=dtype,
@@ -626,7 +659,7 @@ def displacement(model, seed):
     import torch
 
     g = torch.Generator(device=model.device).manual_seed(seed)
-    h = 1.0 / round(model.mesh.num_cells ** (1.0 / 3.0))
+    h = 1.0 / round(model.mesh.num_cells ** (1.0 / model.mesh.dim))
     u = (torch.rand(model.space.num_dofs, generator=g, device=model.device, dtype=model.dtype) * 2 - 1) * (0.01 * h)
     return torch.where(model.free_mask, u, 0.0)
 
@@ -1649,8 +1682,8 @@ def sweep_records(name, material):
 
 
 def ragged_element_sweeps(dev):
-    """The strided sweeps of every element and material on a perturbed res-3 box (a ragged last tile),
-    u ~ 1e-2 of a cell, v ~ N(0, 1), against their plain versions with bitwise repeats."""
+    """The strided sweeps of every element and material on a perturbed res-3 box or square (a ragged last
+    tile), u ~ 1e-2 of a cell, v ~ N(0, 1), against their plain versions with bitwise repeats."""
     import torch
 
     import fenris_tpu_torch.ops.em_sweep as es
@@ -1664,17 +1697,17 @@ def ragged_element_sweeps(dev):
     from fenris_tpu_torch.solid import LameParameters, MaterialEllipticOperator
 
     params = LameParameters(mu=MU, lam=LAM)
-    for name in es.ELEMENTS.values():
-        mesh = element_box(name, 3)
-        X = FemSpace.create(mesh, 3, torch.float32, dev).X_geo
+    for (d, _, _), name in es.ELEMENTS.items():
+        mesh = element_box(name, 3) if d == 3 else square_mesh(name, 3)
+        X = FemSpace.create(mesh, d, torch.float32, dev).X_geo
         g = torch.Generator(device=dev).manual_seed(51)
         X = (X + (torch.rand(X.shape, generator=g, device=dev) - 0.5) * 0.02).permute(1, 2, 0)
         tab = tabulate(mesh.element, canonical_stiffness(name))
         E, n = X.shape[-1], tab.dphi.shape[1]
-        u = (torch.rand((n, 3, E), generator=g, device=dev) - 0.5) * (0.02 / 3)
-        v = torch.randn((n, 3, E), generator=g, device=dev)
+        u = (torch.rand((n, d, E), generator=g, device=dev) - 0.5) * (0.02 / 3)
+        v = torch.randn((n, d, E), generator=g, device=dev)
         for material, cls in es.MATERIALS.items():
-            op = MaterialEllipticOperator(cls(), dim=3)
+            op = MaterialEllipticOperator(cls(), dim=d)
             txt = f"ragged {name} {material} E={E}"
             compare("em_vector_sweep", txt, es.em_vector_sweep(X, u, op, params, tab),
                     es.em_vector_sweep(X, u, op, params, tab), assemble_element_elliptic_vectors_em(X, u, op, params, tab))
@@ -1685,7 +1718,7 @@ def ragged_element_sweeps(dev):
 
 
 def element_sweep_checks(kernels, model, cell, dev, smi):
-    """M10/M20 on ``model``'s layout: the s = 3 gather and scatter at its n nodes a row, and for each
+    """M10/M20/M2D on ``model``'s layout: the gather and scatter at its n nodes a row and s = d, and for each
     material the fused tangent and vector sweeps, against their plain versions (rel <= KERNEL_RTOL,
     bitwise repeats, padding rows zero), timed in turns with them beside their bounds."""
     import torch
@@ -1695,21 +1728,21 @@ def element_sweep_checks(kernels, model, cell, dev, smi):
     from fenris_tpu_torch.solid import MaterialEllipticOperator
 
     plan, X, tables, tab, params = model._plan, model._X_band, model._em_tables, model.tab, model.params
-    N, n, pe, name = plan.num_nodes, plan.n, plan.padded_elements, model.mesh.element.name
+    N, n, pe, name, d = plan.num_nodes, plan.n, plan.padded_elements, model.mesh.element.name, model.mesh.dim
     shape_txt = f"{cell} {name} E={plan.num_elements} E_pad={pe} blocks={plan.k_blocks}"
     g = torch.Generator(device=dev).manual_seed(31)
-    w = torch.randn((N, 3), generator=g, device=dev)
-    f_el = torch.randn((pe, n, 3), generator=g, device=dev)
-    u = displacement(model, 32).reshape(N, 3)
-    v = torch.randn((N, 3), generator=g, device=dev)
+    w = torch.randn((N, d), generator=g, device=dev)
+    f_el = torch.randn((pe, n, d), generator=g, device=dev)
+    u = displacement(model, 32).reshape(N, d)
+    v = torch.randn((N, d), generator=g, device=dev)
     padding = ~(plan.valid_rows > 0).reshape(pe, n)[:, 0]
-    names = (f"banded_gather (s=3, {name})", f"banded_scatter (s=3, {name})")
+    names = (f"banded_gather (s={d}, {name})", f"banded_scatter (s={d}, {name})")
     for rec, fn, plain, arg in zip(names, (bd.banded_gather, bd.banded_scatter),
                                    (bd.banded_gather_plain, bd.banded_scatter_plain), (w, f_el)):
         kernels[rec]["max_abs_err"] = compare(fn.__name__, shape_txt, fn(plan, arg), fn(plan, arg), plain(plan, arg))
     runs = gather_scatter_runs(plan, w, f_el, dev, names)
     for material, cls in es.MATERIALS.items():
-        op = MaterialEllipticOperator(cls(), dim=3)
+        op = MaterialEllipticOperator(cls(), dim=d)
         for rec, fn, plain, args in zip(sweep_records(name, material),
                                         (es.banded_tangent_sweep, es.banded_vector_sweep),
                                         (es.banded_tangent_sweep_plain, es.banded_vector_sweep_plain),
@@ -1725,13 +1758,36 @@ def element_sweep_checks(kernels, model, cell, dev, smi):
     time_records(kernels, runs, shape_txt, smi)
 
 
-def element_solve(kernels, model, material, cell, setup_s, dev, smi, mixed):
-    """S10/S20: the fused model's ``solve_mixed`` to 1e-10, checked by an independent f64 model (``mixed``),
-    or its f32 ``solve`` capped at 2 Newton steps (1 for StVK and linear; ``|F| / |F0| <= 1e-1``), under
-    reset counts: wall and set-up time, Newton steps, CG iterations a step, ms a CG iteration, peak memory
-    and the launches of the tangent and vector sweeps, gather and scatter; no plain tangent sweep may run,
-    and the tangent sweep must carry every CG iteration.  ``solve_mixed`` takes its residuals in f64 on
-    the plain sweeps, so there the vector sweep's launches are those of one f32 ``model.residual``, which
+def operator_floor(model, fresh, x64):
+    """What bounds an f32 inner solve: ``|H32 x - H64 x| / |H64 x|`` for the f32 model's and the f64 model
+    ``fresh``'s Hessian actions at ``x64`` on ``x64`` itself (a smooth field)."""
+    import torch
+
+    hv64 = fresh.hessian_vector_product(x64, x64)
+    hv32 = model.hessian_vector_product(x64.float(), x64.float()).double()
+    return float(torch.linalg.vector_norm(hv32 - hv64) / torch.linalg.vector_norm(hv64))
+
+
+def solve_records(name, material, d, main_path):
+    """The records an element solve sets the launches of: the tangent and vector sweeps, and on the main
+    path (Neo-Hookean) the gather and scatter too."""
+    tangent, vector = sweep_records(name, material)
+    records = {"tangent": tangent, "vector": vector}
+    if main_path:
+        records.update(gather=f"banded_gather (s={d}, {name})", scatter=f"banded_scatter (s={d}, {name})")
+    return records
+
+
+def element_solve(kernels, model, records, cell, setup_s, dev, smi, mixed, check_model=None, max_ratio=1e-1,
+                  **solve_kwargs):
+    """S10/S20/S2D/PE10: the fused model's ``solve_mixed`` to 1e-10, checked by an independent f64 model
+    ``check_model(mesh)`` (``mixed``; default tools/solve_assembled.py's), or its f32 ``solve`` with
+    ``solve_kwargs`` (``|F| / |F0| <= max_ratio``; None: M2D's capped step, which only counts launches),
+    under reset counts: wall and set-up time, Newton steps, CG
+    iterations a step, ms a CG iteration, peak memory and the launches of the kernels of ``records``
+    (``{role: record}``, roles tangent, vector, gather, scatter; the records get them); no plain tangent sweep
+    may run, and the tangent sweep must carry every CG iteration.  ``solve_mixed`` takes its residuals in f64
+    on the plain sweeps, so there the vector sweep's launches are those of one f32 ``model.residual``, which
     must launch it once and no gather."""
     from unittest import mock
 
@@ -1741,10 +1797,7 @@ def element_solve(kernels, model, material, cell, setup_s, dev, smi, mixed):
     from fenris_tpu_torch.optimize import NEWTON_CONVERGED
 
     name = model.mesh.element.name
-    tangent_rec, vector_rec = sweep_records(name, material)
-    records = {"tangent": tangent_rec} if mixed else {"tangent": tangent_rec, "vector": vector_rec}
-    if material == "neo_hookean":  # the main path's run: the gather's and scatter's launches too
-        records.update(gather=f"banded_gather (s=3, {name})", scatter=f"banded_scatter (s=3, {name})")
+    solve_roles = {role: rec for role, rec in records.items() if not (mixed and role == "vector")}
     inner_times, diag_times, history, cg_iters, plain_calls = [], [], [], [], []
     # instance attributes shadow the methods for this solve only
     model._matrix_free_cg = timed(model._matrix_free_cg, inner_times)
@@ -1767,19 +1820,19 @@ def element_solve(kernels, model, material, cell, setup_s, dev, smi, mixed):
     t0 = time.perf_counter()
     with mock.patch.object(es, "banded_tangent_sweep_plain", counted_plain):
         if mixed:
-            res = model.solve_mixed(tolerance=1e-10, cg_rel_tolerance=1e-4, max_newton_iterations=30, callback=record)
+            res = model.solve_mixed(tolerance=1e-10, cg_rel_tolerance=1e-4, max_newton_iterations=30, callback=record,
+                                    **solve_kwargs)
         else:
-            res = model.solve(max_newton_iterations=2 if material == "neo_hookean" else 1, cg_rel_tolerance=1e-4,
-                              callback=record)
+            res = model.solve(cg_rel_tolerance=1e-4, callback=record, **solve_kwargs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {role: kernels[rec]["fn"].launches for role, rec in records.items()}
-    for role, rec in records.items():
+    launches = {role: kernels[rec]["fn"].launches for role, rec in solve_roles.items()}
+    for role, rec in solve_roles.items():
         kernels[rec]["launches"] = launches[role]
     del model._matrix_free_cg, model.hessian_diagonal
     t_inner, t_diag, iters = sum(inner_times), sum(diag_times), max(sum(cg_iters), 1)
     ratio = res.residual_norm / history[0]
-    log(f"{cell}: {'solve_mixed' if mixed else 'f32 solve'} {name} {material} dofs={model.space.num_dofs}: "
+    log(f"{cell}: {'solve_mixed' if mixed else 'f32 solve'} {name} dofs={model.space.num_dofs}: "
         f"status={res.status} newton_iters={res.iterations} cg_iters={cg_iters} wall={wall:.3f} s (set-up "
         f"{setup_s:.3f} s before it: RCM, model and banded plan) |F|/|F0|={ratio:.6e}; Jacobi diagonals "
         f"{t_diag:.3f} s, CG {t_inner - t_diag:.3f} s ({(t_inner - t_diag) / iters * 1e3:.3f} ms per iteration), "
@@ -1792,7 +1845,7 @@ def element_solve(kernels, model, material, cell, setup_s, dev, smi, mixed):
           f"{cell}: {launches['tangent']} tangent sweeps for {sum(cg_iters)} CG iterations")
     check(all(c > 0 for c in launches.values()), f"{cell}: a kernel of the path was not launched: {launches}")
     if not mixed:
-        check(ratio <= 1e-1, f"{cell}: |F|/|F0| = {ratio:.3e} > 1e-1")
+        check(max_ratio is None or ratio <= max_ratio, f"{cell}: |F|/|F0| = {ratio:.3e} > {max_ratio}")
         return
     check(res.status == NEWTON_CONVERGED, f"{cell}: status {res.status}")
     x64 = res.x.detach().double()
@@ -1800,18 +1853,21 @@ def element_solve(kernels, model, material, cell, setup_s, dev, smi, mixed):
     reset_counts(kernels)
     model.residual(x64.float())
     torch.cuda.synchronize()
-    vector, gathers = kernels[vector_rec]["fn"].launches, kernels[f"banded_gather (s=3, {name})"]["fn"].launches
-    kernels[vector_rec]["launches"] = vector
+    vector = kernels[records["vector"]]["fn"].launches
+    gathers = kernels[records.get("gather", "banded_gather")]["fn"].launches
+    kernels[records["vector"]]["launches"] = vector
     log(f"{cell} one f32 residual: banded_vector_sweep launches {vector}, banded_gather {gathers}")
     check(vector == 1 and gathers == 0, f"{cell}: one residual launched {vector} vector sweeps and {gathers} gathers")
     free_memory()
     t0 = time.perf_counter()
-    fresh = assembled_model(None, torch.float64, dev, 8192, mesh=model.mesh)
+    fresh = (check_model or (lambda mesh: assembled_model(None, torch.float64, dev, 8192, mesh=mesh)))(model.mesh)
     true_r = float(torch.linalg.vector_norm(fresh.residual(x64)))
     r0 = float(torch.linalg.vector_norm(fresh.residual(torch.zeros_like(x64))))
     log(f"{cell} independent f64 residual: {true_r:.6e} (r0 {r0:.6e}, rel {true_r / r0:.6e}); "
         f"{time.perf_counter() - t0:.3f} s")
     check(true_r / r0 <= 1e-10, f"{cell}: independent relative residual {true_r / r0:.3e} > 1e-10")
+    log(f"{cell} the f32 Hessian action against the f64 one at the solution, on the solution: rel "
+        f"{operator_floor(model, fresh, x64):.3e}")
     del fresh, x64
     free_memory()
 
@@ -1821,7 +1877,7 @@ def element_sweep_phases(kernels, meshes, dev, smi):
     tet10 mesh after the RCM, M20, S20's ``solve_mixed`` and S20 (the f32 ``solve`` capped at 2 Newton steps)
     on B20's hex20 mesh after the RCM: ``meshes`` is ``{"tet10": (mesh, RCM seconds), "hex20": (mesh before
     the RCM, None)}``.  Then, for the StVK and linear records' launches, one f32 Newton step of each of
-    those materials on each mesh."""
+    those materials on each mesh; after tet10's, PE10 and ME on its mesh (pe10_phase)."""
     import torch
 
     import fenris_tpu_torch.ops.em_sweep as es
@@ -1829,7 +1885,8 @@ def element_sweep_phases(kernels, meshes, dev, smi):
 
     t0 = time.perf_counter()
     ragged_element_sweeps(dev)
-    log(f"ragged boxes, strided sweeps of 6 elements x 3 materials: {time.perf_counter() - t0:.3f} s")
+    log(f"ragged boxes and squares, strided sweeps of {len(es.ELEMENTS)} elements x 3 materials: "
+        f"{time.perf_counter() - t0:.3f} s")
     for name, cell in (("tet10", "10"), ("hex20", "20")):
         mesh, rcm_s = meshes[name]
         if rcm_s is None:
@@ -1848,15 +1905,235 @@ def element_sweep_phases(kernels, meshes, dev, smi):
                 f"(card), model with banded plan {model_s:.3f} s (blocks={plan.k_blocks}, E_pad={plan.padded_elements}, "
                 f"window {plan.wa} x 128 nodes)")
             main_path, setup_s = material == "neo_hookean", rcm_s + model_s
+            records = solve_records(name, material, 3, main_path)
             if main_path:  # S10 is the solve_mixed; S20 the capped f32 solve, after its solve_mixed
                 element_sweep_checks(kernels, model, f"M{cell}", dev, smi)
-                element_solve(kernels, model, material, f"S{cell}" if name == "tet10" else f"S{cell}-mixed", setup_s,
+                element_solve(kernels, model, records, f"S{cell}" if name == "tet10" else f"S{cell}-mixed", setup_s,
                               dev, smi, mixed=True)
             if not (main_path and name == "tet10"):
-                element_solve(kernels, model, material, f"S{cell}" if main_path else f"S{cell}-{material}", setup_s,
-                              dev, smi, mixed=False)
+                element_solve(kernels, model, records, f"S{cell}" if main_path else f"S{cell}-{material}", setup_s,
+                              dev, smi, mixed=False, max_newton_iterations=2 if main_path else 1)
             del model
             free_memory()
+        if name == "tet10":  # PE10 and ME on the same mesh
+            pe10_phase(kernels, mesh, rcm_s, dev, smi)
+
+
+def two_material_params(mesh, seed=13):
+    """PE10's per-element Lame parameters in ``mesh``'s element order: (MU, LAM) x PE10_CONTRAST where the
+    element's centroid lies at x > 0.5, else x 1, each times a factor in [0.9, 1.1] from a seeded numpy
+    generator (a kernel that read one element's value for all would not pass)."""
+    import numpy as np
+
+    from fenris_tpu_torch.solid import LameParameters
+
+    g = np.random.default_rng(seed)
+    stiff = np.where(mesh.points[mesh.cells].mean(1)[:, 0] > 0.5, PE10_CONTRAST, 1.0)
+    return LameParameters(MU * stiff * g.uniform(0.9, 1.1, mesh.num_cells),
+                          LAM * stiff * g.uniform(0.9, 1.1, mesh.num_cells))
+
+
+def per_element_sweep_checks(kernels, model, params, cell, names, dev, smi):
+    """ME on ``model``'s layout: the fused tangent and vector sweeps with per-element ``params`` (in the mesh's
+    element order, padded here as the model pads them) against their plain versions (rel <= KERNEL_RTOL,
+    bitwise repeats, padding rows zero); an ``[E]`` array of one repeated value bitwise against the scalar
+    launch; each timed in turns with its plain version beside its bound (8 bytes an element more), and
+    against the scalar launch.  ``names``: the tangent's and the vector sweep's records."""
+    import torch
+
+    import fenris_tpu_torch.ops.em_sweep as es
+    from fenris_tpu_torch.solid import LameParameters
+
+    plan, X, tables, tab, op = model._plan, model._X_band, model._em_tables, model.tab, model.operator
+    d, pe = model.mesh.dim, plan.padded_elements
+    index = torch.as_tensor(plan.element_index, device=dev)
+    padded = LameParameters(*(torch.as_tensor(x, dtype=torch.float32, device=dev)[index] for x in params))
+    repeated = LameParameters(torch.full((pe,), MU, device=dev), torch.full((pe,), LAM, device=dev))
+    scalar = LameParameters(MU, LAM)
+    shape_txt = f"{cell} {model.mesh.element.name} [E] E={plan.num_elements} E_pad={pe} blocks={plan.k_blocks}"
+    g = torch.Generator(device=dev).manual_seed(33)
+    u = displacement(model, 34).reshape(-1, d)
+    v = torch.randn(u.shape, generator=g, device=dev)
+    padding = ~(plan.valid_rows > 0).reshape(pe, plan.n)[:, 0]
+    runs = {}
+    for rec, fn, plain, args in zip(names, (es.banded_tangent_sweep, es.banded_vector_sweep),
+                                    (es.banded_tangent_sweep_plain, es.banded_vector_sweep_plain),
+                                    ((plan, X, u, v), (plan, X, u))):
+        run = lambda fn=fn, args=args, p=padded: fn(*args, op, p, tab, tables)  # noqa: E731
+        got = run()
+        kernels[rec]["max_abs_err"] = compare(fn.__name__, shape_txt, got, run(), plain(*args, op, padded, tab))
+        check(not bool(got[padding].any()), f"{fn.__name__} {shape_txt}: a padding row is not zero")
+        same = bool(torch.equal(fn(*args, op, repeated, tab, tables), fn(*args, op, scalar, tab, tables)))
+        log(f"{fn.__name__} {shape_txt}: an [E] array of one repeated value bitwise equal to the scalar launch: "
+            f"{same}")
+        check(same, f"{fn.__name__} {shape_txt}: a repeated-value [E] launch differs from the scalar launch")
+        e_ms, s_ms, txt = in_turns(run, lambda fn=fn, args=args: fn(*args, op, scalar, tab, tables), reps=10,
+                                   names=("[E]", "scalar"))
+        log(f"time {fn.__name__} {shape_txt}: {txt} ([E] / scalar {e_ms / s_ms:.4f}) ({smi})")
+        del got
+        runs[rec] = (run, lambda plain=plain, args=args: plain(*args, op, padded, tab), None,
+                     *em_sweep_cost(plan, tab, op, fn is es.banded_tangent_sweep, per_element=True), 5)
+    free_memory()
+    time_records(kernels, runs, shape_txt, smi)
+
+
+def pe10_phase(kernels, mesh, rcm_s, dev, smi):
+    """PE10 on S10's tet10 mesh (after the RCM) and load with two materials (two_material_params): ME's
+    checks of the fused sweeps with per-element parameters on its layout, then ``solve_mixed`` to 1e-10 by an
+    independent f64 unbanded model holding the parameters in the mesh's own element order (which also checks
+    the permutation and padding of the parameters), with the tangent sweep in every CG iteration."""
+    import torch
+
+    t0 = time.perf_counter()
+    params = two_material_params(mesh)
+    torch.cuda.synchronize()
+    model = assembled_model(None, torch.float32, dev, None, mesh=mesh, params=params, banded=True, fused_kernels=True)
+    torch.cuda.synchronize()
+    setup_s = rcm_s + time.perf_counter() - t0
+    names = ("em_vector_tangent_sweep (tet10, neo_hookean, [E])", "em_vector_sweep (tet10, neo_hookean, [E])")
+    per_element_sweep_checks(kernels, model, params, "ME", names, dev, smi)
+    element_solve(kernels, model, {"tangent": names[0], "vector": names[1]}, "PE10", setup_s, dev, smi, mixed=True,
+                  check_model=lambda m: assembled_model(None, torch.float64, dev, 8192, mesh=m, params=params),
+                  cg_max_iter=SLICE_CG_MAX_ITER)
+    del model
+    free_memory()
+
+
+def me_hex8_phase(kernels, model, dev, smi):
+    """ME on C1's res-149 hex8 layout (``model``, path C's): the fused sweeps with two-material per-element
+    parameters (per_element_sweep_checks); then, for their launches, one f32 Newton step of a fused model
+    with those parameters on C3's RCM-reordered res-63 box under reset counts (a second res-149 model would
+    cost its ~9 s of set-up)."""
+    import torch
+
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+
+    names = ("em_vector_tangent_sweep (hex8, [E])", "em_vector_sweep (hex8, [E])")
+    per_element_sweep_checks(kernels, model, two_material_params(model.mesh), "ME", names, dev, smi)
+    mesh, _ = reorder_mesh(create_unit_box_uniform_hex_mesh_3d(RES_C3), device=dev)
+    t0 = time.perf_counter()
+    small = assembled_model(None, torch.float32, dev, None, mesh=mesh, params=two_material_params(mesh), banded=True,
+                            fused_kernels=True)
+    torch.cuda.synchronize()
+    element_solve(kernels, small, {"tangent": names[0], "vector": names[1]}, f"ME res={RES_C3}",
+                  time.perf_counter() - t0, dev, smi, mixed=False, max_newton_iterations=1)
+    del small
+    free_memory()
+
+
+def model_2d(mesh, dtype, device, chunk_size=None, **kwargs):
+    """S2D's model: tools/solve_assembled.py's problem in 2D (Neo-Hookean unless ``material`` is given, the
+    nodes at x = 0 clamped, body force BODY_2D)."""
+    import numpy as np
+
+    from fenris_tpu_torch.elasticity import HyperelasticModel
+    from fenris_tpu_torch.solid import LameParameters, NeoHookeanMaterial
+
+    return HyperelasticModel(mesh=mesh, material=kwargs.pop("material", None) or NeoHookeanMaterial(),
+                             params=LameParameters(mu=MU, lam=LAM), dirichlet_nodes=np.flatnonzero(mesh.points[:, 0] < 1e-12),
+                             body_force=np.array(BODY_2D), dtype=dtype, device=device, chunk_size=chunk_size, **kwargs)
+
+
+def element_2d_phases(kernels, p2d_meshes, dev, smi):
+    """M2D on B2's meshes (``p2d_meshes``: P2D's quad9 and tri6 after the RCM, with its seconds) after the RCM
+    on the card: the s = 2 gather and scatter and each material's fused sweeps against their plain versions,
+    timed (element_sweep_checks), and, for their launches, one f32 Newton step of each material's fused
+    model (two for Neo-Hookean, each CG capped at 200 iterations: these steps count launches); then S2D and
+    its diagnostic at res 512 (s2d_stall)."""
+    import torch
+
+    import fenris_tpu_torch.ops.em_sweep as es
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+
+    for name, res in B2_MESHES.items():
+        if name in p2d_meshes:
+            mesh, rcm_s = p2d_meshes[name]
+        else:
+            mesh = square_mesh(name, res)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh, _ = reorder_mesh(mesh, device=dev)
+            rcm_s = time.perf_counter() - t0
+        for material, cls in es.MATERIALS.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = model_2d(mesh, torch.float32, dev, material=cls(), banded=True, fused_kernels=True)
+            torch.cuda.synchronize()
+            model_s, plan = time.perf_counter() - t0, model._plan
+            log(f"M2D {name} {material} model: {mesh.num_cells} cells, {model.space.num_dofs} dofs; RCM {rcm_s:.3f} s "
+                f"(card), model with banded plan {model_s:.3f} s (blocks={plan.k_blocks}, E_pad={plan.padded_elements}, "
+                f"window {plan.wa} x 128 nodes)")
+            main_path = material == "neo_hookean"
+            if main_path:
+                element_sweep_checks(kernels, model, "M2D", dev, smi)
+            element_solve(kernels, model, solve_records(name, material, 2, main_path), f"M2D-{name}-{material}",
+                          rcm_s + model_s, dev, smi, mixed=False, max_ratio=None,
+                          max_newton_iterations=2 if main_path else 1, cg_max_iter=200)
+            del model
+            free_memory()
+    s2d_phase(kernels, dev, smi)
+    s2d_stall(p2d_meshes["quad9"][0] if "quad9" in p2d_meshes else None, dev, smi)
+
+
+def s2d_stall(mesh, dev, smi, steps=2):
+    """Why S2D runs at res 128: two Newton steps of its ``solve_mixed`` at res 512 (P2D's quad9 mesh after the
+    RCM, 2,101,250 dofs), each step's contraction of the f64 residual logged (an f32 inner solve contracts it
+    by ~kappa eps_f32, kappa growing as res^2), then the f32 Hessian action against the f64 one on the last
+    iterate (a smooth field).  A diagnostic: nothing is required to converge."""
+    import torch
+
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+
+    if mesh is None:
+        mesh, _ = reorder_mesh(square_mesh("quad9", 512), device=dev)
+    model = model_2d(mesh, torch.float32, dev, banded=True, fused_kernels=True)
+    history, cg_iters = [], []
+
+    def record(k, fn, cg):
+        history.append(fn)
+        if cg is not None:
+            cg_iters.append(cg.num_iterations)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = model.solve_mixed(tolerance=1e-10, max_newton_iterations=steps, cg_max_iter=SLICE_CG_MAX_ITER,
+                            callback=record)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x64 = res.x.detach().double()
+    fresh = model_2d(mesh, torch.float64, dev, 8192)
+    floor = operator_floor(model, fresh, x64)
+    ratios = [f"{b / a:.4f}" for a, b in zip(history, history[1:])]
+    log(f"S2D at res 512 (quad9, {model.space.num_dofs} dofs): {steps} Newton steps of solve_mixed, CG iterations "
+        f"{cg_iters}, |F| {[f'{h:.4e}' for h in history]}, contraction a step {ratios}, wall {wall:.3f} s; the f32 "
+        f"Hessian action against the f64 one on the last iterate: rel {floor:.3e} ({smi})")
+    del model, fresh, x64
+    free_memory()
+
+
+def s2d_phase(kernels, dev, smi, res=RES_S2D):
+    """S2D: ``solve_mixed`` of the 2D problem (model_2d) on quad9 and tri6 at ``res`` after the RCM on the
+    card, to 1e-10 by an independent f64 unbanded model, with the tangent sweep in every CG iteration and no
+    plain tangent sweep (element_solve; launches are logged and checked, M2D's records keep theirs)."""
+    import torch
+
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+
+    for name in ("quad9", "tri6"):
+        t0 = time.perf_counter()
+        mesh, _ = reorder_mesh(square_mesh(name, res), device=dev)
+        model = model_2d(mesh, torch.float32, dev, banded=True, fused_kernels=True)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        records = solve_records(name, "neo_hookean", 2, True)
+        saved = {rec: kernels[rec].get("launches") for rec in records.values()}
+        element_solve(kernels, model, records, f"S2D {name} res={res}", setup_s, dev, smi, mixed=True,
+                      check_model=lambda m: model_2d(m, torch.float64, dev, 8192), cg_max_iter=SLICE_CG_MAX_ITER)
+        for rec, launches in saved.items():
+            kernels[rec]["launches"] = launches
+        del model
+        free_memory()
 
 
 def vcycle_profile(mg, model, wall_s, dev, smi):
@@ -2381,7 +2658,7 @@ def poisson_p2d(kernels, dev, smi):
     error times, CG iterations and ms per iteration, launches, and the true f64 relative residual, limit
     10x the larger of the CG tolerance and the route's operator floor; the routes' differences; then the
     CSR product's GB/s and the s = 1 band sweep, gather and scatter at these shapes (their records join
-    the kernel line)."""
+    the kernel line).  Returns the meshes after the RCM with its seconds."""
     from unittest import mock
 
     import numpy as np
@@ -2397,6 +2674,7 @@ def poisson_p2d(kernels, dev, smi):
 
     source, u_exact, u_exact_grad = mms_problem_2d()
     dirichlet = mms_problem()[3]
+    meshes = {}  # kept for M2D: {name: (mesh after the RCM, RCM seconds)}
     for name, (res, rule, err_rule) in P2D_MESHES.items():
         cell = f"P2D {name}"
         route_kernels = {"csr": (), "assembled": (f"dia_sweep (s=1, {cell})",),
@@ -2497,6 +2775,9 @@ def poisson_p2d(kernels, dev, smi):
         scalar_kernel_checks(kernels, matrix.bands, matrix.offsets, captured["plan"], dev, smi, cell=cell)
         del captured, matrix
         free_memory()
+        meshes[name] = (mesh, rcm_s)
+    return meshes
+
 
 def main() -> int:
     if not (ROOT / "fenris_tpu_torch").is_dir():
@@ -2611,6 +2892,31 @@ def main() -> int:
                                     replaces="fenris_tpu/ops/em_sweep.py:251")
             kernels[vector] = dict(fn=es.banded_vector_sweep, path=name, source=SOURCES["em_sweep"],
                                    replaces="fenris_tpu/ops/em_sweep.py:233")
+    # M2D: the fused sweeps of each 2D element and material, the gather and scatter at s = 2
+    for (d, _, _), name in es.ELEMENTS.items():
+        if d != 2:
+            continue
+        kernels[f"banded_gather (s=2, {name})"] = dict(
+            fn=bd.banded_gather, path=f"M2D {name}", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:285",
+        )
+        kernels[f"banded_scatter (s=2, {name})"] = dict(
+            fn=bd.banded_scatter, path=f"M2D {name}", source=SOURCES["banded"],
+            replaces="fenris_tpu/ops/banded.py:346",
+        )
+        for material in es.MATERIALS:
+            tangent, vector = sweep_records(name, material)
+            kernels[tangent] = dict(fn=es.banded_tangent_sweep, path=f"M2D {name}", source=SOURCES["em_sweep"],
+                                    replaces="fenris_tpu/ops/em_sweep.py:251")
+            kernels[vector] = dict(fn=es.banded_vector_sweep, path=f"M2D {name}", source=SOURCES["em_sweep"],
+                                   replaces="fenris_tpu/ops/em_sweep.py:233")
+    # ME: the fused sweeps with per-element Lame parameters on hex8 (C1's layout) and tet10 (PE10's)
+    for name in ("hex8", "tet10, neo_hookean"):
+        kernels[f"em_vector_tangent_sweep ({name}, [E])"] = dict(
+            fn=es.banded_tangent_sweep, path=f"ME {name[:5]}", source=SOURCES["em_sweep"],
+            replaces="fenris_tpu/ops/em_sweep.py:251")
+        kernels[f"em_vector_sweep ({name}, [E])"] = dict(
+            fn=es.banded_vector_sweep, path=f"ME {name[:5]}", source=SOURCES["em_sweep"],
+            replaces="fenris_tpu/ops/em_sweep.py:233")
     # B2: the stiffness kernel at d = 2, each element and operator
     for name in B2_MESHES:
         for kind in ("linear", "laplace"):
@@ -2674,6 +2980,9 @@ def main() -> int:
     path_c_kernels(kernels, model, dev, smi)
     log(f"phase path C1: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
+    me_hex8_phase(kernels, model, dev, smi)
+    log(f"phase ME hex8: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
     c2_cg_iters = path_c_solve(kernels, model, plan_s, x_a, dev, smi)
     log(f"phase path C2: {time.perf_counter() - t0:.3f} s")
     del model, x_a
@@ -2691,14 +3000,18 @@ def main() -> int:
     poisson_p149(kernels, dev, smi)
     log(f"phase P149: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
-    poisson_p2d(kernels, dev, smi)
+    p2d_meshes = poisson_p2d(kernels, dev, smi)
     log(f"phase P2D: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    element_2d_phases(kernels, p2d_meshes, dev, smi)
+    log(f"phase M2D, S2D: {time.perf_counter() - t0:.3f} s")
+    del p2d_meshes
     t0 = time.perf_counter()
     element_meshes["tet10"] = poisson_p40_tet10(kernels, element_meshes["tet10"], dev, smi)
     log(f"phase P40-tet10: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     element_sweep_phases(kernels, {**element_meshes, "hex20": (element_meshes["hex20"], None)}, dev, smi)
-    log(f"phase M10/M20, S10/S20: {time.perf_counter() - t0:.3f} s")
+    log(f"phase M10/M20, S10/S20, PE10 and ME tet10: {time.perf_counter() - t0:.3f} s")
     del element_meshes
     t0 = time.perf_counter()
     path_c2_mg(kernels, c2_cg_iters, dev, smi)

@@ -7,8 +7,14 @@ evaluations over the ``[E, q]`` batch axes and the quadrature reduction as
 one einsum.  The JAX package's element-minor (``local_em.py``) layouts are
 TPU layout; the port computes the same values in this layout.
 
-Parameters must be scalar (global) material parameters: per-element and
-per-quadrature-point parameter arrays are not ported yet.
+Material parameters follow the JAX package's leaf rules (``_vmap2``): a
+leaf whose leading axis has the element count ``E`` is per element, and
+per point as well when its next axis has the point count ``q`` (``[E,
+q]``); a leaf whose leading axis is ``q`` (and not ``E``) is per point,
+the same for every element; scalars and any other leaf are constants.
+When ``E == q`` a leading axis is read as per element.  Per-element and
+per-point leaves map through the operator with ``torch.func.vmap``;
+constant parameters call it directly.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 from torch.func import vmap
+from torch.utils import _pytree as pytree
 
 from ..quadrature import Rule
 from ..reference_elements import ReferenceElement
@@ -73,13 +80,91 @@ def _const(a, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=like.dtype, device=like.device)
 
 
-def _check_scalar_params(params) -> None:
-    leaves = params if isinstance(params, (tuple, list)) else ([] if params is None else [params])
-    for x in leaves:
-        if (isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim > 0) or isinstance(x, (tuple, list)):
-            raise NotImplementedError(
-                "per-element or per-point parameter arrays are not ported yet; pass scalars"
-            )
+def _is_array(x) -> bool:
+    return isinstance(x, (torch.Tensor, np.ndarray)) and x.ndim > 0
+
+
+def _leaf_axes(x, E: int, q: int):
+    """``(element axis, point axis)`` of one parameter leaf by JAX's ``_vmap2`` rules (None: not mapped)."""
+    if not _is_array(x):
+        return None, None
+    if x.shape[0] == E:
+        return 0, (0 if x.ndim >= 2 and x.shape[1] == q else None)
+    if x.shape[0] == q:
+        return None, 0
+    return None, None
+
+
+def has_mapped_params(params, E: int, q: int) -> bool:
+    """Whether a parameter leaf is per element or per point (by :func:`_leaf_axes`)."""
+    return any(_leaf_axes(x, E, q) != (None, None) for x in pytree.tree_leaves(params))
+
+
+def _leaf_tensor(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def _vmap2(fn, params, E: int, q: int):
+    """``fn(*Gs, params)`` mapped over the leading ``[E, q]`` axes of the ``Gs`` (JAX's ``_vmap2``).
+
+    Returns a function of ``(*Gs, params)``.  Per-element and per-point
+    leaves (:func:`_leaf_axes`) map with their axes, as tensors of the
+    first ``G``'s dtype and device; with none, ``fn`` itself is returned.
+    """
+    axes = [_leaf_axes(x, E, q) for x in pytree.tree_leaves(params)]
+    if all(a == (None, None) for a in axes):
+        return fn
+
+    def mapped(*args):
+        Gs, (leaves, spec) = args[:-1], pytree.tree_flatten(args[-1])
+        p = pytree.tree_unflatten(
+            [x if a == (None, None) else _leaf_tensor(x, Gs[0]) for x, a in zip(leaves, axes)], spec
+        )
+        inner = vmap(fn, in_dims=(0,) * len(Gs) + (pytree.tree_unflatten([a[1] for a in axes], spec),))
+        outer = vmap(inner, in_dims=(0,) * len(Gs) + (pytree.tree_unflatten([a[0] for a in axes], spec),))
+        return outer(*Gs, p)
+
+    return mapped
+
+
+def map_params(fn, params, batch_shape):
+    """``fn(*Gs, params)`` over ``Gs [*batch_shape, d, s]`` with element-minor parameter leaves
+    (JAX's ``local_em._pointwise_map``).
+
+    Returns a function of ``(*Gs, params)``.  A leaf whose last ``k`` axes
+    equal the last ``k`` batch axes maps with them (an ``[E]`` leaf over
+    the element axis of batch ``(E,)``); any other leaf is a constant.
+    With no mapped leaf, ``fn`` itself is returned.
+    """
+    nb = len(batch_shape)
+
+    def k_of(x):
+        k = 0
+        if _is_array(x):
+            while k < min(x.ndim, nb) and x.shape[x.ndim - 1 - k] == batch_shape[nb - 1 - k]:
+                k += 1
+        return k
+
+    ks = [k_of(x) for x in pytree.tree_leaves(params)]
+    if not any(ks):
+        return fn
+
+    def mapped(*args):
+        Gs, (leaves, spec) = args[:-1], pytree.tree_flatten(args[-1])
+        p = pytree.tree_unflatten([_leaf_tensor(x, Gs[0]) if k else x for x, k in zip(leaves, ks)], spec)
+        f = fn
+        for j in range(nb):  # level j maps batch axis j (the outermost level the last batch axis)
+            dims = pytree.tree_unflatten([-1 if k >= nb - j else None for k in ks], spec)
+            f = vmap(f, in_dims=(j,) * len(Gs) + (dims,), out_dims=j)
+        return f(*Gs, p)
+
+    return mapped
+
+
+def slice_params(params, E: int, index):
+    """The parameters of elements ``index`` (a slice or an index tensor): leaves with a leading axis
+    of length ``E`` are indexed, the others pass through."""
+    return pytree.tree_map(lambda x: x[index] if _is_array(x) and x.shape[0] == E else x, params)
 
 
 # ---------------------------------------------------------------------------
@@ -156,14 +241,14 @@ def _gradients_and_ugrad(X_geo, u_el, tab: Tabulation):
 def compute_element_elliptic_energy(X_geo, u_el, op, params, tab: Tabulation):
     """Per-element energies ``[E]`` (elliptic.rs:551)."""
     _, G, detJ = _gradients_and_ugrad(X_geo, u_el, tab)
-    psi = op.energy(G, params)  # [E, q]
+    psi = _vmap2(op.energy, params, X_geo.shape[0], tab.num_points)(G, params)  # [E, q]
     return torch.einsum("eq,eq->e", _wdet(tab, detJ), psi)
 
 
 def assemble_element_elliptic_vectors(X_geo, u_el, op, params, tab: Tabulation):
     """Element vectors ``f[e, n*s]``, f_I = ∫ g(∇u)^T ∇φ_I (elliptic.rs:457); node-major dofs."""
     gp, G, detJ = _gradients_and_ugrad(X_geo, u_el, tab)
-    gvals = op.g(G, params)  # [E, q, d, s]
+    gvals = _vmap2(op.g, params, X_geo.shape[0], tab.num_points)(G, params)  # [E, q, d, s]
     f = torch.einsum("eq,eqds,eqnd->ens", _wdet(tab, detJ), gvals, gp)
     return f.reshape(f.shape[0], -1)
 
@@ -174,8 +259,14 @@ def _affine_geometry(tab: Tabulation) -> bool:
     return bool(np.all(np.abs(gd - gd[:1]) < 1e-12))
 
 
-def _affine_const_applies(op, tab: Tabulation) -> bool:
-    return bool(getattr(op, "constant_contraction", False)) and _affine_geometry(tab)
+def _affine_const_applies(op, params, tab: Tabulation, E: int) -> bool:
+    """The constant-projector form: a constant contraction on affine elements, and no per-element or
+    per-point parameter (those take the general path, equal to roundoff)."""
+    return (
+        bool(getattr(op, "constant_contraction", False))
+        and _affine_geometry(tab)
+        and not has_mapped_params(params, E, tab.num_points)
+    )
 
 
 def assemble_element_elliptic_matrices(
@@ -187,17 +278,16 @@ def assemble_element_elliptic_matrices(
     contraction tensor D; symmetric operators are symmetrised.  ``chunk``
     bounds memory by assembling that many elements at a time.
     """
-    _check_scalar_params(params)
     if chunk and X_geo.shape[0] > chunk:
         return _chunked_elliptic_matrices(X_geo, u_el, op, params, tab, chunk)
-    if _affine_const_applies(op, tab):
+    if _affine_const_applies(op, params, tab, X_geo.shape[0]):
         return _elliptic_matrices_affine_const(X_geo, op, params, tab, "e")
     gp, G, detJ = _gradients_and_ugrad(X_geo, u_el, tab)
     s = op.solution_dim
     if G is None:
         E, q, _, d = gp.shape
         G = gp.new_zeros((E, q, d, s))
-    D = op.contraction(G, params)  # [E, q, d, s, d, s]
+    D = _vmap2(op.contraction, params, X_geo.shape[0], tab.num_points)(G, params)  # [E, q, d, s, d, s]
     # the small m-contraction first, then one batched product over (q, k)
     T = torch.einsum("eqkimj,eqpm->eqkipj", D, gp)
     A = torch.einsum("eq,eqnk,eqkipj->enipj", _wdet(tab, detJ), gp, T)
@@ -209,11 +299,24 @@ def assemble_element_elliptic_matrices(
 
 
 def _chunked_elliptic_matrices(X_geo, u_el, op, params, tab: Tabulation, chunk: int):
-    """Element matrices ``chunk`` elements at a time (same per-element math)."""
+    """Element matrices ``chunk`` elements at a time (same per-element math).
+
+    Per-element leaves (leading axis ``E``) are sliced with the geometry;
+    a constant leaf whose leading axis is ``chunk`` would read as per
+    element inside a chunk and raises ``ValueError``, as in the JAX package.
+    """
     E = X_geo.shape[0]
+    for x in pytree.tree_leaves(params):
+        if _is_array(x) and x.shape[0] == chunk != E:
+            raise ValueError(
+                f"chunk={chunk} collides with a constant parameter leaf of shape {tuple(x.shape)}: inside a "
+                "chunk it would read as per-element. Pick a different chunk size or give the leaf an explicit "
+                "leading axis."
+            )
     parts = [
         assemble_element_elliptic_matrices(
-            X_geo[e0 : e0 + chunk], None if u_el is None else u_el[e0 : e0 + chunk], op, params, tab
+            X_geo[e0 : e0 + chunk], None if u_el is None else u_el[e0 : e0 + chunk], op,
+            slice_params(params, E, slice(e0, e0 + chunk)), tab,
         )
         for e0 in range(0, E, chunk)
     ]
@@ -228,15 +331,17 @@ def assemble_element_elliptic_matrices_pairs(X_geo, u_el, op, params, tab: Tabul
     ``pallas="auto"``) sends constant-contraction f32 CUDA inputs to the
     hand-written stiffness kernel (:mod:`..ops.stiffness_pairs`);
     ``kernel=True`` forces its wrapper; ``False`` (the default, as in the
-    JAX package) is the plain formulation.
+    JAX package) is the plain formulation.  The kernel takes constant
+    parameters only: with per-element or per-point leaves ``"auto"`` runs
+    the plain pairs formulation, as the JAX package does (no TPU kernel
+    takes them there either).
     """
-    _check_scalar_params(params)
     if kernel in ("auto", True):
         from ..ops.stiffness_pairs import stiffness_pairs, supports_stiffness_kernel
 
         if kernel is True or supports_stiffness_kernel(op, params, tab, X_geo):
             return stiffness_pairs(X_geo, op, params, tab)
-    if _affine_const_applies(op, tab):
+    if _affine_const_applies(op, params, tab, X_geo.shape[0]):
         return _elliptic_matrices_affine_const(X_geo, op, params, tab, "pairs")
     return _elliptic_matrices_pairs(X_geo, u_el, op, params, tab)
 
@@ -265,15 +370,22 @@ def _elliptic_matrices_pairs(X_geo, u_el, op, params, tab: Tabulation):
     Jinv, det = _inv_det(J)
     wdet = _const(tab.weights, X_geo)[:, None] * det.abs()  # [q, E]
     Jmw = Jinv * wdet
-    const_D = bool(getattr(op, "constant_contraction", False))
+    mapped = has_mapped_params(params, E, q)
+    const_D = bool(getattr(op, "constant_contraction", False)) and not mapped
     if const_D:
         # independent of ∇u, position and element: evaluated once, unbatched
         D = op.contraction(X_geo.new_zeros((d, s)), params)  # [d, s, d, s]
     else:
-        dphi = _const(tab.dphi, X_geo)
-        gp = torch.einsum("qna,akqe->qenk", dphi, Jinv)  # [q, E, n, d]
-        G = torch.einsum("qenk,ens->qeks", gp, u_el)
-        D = op.contraction(G, params).permute(2, 3, 4, 5, 0, 1)  # [d, s, d, s, q, E]
+        if u_el is None:  # a constant contraction with per-element or per-point parameters
+            G = X_geo.new_zeros((q, E, d, s))
+        else:
+            dphi = _const(tab.dphi, X_geo)
+            gp = torch.einsum("qna,akqe->qenk", dphi, Jinv)  # [q, E, n, d]
+            G = torch.einsum("qenk,ens->qeks", gp, u_el)
+        if mapped:
+            D = _vmap2(op.contraction, params, E, q)(G.transpose(0, 1), params).permute(2, 3, 4, 5, 1, 0)
+        else:
+            D = op.contraction(G, params).permute(2, 3, 4, 5, 0, 1)  # [d, s, d, s, q, E]
     Wc_np = np.einsum("qna,qpb->abqnp", tab.dphi, tab.dphi).reshape(d * d * q, n * n)
     Wc = _const(Wc_np, X_geo)
 

@@ -11,8 +11,11 @@ where ``*batch`` is usually the element axis ``E``.  The functions are the
 plain versions of the fused element-sweep kernels (:mod:`..ops.em_sweep`).
 Inside, each quadrature point is one pass of batched tensor code over the
 element axis (a Python loop over points, no ``vmap``): the operator's
-pointwise functions see ``[*batch, d, s]`` gradients.  Material
-parameters are scalars, as in the rest of the port.  Only volumetric
+pointwise functions see ``[*batch, d, s]`` gradients.  A parameter leaf
+whose trailing axes equal the batch's (an ``[E]`` leaf: one value an
+element) maps with them through ``torch.func.vmap``, as the JAX package's
+``_params_levels`` rule has it; other leaves are constants, and
+per-point leaves are not taken on this path.  Only volumetric
 (square-jacobian) elements.
 """
 
@@ -21,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .local import Tabulation, _inv_det
+from .local import Tabulation, _inv_det, map_params
 
 __all__ = [
     "elliptic_vector_qp",
@@ -38,7 +41,8 @@ def params_to_element_minor(params, E: int):
     """Move a leading per-element axis of each parameter leaf to the end.
 
     Leaves with ``ndim >= 2`` and a leading axis of length ``E`` move it
-    last; scalars and 1-D leaves pass through unchanged.
+    last; scalars and 1-D leaves pass through unchanged (an ``[E]`` leaf is
+    already per element on the element axis here).
     """
     if params is None:
         return None
@@ -96,10 +100,15 @@ def _batch_first(g):
     return torch.movedim(g, (-2, -1), (0, 1))
 
 
+def _pointwise(fn, params, X_em, *Gs):
+    """``fn(*Gs, params)`` on ``[d, s, *batch]`` gradients, the result's matrix axes first."""
+    return map_params(fn, params, X_em.shape[2:])(*(_batch_last(G) for G in Gs), params)
+
+
 def elliptic_vector_qp(X_em, u_em, op, params, gd_q, dphi_q, w_q):
     """One quadrature point's weighted element-vector contribution ``[n, s, *batch]``."""
     gp, wdet = _qp_geometry(X_em, gd_q, dphi_q, w_q)
-    gv = _batch_first(op.g(_batch_last(_u_grad(gp, u_em)), params))  # [d, s, *batch]
+    gv = _batch_first(_pointwise(op.g, params, X_em, _u_grad(gp, u_em)))  # [d, s, *batch]
     return wdet * torch.einsum("nd...,ds...->ns...", gp, gv)
 
 
@@ -110,9 +119,7 @@ def elliptic_vector_tangent_qp(X_em, u_em, v_em, op, params, gd_q, dphi_q, w_q):
     from the operator's closed-form ``g_tangent``.
     """
     gp, wdet = _qp_geometry(X_em, gd_q, dphi_q, w_q)
-    G = _batch_last(_u_grad(gp, u_em))
-    dG = _batch_last(_u_grad(gp, v_em))
-    dgv = _batch_first(op.g_tangent(G, dG, params))
+    dgv = _batch_first(_pointwise(op.g_tangent, params, X_em, _u_grad(gp, u_em), _u_grad(gp, v_em)))
     return wdet * torch.einsum("nd...,ds...->ns...", gp, dgv)
 
 
@@ -149,7 +156,7 @@ def compute_element_elliptic_energy_em(X_em, u_em, op, params, tab: Tabulation):
     out = X_em.new_zeros(X_em.shape[2:])
     for q in range(tab.num_points):
         gp, wdet = _qp_geometry(X_em, gd[q], dp[q], w[q])
-        out = out + wdet * op.energy(_batch_last(_u_grad(gp, u_em)), params)
+        out = out + wdet * _pointwise(op.energy, params, X_em, _u_grad(gp, u_em))
     return out
 
 
@@ -164,7 +171,7 @@ def elliptic_matrix_diagonal_em(X_em, u_em, op, params, tab: Tabulation):
     out = torch.zeros_like(u_em)
     for q in range(tab.num_points):
         gp, wdet = _qp_geometry(X_em, gd[q], dp[q], w[q])
-        D = op.contraction(_batch_last(_u_grad(gp, u_em)), params)  # [*batch, d, s, d, s]
+        D = _pointwise(op.contraction, params, X_em, _u_grad(gp, u_em))  # [*batch, d, s, d, s]
         Dii = torch.diagonal(D, dim1=-3, dim2=-1)  # [*batch, d(k), d(m), s(i)]
         out = out + wdet * torch.einsum("nk...,...kmi,nm...->ni...", gp, Dii, gp)
     return out

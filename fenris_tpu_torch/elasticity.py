@@ -32,15 +32,17 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .assembly.global_ import apply_homogeneous_dirichlet_bc_csr, assemble_csr, scatter_add_rows, scatter_plan
 from .assembly.local import (
-    _check_scalar_params,
+    _is_array,
     assemble_element_elliptic_matrices,
     assemble_element_elliptic_matrices_pairs,
     assemble_element_elliptic_vectors,
     assemble_element_source_vectors,
     compute_element_elliptic_energy,
+    slice_params,
     tabulate,
 )
 from .assembly.local_em import (
@@ -82,9 +84,16 @@ class HyperelasticModel:
     """A hyperelastic solid on an unstructured mesh.
 
     Args:
-        mesh: volumetric mesh of any 3D element (solution dim = geometry dim).
+        mesh: volumetric mesh of any 2D or 3D element (solution dim = geometry dim).
         material: a :class:`~.solid.HyperelasticMaterial`.
-        params: scalar material parameters (e.g. :class:`~.solid.LameParameters`).
+        params: material parameters (e.g. :class:`~.solid.LameParameters`):
+            scalars, per-element ``[E]`` leaves (in the mesh's element order),
+            per-point ``[E, q]`` leaves (not with ``banded=True``, which raises
+            ``ValueError``) or constants, by the JAX package's leaf rules
+            (:mod:`.assembly.local`).  Array leaves are converted once to the
+            model's dtype and device, and 0-d ones to numbers; the JAX package
+            keeps their dtype (an f64 leaf in an f32 model's ``solve_mixed``
+            raises a ``TypeError`` there).
         rule: quadrature rule (default: the canonical stiffness rule).
         dirichlet_nodes: nodes with homogeneous Dirichlet conditions.
         body_force: constant ``[d]`` body force, a pointwise torch callable
@@ -100,12 +109,12 @@ class HyperelasticModel:
         fused_kernels: run the element math of the internal forces and the
             Hessian action in the fused element-sweep kernels
             (:mod:`.ops.em_sweep`); needs ``banded=True``.  The kernels take
-            f32 Neo-Hookean, StVK and linear-elastic models with scalar Lamé
-            parameters on tet4, tet10, tet20, hex8, hex20 and hex27; a CUDA
-            model they do not take (f64, another material, a 2D mesh) raises
-            ``NotImplementedError`` (per-element parameters are refused
-            before, by every model); on the CPU the kernels' plain versions
-            run.
+            f32 Neo-Hookean, StVK and linear-elastic models with scalar or
+            per-element ``[E]`` Lamé parameters on tet4, tet10, tet20, hex8,
+            hex20, hex27, quad4, quad8, quad9, tri3 and tri6; a CUDA model
+            they do not take (f64, another material, another dimension or
+            element) raises ``NotImplementedError``; on the CPU the
+            kernels' plain versions run.
     """
 
     mesh: Mesh
@@ -123,15 +132,24 @@ class HyperelasticModel:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        _check_scalar_params(self.params)
         if self.fused_kernels and not self.banded:
             raise ValueError("fused_kernels=True runs the element sweeps of the banded path: pass banded=True")
         d = self.mesh.dim
         self.operator = MaterialEllipticOperator(self.material, dim=d)
         rule = self.rule if self.rule is not None else canonical_stiffness(self.mesh.element.name)
         self.tab = tabulate(self.mesh.element, rule)
+        E = self.mesh.num_cells
+        self._params = pytree.tree_map(self._param_leaf, self.params)
+        if self.banded and any(
+            _is_array(x) and x.shape[0] == E and x.ndim >= 2 and x.shape[1] == self.tab.num_points
+            for x in pytree.tree_leaves(self._params)
+        ):
+            raise ValueError(
+                "per-quadrature-point parameter leaves ([E, q, ...]) are not supported on the banded path; "
+                "use banded=False or per-element ([E] / [E, k]) params"
+            )
         if self.fused_kernels and self.device.type == "cuda":
-            missing = em_sweep.refusal(self.operator, self.params, self.tab, self.dtype)
+            missing = em_sweep.refusal(self.operator, self._params, self.tab, self.dtype, E)
             if missing is not None:
                 raise NotImplementedError(f"fused_kernels=True on the card: the element-sweep kernels need {missing}")
         if self.chunk_size is None:
@@ -159,6 +177,18 @@ class HyperelasticModel:
         self._dia_expand_plans = {}
         self._f_ext = self._assemble_external_forces()
 
+    def _param_leaf(self, x):
+        """A parameter leaf as the model holds it: arrays on its device in its dtype, 0-d ones as numbers."""
+        if isinstance(x, (torch.Tensor, np.ndarray, np.number)):
+            if np.ndim(x) == 0:
+                return float(x)
+            return torch.as_tensor(x, dtype=self.dtype, device=self.device).contiguous()
+        return x
+
+    def _params_at(self, index):
+        """The parameters of the elements ``index`` (a slice or index tensor) in mesh order."""
+        return slice_params(self._params, self.mesh.num_cells, index)
+
     # -- banded path ----------------------------------------------------------------
 
     def _setup_banded(self):
@@ -170,6 +200,8 @@ class HyperelasticModel:
         self._plan = plan
         index = torch.as_tensor(plan.element_index, device=self.device)
         self._X_band = self.space.X_geo[index].permute(1, 2, 0).contiguous()  # [m, d, E_pad]
+        # per-element leaves in the padded order: a padding element takes its filler's values
+        self._params_band = self._params_at(index)
         self._valid_el = torch.as_tensor(plan.valid_elements(), dtype=self.dtype, device=self.device)
         bp = plan.elements_per_block
         g = max(1, self.chunk_size // bp) if self.chunk_size is not None else plan.k_blocks
@@ -177,15 +209,18 @@ class HyperelasticModel:
         self._em_tables = em_sweep.device_tables(self.tab, self.device) if self.fused_kernels else None
 
     def _banded_sweep(self, assemble, *els):
-        """``assemble(X [m, d, c], *els [n, s, c]) -> [..., c]`` over chunks of whole blocks.
+        """``assemble(X [m, d, c], *els [n, s, c], params) -> [..., c]`` over chunks of whole blocks.
 
-        ``els`` are element-minor views of gathered rows; the chunk results
-        are joined along the element axis (``[..., E_pad]``).
+        ``els`` are element-minor views of gathered rows, ``params`` the
+        chunk's parameters; the chunk results are joined along the element
+        axis (``[..., E_pad]``).
         """
         pe = self._plan.padded_elements
         X, c = self._X_band, self._band_chunk
         parts = [
-            assemble(X[..., e0 : e0 + c], *(a[..., e0 : e0 + c] for a in els)) for e0 in range(0, pe, c)
+            assemble(X[..., e0 : e0 + c], *(a[..., e0 : e0 + c] for a in els),
+                     slice_params(self._params_band, pe, slice(e0, e0 + c)))
+            for e0 in range(0, pe, c)
         ]
         return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
@@ -208,7 +243,7 @@ class HyperelasticModel:
         d = self.mesh.dim
         rows = em_sweep.banded_tangent_sweep(
             self._plan, self._X_band, u.reshape(-1, d), v.reshape(-1, d),
-            self.operator, self.params, self.tab, self._em_tables,
+            self.operator, self._params_band, self.tab, self._em_tables,
         )
         return scatter_add(self._plan, rows).reshape(-1)
 
@@ -237,21 +272,21 @@ class HyperelasticModel:
         reads ``u`` through the banded plan (no gather) and writes the
         element-major rows the scatter reads.
         """
-        op, params, tab = self.operator, self.params, self.tab
+        op, tab = self.operator, self.tab
         if self.fused_kernels:
             rows = em_sweep.banded_vector_sweep(
-                self._plan, self._X_band, u.reshape(-1, self.mesh.dim), op, params, tab, self._em_tables
+                self._plan, self._X_band, u.reshape(-1, self.mesh.dim), op, self._params_band, tab, self._em_tables
             )
             return scatter_add(self._plan, rows).reshape(-1)
         if self._plan is not None:
             f = self._banded_sweep(
-                lambda X, ue: assemble_element_elliptic_vectors_em(X, ue, op, params, tab), self._gather_em(u)
+                lambda X, ue, p: assemble_element_elliptic_vectors_em(X, ue, op, p, tab), self._gather_em(u)
             )
             return self._scatter_em(f)
         X = self.space.X_geo
         f_el = torch.cat(
             [
-                assemble_element_elliptic_vectors(X[e0:e1], self._local(u, e0, e1), self.operator, self.params, self.tab)
+                assemble_element_elliptic_vectors(X[e0:e1], self._local(u, e0, e1), op, self._params_at(slice(e0, e1)), tab)
                 for e0, e1 in self._chunks()
             ]
         )
@@ -264,7 +299,7 @@ class HyperelasticModel:
         if self._plan is not None:
             n = self.mesh.element.num_nodes
 
-            def source(Xc):
+            def source(Xc, _):
                 b = assemble_element_source_vectors(Xc.permute(2, 0, 1), self.body_force, None, s, self.tab)
                 return b.to(self.dtype).reshape(-1, n, s).permute(1, 2, 0)
 
@@ -277,15 +312,15 @@ class HyperelasticModel:
 
     def energy(self, u):
         """Total potential energy E(u) = ∫ψ(∇u) − f_ext·u."""
+        op, tab = self.operator, self.tab
         if self._plan is not None:
-            op, params, tab = self.operator, self.params, self.tab
             e = self._banded_sweep(
-                lambda X, ue: compute_element_elliptic_energy_em(X, ue, op, params, tab), self._gather_em(u)
+                lambda X, ue, p: compute_element_elliptic_energy_em(X, ue, op, p, tab), self._gather_em(u)
             )
             return (e * self._valid_el).sum() - torch.dot(self._f_ext, u)
         X = self.space.X_geo
         e = sum(
-            compute_element_elliptic_energy(X[e0:e1], self._local(u, e0, e1), self.operator, self.params, self.tab).sum()
+            compute_element_elliptic_energy(X[e0:e1], self._local(u, e0, e1), op, self._params_at(slice(e0, e1)), tab).sum()
             for e0, e1 in self._chunks()
         )
         return e - torch.dot(self._f_ext, u)
@@ -326,10 +361,10 @@ class HyperelasticModel:
     def hessian_diagonal(self, u):
         """Assembled Hessian diagonal (the Jacobi preconditioner), 1 on constrained dofs."""
         n, s = self.mesh.element.num_nodes, self.mesh.dim
-        op, params, tab = self.operator, self.params, self.tab
+        op, tab = self.operator, self.tab
         if self._plan is not None:
             d = self._banded_sweep(
-                lambda X, ue: elliptic_matrix_diagonal_em(X, ue, op, params, tab), self._gather_em(u)
+                lambda X, ue, p: elliptic_matrix_diagonal_em(X, ue, op, p, tab), self._gather_em(u)
             )
             diag = self._scatter_em(d)
         elif self.chunk_size is None:
@@ -339,7 +374,8 @@ class HyperelasticModel:
             d_em = torch.cat(
                 [
                     elliptic_matrix_diagonal_em(
-                        X[e0:e1].permute(1, 2, 0), self._local(u, e0, e1).permute(1, 2, 0), op, params, tab
+                        X[e0:e1].permute(1, 2, 0), self._local(u, e0, e1).permute(1, 2, 0), op,
+                        self._params_at(slice(e0, e1)), tab,
                     )
                     for e0, e1 in self._chunks()
                 ],
@@ -351,7 +387,7 @@ class HyperelasticModel:
     def assemble_hessian_matrices(self, u, chunk: Optional[int] = None):
         """Element Hessian blocks ``[E, n*s, n*s]``."""
         return assemble_element_elliptic_matrices(
-            self.space.X_geo, self._local(u), self.operator, self.params, self.tab, chunk=chunk
+            self.space.X_geo, self._local(u), self.operator, self._params, self.tab, chunk=chunk
         )
 
     def assemble_hessian_csr(self, u) -> torch.Tensor:
@@ -438,7 +474,7 @@ class HyperelasticModel:
         for e0 in range(0, E, c):
             e1 = min(e0 + c, E)
             vals = assemble_element_elliptic_matrices_pairs(
-                X[e0:e1], self._local(u2, e0, e1), self.operator, self.params, self.tab
+                X[e0:e1], self._local(u2, e0, e1), self.operator, self._params_at(slice(e0, e1)), self.tab
             )
             rows, ids = expand_rows_pairs_masked(vals, expand.cols[e0:e1], mask[:, e0:e1], expand.src)
             del vals
@@ -455,7 +491,7 @@ class HyperelasticModel:
             for lo in range(0, len(slow), 8192):
                 idx = slow[lo : lo + 8192]
                 u_el = u2[self.space.dofs[idx]].reshape(-1, n, s)
-                A_s = assemble_element_elliptic_matrices(X[idx], u_el, self.operator, self.params, self.tab)
+                A_s = assemble_element_elliptic_matrices(X[idx], u_el, self.operator, self._params_at(idx), self.tab)
                 _scatter_dia(A_s, plan.base[idx], flat, s, N)
             bands = bands + flat[: D * s * s * N].reshape(D * s * s, N)
             if kr:

@@ -87,8 +87,9 @@ def hyperelastic_model_from_arrays(
     (``np.asarray(jax_model.mesh.points)``, ``.cells``), ``element`` its
     element's name (``jax_model.mesh.element.name``), ``material`` its
     material (``"neo_hookean"``, ``"stvk"`` or ``"linear_elastic"``),
-    ``mu``/``lam`` its Lamé parameters, ``dirichlet_nodes`` its constrained
-    nodes and
+    ``mu``/``lam`` its Lamé parameters (numbers, or per-element ``[E]``
+    arrays such as ``np.asarray(jax_model.params.mu)``), ``dirichlet_nodes``
+    its constrained nodes and
     ``body_force`` a constant ``[3]`` array (a JAX callable is not carried
     over).  Further keyword arguments (``chunk_size``, ``rule``, ``banded``,
     ``banded_r_nodes``, ``fused_kernels``) go to
@@ -99,7 +100,7 @@ def hyperelastic_model_from_arrays(
     return HyperelasticModel(
         mesh=mesh_from_arrays(points, cells, element),
         material=_MATERIALS[material](),
-        params=LameParameters(mu=float(mu), lam=float(lam)),
+        params=LameParameters(*(float(x) if np.ndim(x) == 0 else np.array(x) for x in (mu, lam))),
         dirichlet_nodes=None if dirichlet_nodes is None else np.asarray(dirichlet_nodes),
         body_force=None if body_force is None else np.asarray(body_force, dtype=np.float64),
         dtype=dtype,

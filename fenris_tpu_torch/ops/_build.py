@@ -4,7 +4,7 @@ The kernels live in ``fenris_tpu_torch/csrc/*.cu`` and have a plain C
 interface, so they build with ``nvcc`` alone in seconds (no PyTorch
 headers).  The first call of :func:`load_library` compiles every source
 into an object file (``em_sweep.cu`` once per element, ``-DFENRIS_EM_ELEMENT``
-0-5: its 72 instantiations would make it the one long compile), all ``nvcc``
+0-10: its 132 instantiations would make it the one long compile), all ``nvcc``
 processes started together, links them
 into one shared library under ``fenris_tpu_torch/_build/`` named by a hash
 of the sources and flags, with the ``nvcc`` log beside it under the same
@@ -31,12 +31,13 @@ _SOURCES = tuple(
     _PKG / "csrc" / name
     for name in ("structured_stencil.cu", "dia_sweep.cu", "stiffness_pairs.cu", "banded.cu", "em_sweep.cu")
 )
+_EM_ELEMENTS = 11  # em_sweep.cu's FENRIS_EM_ELEMENT parts (ops/em_sweep.ELEMENTS)
 # (source, object stem, extra nvcc flags): one object a source, em_sweep.cu one per element
 _UNITS = tuple(
     unit
     for src in _SOURCES
     for unit in (
-        [(src, f"{src.stem}_{k}", (f"-DFENRIS_EM_ELEMENT={k}",)) for k in range(6)]
+        [(src, f"{src.stem}_{k}", (f"-DFENRIS_EM_ELEMENT={k}",)) for k in range(_EM_ELEMENTS)]
         if src.name == "em_sweep.cu"
         else [(src, src.stem, ())]
     )
@@ -63,11 +64,13 @@ _SIGNATURES = {
     "fenris_banded_gather": ((_P, _P, _P, _P, _L, _I, _I, _P), _I),
     # f, row_ptr, node_rows, out, num_nodes, s, stream
     "fenris_banded_scatter": ((_P, _P, _P, _P, _L, _I, _P), _I),
-    # X, u, v (NULL: vector sweep), out, strides[12], E, tables, q, m, n, material, mu, lam, stream
-    "fenris_em_sweep": ((_P, _P, _P, _P, _LP, _L, _P, _I, _I, _I, _I, _F, _F, _P), _I),
-    # X, u, v (NULL: vector sweep), nodes, block_rows, out, E, elements_per_block, tables, q, m, n, material,
-    # mu, lam, stream
-    "fenris_banded_sweep": ((_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _F, _F, _P), _I),
+    # X, u, v (NULL: vector sweep), out, strides[12], E, tables, q, d, m, n, material, then mu and lam each
+    # as (pointer or NULL, element stride, value), stream
+    "fenris_em_sweep": ((_P, _P, _P, _P, _LP, _L, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _I, _F, _P), _I),
+    # X, u, v (NULL: vector sweep), nodes, block_rows, out, E, elements_per_block, tables, q, d, m, n,
+    # material, mu and lam as in fenris_em_sweep, stream
+    "fenris_banded_sweep": ((_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _I, _F, _P),
+                            _I),
     "fenris_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..assembly.local import has_mapped_params
 from ._build import check, load_library
 
 __all__ = ["stiffness_pairs", "stiffness_pairs_plain", "supports_stiffness_kernel"]
@@ -101,15 +102,17 @@ def _fits(op, tab) -> bool:
 
 
 def supports_stiffness_kernel(op, params, tab, X_geo) -> bool:
-    """The kernel covers constant-contraction f32 CUDA inputs it is instantiated for.
+    """The kernel covers constant-contraction f32 CUDA inputs it is instantiated for, with constant
+    parameters.
 
     The JAX gate (``supports_stiffness_pallas``) without its TPU block-size
-    clause; parameters are scalars throughout the port.
+    clause: per-element and per-point parameters are refused, as there.
     """
     return (
         X_geo.device.type == "cuda"
         and X_geo.dtype == torch.float32
         and bool(getattr(op, "constant_contraction", False))
+        and not has_mapped_params(params, X_geo.shape[0], tab.num_points)
         and _fits(op, tab)
     )
 
@@ -130,7 +133,9 @@ def device_tables(tables: np.ndarray, device) -> torch.Tensor:
 
 
 def stiffness_pairs(X_geo: torch.Tensor, op, params, tab) -> torch.Tensor:
-    """Constant-contraction element matrices in the pairs layout ``[s², n², E]``."""
+    """Constant-contraction element matrices in the pairs layout ``[s², n², E]``, constant parameters."""
+    if has_mapped_params(params, X_geo.shape[0], tab.num_points):
+        raise ValueError("stiffness_pairs: the kernel takes constant parameters, not per-element or per-point ones")
     if X_geo.device.type == "cpu":
         return stiffness_pairs_plain(X_geo, op, params, tab)
     if X_geo.device.type != "cuda":
@@ -139,6 +144,8 @@ def stiffness_pairs(X_geo: torch.Tensor, op, params, tab) -> torch.Tensor:
         raise TypeError(f"stiffness_pairs: the kernel is f32-only, got {X_geo.dtype}")
     if not getattr(op, "constant_contraction", False):
         raise ValueError("stiffness_pairs: the operator's contraction must be constant")
+    if has_mapped_params(params, X_geo.shape[0], tab.num_points):
+        raise ValueError("stiffness_pairs: the kernel takes constant parameters, not per-element or per-point ones")
     if not _fits(op, tab):
         raise ValueError("stiffness_pairs: the kernel takes d in (2, 3), s <= 3 and elements of which "
                          "one quadrature point's gradients fit in shared memory")

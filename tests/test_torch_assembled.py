@@ -147,12 +147,17 @@ def test_model_carried_across_matches_jax():
 
 
 def test_unported_paths_raise():
-    """What the port still refuses: per-element parameter arrays, and mixed precision on an f64 model."""
+    """What the port refuses: mixed precision on an f64 model, and per-point ``[E, q]`` parameters on the
+    banded path (as the JAX package: ``ValueError``); the unbanded model takes them."""
     _, tm = _pair(res=1)
     with pytest.raises(ValueError, match="float32"):
         tm.solve_mixed(assembled=True)
-    mu_el = torch.full((tm.mesh.num_cells,), MU, dtype=torch.float64)
+    mu_eq = torch.full((tm.mesh.num_cells, tm.tab.num_points), MU, dtype=torch.float64)
     for banded in (False, True):
-        with pytest.raises(NotImplementedError, match="per-element"):
-            TorchModel(mesh=tm.mesh, material=TorchNeoHookean(), params=TorchLame(mu_el, LAM),
-                       dtype=torch.float64, device="cpu", banded=banded)
+        build = lambda: TorchModel(mesh=tm.mesh, material=TorchNeoHookean(), params=TorchLame(mu_eq, LAM),  # noqa: E731
+                                   dtype=torch.float64, device="cpu", banded=banded)
+        if banded:
+            with pytest.raises(ValueError, match="per-quadrature-point"):
+                build()
+        else:
+            build()

@@ -162,12 +162,20 @@ def test_source_vectors_match_jax():
 
 
 def test_per_element_params_refused():
-    Xe, _ = _perturbed_box(1)
+    """Per-element leaves are taken; what stays refused is a chunk size equal to a constant leaf's leading
+    axis, where the leaf would read as per element inside a chunk (the JAX package's ValueError)."""
+    Xe, _ = _perturbed_box(2)
     _, ttab = _tabs()
     top = OPERATORS["linear"][1]()
-    params = TorchLame(torch.full((Xe.shape[0],), MU), LAM)
-    with pytest.raises(NotImplementedError, match="per-element"):
-        tlocal.assemble_element_elliptic_matrices(torch.as_tensor(Xe), None, top, params, ttab)
+    E = Xe.shape[0]
+    mu = np.full(E, MU)
+    A = tlocal.assemble_element_elliptic_matrices(torch.as_tensor(Xe), None, top, TorchLame(torch.as_tensor(mu), LAM),
+                                                  ttab)
+    assert rel_err(tlocal.assemble_element_elliptic_matrices(torch.as_tensor(Xe), None, top, TorchLame(MU, LAM), ttab),
+                   A) < 1e-14
+    with pytest.raises(ValueError, match="collides"):
+        tlocal.assemble_element_elliptic_matrices(torch.as_tensor(Xe), None, top,
+                                                  TorchLame(torch.full((E - 1,), MU), LAM), ttab, chunk=E - 1)
 
 
 @pytest.fixture

@@ -397,48 +397,110 @@ TWO_BLOCK_RES = {"tet4": 8, "tet10": 4, "tet20": 3, "hex8": 11, "hex20": 6, "hex
 SWEEP_MATERIALS = {"neo_hookean": NeoHookeanMaterial, "stvk": StVKMaterial, "linear": LinearElasticMaterial}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("material", list(SWEEP_MATERIALS))
-@pytest.mark.parametrize("name", list(TWO_BLOCK_RES))
-def test_em_sweeps_on_3d_elements_on_card(name, material, cuda_device):
+def _em_sweep_layout(name, mesh, cells, res, device, seed):
+    """A banded plan of ``cells`` (1,024 nodes a block, rowt 256), the padded geometry ``[m, d, E_pad]``
+    of the nodes perturbed by up to 5% of a cell, u ~ 1e-2 of a cell and v ~ N(0, 1)."""
+    tab = tabulate(element(name), canonical_stiffness(name))
+    m, d, N = tab.geo_dphi.shape[1], mesh.dim, mesh.num_vertices
+    g = rng(res + seed)
+    pts = mesh.points + g.uniform(-0.05, 0.05, mesh.points.shape) / res
+    tp = tb.make_banded_plan(cells, N, s=d, r_nodes=1024, rowt=256, device=device)
+    X = torch.as_tensor(tp.pad_elements(pts[cells[:, :m]]), dtype=torch.float32, device=device).permute(1, 2, 0)
+    u, v = (torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in (g.uniform(-0.01, 0.01, (N, d)) / res, g.standard_normal((N, d))))
+    return tab, tp, X.contiguous(), u, v
+
+
+def _em_sweep_cases(tp, X, u, v):
+    """The four element-sweep wrappers with their plain versions and arguments on one layout."""
+    ue, ve = (tb.banded_gather(tp, a).permute(1, 2, 0) for a in (u, v))
+    return (
+        (tes.banded_vector_sweep, tes.banded_vector_sweep_plain, (tp, X, u)),
+        (tes.banded_tangent_sweep, tes.banded_tangent_sweep_plain, (tp, X, u, v)),
+        (tes.em_vector_sweep, TLE.assemble_element_elliptic_vectors_em, (X, ue)),
+        (tes.em_vector_tangent_sweep, TLE.assemble_element_elliptic_tangent_vectors_em, (X, ue, ve)),
+    )
+
+
+def _check_em_sweeps(name, material, mesh_fn, two_block_res, device):
     """The four element-sweep wrappers of one element and material against their plain versions with
     bitwise repeats: the fused banded sweeps (padding rows zero) and the strided sweeps on the gathered
-    element-major rows, on the two-block box and on 77 elements, perturbed, u ~ 1e-2 of a cell, v ~ N(0, 1)."""
-    op, params = MaterialEllipticOperator(SWEEP_MATERIALS[material](), dim=3), LameParameters(MU, LAM)
-    tab = tabulate(element(name), canonical_stiffness(name))
-    m = tab.geo_dphi.shape[1]
-    for res, count in ((TWO_BLOCK_RES[name], None), (3, 77)):
-        mesh, _ = reorder_mesh(element_mesh(name, res))
-        N = mesh.num_vertices
-        cells = mesh.cells if count is None else np.concatenate([mesh.cells] * 4)[:count]
-        g = rng(res)
-        pts = mesh.points + g.uniform(-0.05, 0.05, mesh.points.shape) / res
-        tp = tb.make_banded_plan(cells, N, s=3, r_nodes=1024, rowt=256, device=cuda_device)
+    element-major rows, on the two-block mesh and on 77 elements of a res-3 mesh (a ragged last tile for
+    every tile of 4 or 8 elements)."""
+    for res, count in ((two_block_res, None), (3, 77)):
+        mesh, _ = reorder_mesh(mesh_fn(name, res))
+        op, params = MaterialEllipticOperator(SWEEP_MATERIALS[material](), dim=mesh.dim), LameParameters(MU, LAM)
+        cells = mesh.cells if count is None else np.concatenate([mesh.cells] * -(-count // mesh.num_cells))[:count]
+        tab, tp, X, u, v = _em_sweep_layout(name, mesh, cells, res, device, 0)
         assert tp.padded_elements > tp.num_elements and (count is not None or tp.k_blocks == 2)
-        X = torch.as_tensor(tp.pad_elements(pts[cells[:, :m]]), dtype=torch.float32,
-                            device=cuda_device).permute(1, 2, 0).contiguous()
-        u, v = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
-                for a in (g.uniform(-0.01, 0.01, (N, 3)) / res, g.standard_normal((N, 3))))
-        ue, ve = (tb.banded_gather(tp, a).permute(1, 2, 0) for a in (u, v))
-        padding = torch.as_tensor(tp.valid_elements(), device=cuda_device) == 0
+        padding = torch.as_tensor(tp.valid_elements(), device=device) == 0
         launches = [f.launches for f in (tes.banded_vector_sweep, tes.banded_tangent_sweep, tes.em_vector_sweep,
                                          tes.em_vector_tangent_sweep)]
-        cases = (
-            (tes.banded_vector_sweep, tes.banded_vector_sweep_plain, (tp, X, u)),
-            (tes.banded_tangent_sweep, tes.banded_tangent_sweep_plain, (tp, X, u, v)),
-            (tes.em_vector_sweep, TLE.assemble_element_elliptic_vectors_em, (X, ue)),
-            (tes.em_vector_tangent_sweep, TLE.assemble_element_elliptic_tangent_vectors_em, (X, ue, ve)),
-        )
-        for kernel, plain, args in cases:
+        for kernel, plain, args in _em_sweep_cases(tp, X, u, v):
             got, again = kernel(*args, op, params, tab), kernel(*args, op, params, tab)
             ref = plain(*args, op, params, tab)
             torch.cuda.synchronize()
             assert torch.equal(got, again), kernel.__name__  # fixed summation order, no atomics
             assert rel_err(ref, got) < KERNEL_RTOL, kernel.__name__
             if kernel.__name__.startswith("banded"):
-                assert got.shape == (tp.padded_elements, tab.dphi.shape[1], 3) and not bool(got[padding].any())
+                assert got.shape == (tp.padded_elements, tab.dphi.shape[1], mesh.dim)
+                assert not bool(got[padding].any())
         assert [f.launches for f in (tes.banded_vector_sweep, tes.banded_tangent_sweep, tes.em_vector_sweep,
                                      tes.em_vector_tangent_sweep)] == [k + 2 for k in launches]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("material", list(SWEEP_MATERIALS))
+@pytest.mark.parametrize("name", list(TWO_BLOCK_RES))
+def test_em_sweeps_on_3d_elements_on_card(name, material, cuda_device):
+    """The four element-sweep wrappers on a 3D element (``_check_em_sweeps``), u ~ 1e-2 of a cell,
+    v ~ N(0, 1)."""
+    _check_em_sweeps(name, material, element_mesh, TWO_BLOCK_RES[name], cuda_device)
+
+
+# the 2D elements: a square with two owner blocks of 1,024 nodes (1,681 nodes; quad8 1,281)
+TWO_BLOCK_RES_2D = {"quad4": 40, "quad8": 20, "quad9": 20, "tri3": 40, "tri6": 20}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("material", list(SWEEP_MATERIALS))
+@pytest.mark.parametrize("name", list(TWO_BLOCK_RES_2D))
+def test_em_sweeps_on_2d_elements_on_card(name, material, cuda_device):
+    """The four element-sweep wrappers at d = 2 (``_check_em_sweeps``) on a perturbed unit square."""
+    _check_em_sweeps(name, material, square_mesh, TWO_BLOCK_RES_2D[name], cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hex8", "tet10", "quad9"])
+def test_em_sweeps_per_element_params_on_card(name, cuda_device):
+    """Per-element ``[E]`` Lamé parameters (a two-material solid, each value varied by up to 10%) in the
+    four wrappers against their plain versions, bitwise repeatable; an ``[E]`` array of one repeated value,
+    and a 0-d CUDA tensor (read by the kernel, no host sync), give the scalar launch bitwise."""
+    mesh_fn, res = (square_mesh, TWO_BLOCK_RES_2D[name]) if name == "quad9" else (element_mesh, TWO_BLOCK_RES[name])
+    mesh, _ = reorder_mesh(mesh_fn(name, res))
+    op = MaterialEllipticOperator(NeoHookeanMaterial(), dim=mesh.dim)
+    tab, tp, X, u, v = _em_sweep_layout(name, mesh, mesh.cells, res, cuda_device, 1)
+    g = rng(23)
+    stiff = 1.0 + 9.0 * (mesh.points[mesh.cells].mean(1)[:, 0] > 0.5)
+    mu, lam = (c * stiff * g.uniform(0.9, 1.1, mesh.num_cells) for c in (MU, LAM))
+
+    def lame(*values):  # [E_pad] leaves in the padded element order, as X
+        return LameParameters(*(torch.as_tensor(tp.pad_elements(x), dtype=torch.float32, device=cuda_device)
+                                for x in values))
+
+    params = lame(mu, lam)
+    for kernel, plain, args in _em_sweep_cases(tp, X, u, v):
+        got, again = kernel(*args, op, params, tab), kernel(*args, op, params, tab)
+        ref = plain(*args, op, params, tab)
+        scalar = kernel(*args, op, LameParameters(MU, LAM), tab)
+        repeated = kernel(*args, op, lame(np.full_like(mu, MU), np.full_like(lam, LAM)), tab)
+        device_scalar = kernel(*args, op, LameParameters(torch.tensor(MU, device=cuda_device),
+                                                         torch.tensor(LAM, device=cuda_device)), tab)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), kernel.__name__
+        assert rel_err(ref, got) < KERNEL_RTOL, kernel.__name__
+        assert rel_err(scalar, got) > 1e-2, kernel.__name__  # the parameters differ from element to element
+        assert torch.equal(repeated, scalar) and torch.equal(device_scalar, scalar), kernel.__name__
 
 
 # -- models ---------------------------------------------------------------------------------
@@ -454,20 +516,56 @@ def _box_model(res, dtype, device, **kw):
 
 @pytest.mark.cuda
 def test_fused_model_refuses_what_the_kernels_do_not_take(cuda_device):
-    """A CUDA fused model the element-sweep kernels cannot run (f64, per-element parameters) raises; it
-    does not fall back.  Every material and element the kernels take builds."""
+    """A CUDA fused model the element-sweep kernels cannot run (f64, a material without closed forms, per-point
+    ``[E, q]`` parameters on the banded path) raises; it does not fall back.  Every material and element the
+    kernels take builds, per-element parameters and 2D meshes too."""
+    from fenris_tpu_torch.solid import HyperelasticMaterial
+
     kw = dict(banded=True, fused_kernels=True)
     with pytest.raises(NotImplementedError, match="fused_kernels"):
         _box_model(2, torch.float64, cuda_device, **kw)
+    with pytest.raises(NotImplementedError, match="material"):
+        _box_model(2, torch.float32, cuda_device, material=HyperelasticMaterial(), **kw)
     mesh = box(2)
-    with pytest.raises(NotImplementedError, match="per-element"):
+    with pytest.raises(ValueError, match="per-quadrature-point"):
         HyperelasticModel(mesh=mesh, material=NeoHookeanMaterial(),
-                          params=LameParameters(np.full(mesh.num_cells, MU), LAM), dtype=torch.float32,
+                          params=LameParameters(np.full((mesh.num_cells, 8), MU), LAM), dtype=torch.float32,
                           device=cuda_device, **kw)
+    HyperelasticModel(mesh=mesh, material=NeoHookeanMaterial(),
+                      params=LameParameters(np.full(mesh.num_cells, MU), LAM), dtype=torch.float32,
+                      device=cuda_device, **kw)
     _box_model(2, torch.float32, cuda_device, material=StVKMaterial(), **kw)
     tet = element_mesh("tet10", 2)
     HyperelasticModel(mesh=tet, material=LinearElasticMaterial(), params=LameParameters(MU, LAM),
                       dtype=torch.float32, device=cuda_device, **kw)
+    HyperelasticModel(mesh=square_mesh("tri6", 2), material=NeoHookeanMaterial(), params=LameParameters(MU, LAM),
+                      dtype=torch.float32, device=cuda_device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["quad9", "tet10"])
+def test_fused_model_with_per_element_params_on_card(name, cuda_device):
+    """The fused model on the card (the kernels, parameters padded into the banded order) against the
+    same model on the CPU (the plain versions) with per-element Lamé parameters: residual, Hessian action."""
+    mesh, _ = reorder_mesh(square_mesh(name, 6) if name == "quad9" else element_mesh(name, 2))
+    g = rng(29)
+    mu = MU * g.uniform(0.5, 2.0, mesh.num_cells)
+    fixed = np.flatnonzero(mesh.points[:, 0] < 1e-12)
+    models = [HyperelasticModel(mesh=mesh, material=NeoHookeanMaterial(), params=LameParameters(mu, LAM),
+                                dirichlet_nodes=fixed, body_force=np.array([0.0, -4.0, 0.0][: mesh.dim]),
+                                dtype=torch.float32, device=dev, banded=True, fused_kernels=True, banded_r_nodes=1024)
+              for dev in ("cpu", cuda_device)]
+    u = g.uniform(-0.01, 0.01, models[0].space.num_dofs)
+    v = g.standard_normal(models[0].space.num_dofs)
+    before = (tes.banded_vector_sweep.launches, tes.banded_tangent_sweep.launches)
+    out = [(m.residual(torch.as_tensor(u, dtype=torch.float32, device=m.device)),
+            m.hessian_vector_product(torch.as_tensor(u, dtype=torch.float32, device=m.device),
+                                     torch.as_tensor(v, dtype=torch.float32, device=m.device)))
+           for m in models]
+    torch.cuda.synchronize()
+    assert (tes.banded_vector_sweep.launches, tes.banded_tangent_sweep.launches) == (before[0] + 1, before[1] + 1)
+    assert rel_err(out[0][0], out[1][0]) < 1e-4  # f32 residual: the stress cancels to O(strain)
+    assert rel_err(out[0][1], out[1][1]) < KERNEL_RTOL
 
 
 @pytest.mark.cuda

@@ -159,12 +159,14 @@ def test_supports_is_what_the_kernels_take():
     assert not tes.supports(nh, TorchLame(MU, LAM), ttab, torch.float64)
     assert "f32" in tes.refusal(nh, TorchLame(MU, LAM), ttab, torch.float64)
     assert not tes.supports(TorchOp(HyperelasticMaterial(), dim=3), TorchLame(MU, LAM), ttab, torch.float32)
-    assert not tes.supports(nh, TorchLame(torch.full((3,), MU), LAM), ttab, torch.float32)
-    assert "scalar" in tes.refusal(nh, TorchLame(torch.full((3,), MU), LAM), ttab, torch.float32)
+    # per-element [E] leaves are taken; [E, q] (per-point) leaves and [E] leaves of another length are not
+    assert tes.supports(nh, TorchLame(torch.full((3,), MU), LAM), ttab, torch.float32, 3)
+    assert not tes.supports(nh, TorchLame(torch.full((3, 8), MU), LAM), ttab, torch.float32, 3)
+    assert "per-element [E]" in tes.refusal(nh, TorchLame(MU, np.full(4, LAM)), ttab, torch.float32, 3)
     assert not tes.supports(nh, None, ttab, torch.float32)
     quad = tabulate(element("quad4"), canonical_stiffness("quad4"))
-    assert "d = s = 3" in tes.refusal(TorchOp(_ops("neo_hookean")[1].material, dim=2), TorchLame(MU, LAM), quad,
-                                      torch.float32)
+    assert tes.supports(TorchOp(nh.material, dim=2), TorchLame(MU, LAM), quad, torch.float32)
+    assert "d = 3" in tes.refusal(TorchOp(nh.material, dim=2), TorchLame(MU, LAM), ttab, torch.float32)
 
 
 def _banded_inputs(res, seed):
