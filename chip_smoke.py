@@ -6,7 +6,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
 It builds every kernel from ``fenris_tpu_torch/csrc`` (one nvcc per source,
 all started together), runs the card tests (``tests/test_torch_cuda.py``,
 JAX-free, in a pytest subprocess without ``tests/conftest.py``; every test
-must pass and none skip) and drives the port's paths at full size:
+must pass and none skip), checks the banded gather and scatter at s = 1, 2, 3
+on a fan of 6,644 triangles around one node (bitwise against their plain
+versions) and drives the port's paths at full size:
 
 * the structured Neo-Hookean Newton–Krylov solve (BASELINE config 5:
   128 x 128 x 64 = 1,048,576 hex8 cells, 3.25M dofs) through the stencil
@@ -139,10 +141,14 @@ equal.  Each path runs with every launch counter set to 0 just before it
 and read just after, and fails if its kernels were not launched.  Every
 phase raises on failure.  Each kernel's record carries its time, its
 plain version's, one PyTorch library call's where one computes the same
-function (else null), and its bound: the larger of its bytes over 3.35
-TB/s and its f32 operations over 67 TFLOP/s (H100 SXM peaks), from this
-run's inputs.  ``ptxas`` lines (registers, shared memory, spills) of the
-stencil, gather, stiffness kernels and all 132 element-sweep instantiations
+function (else null), all timed eagerly (CUDA events around back-to-back
+calls), and its bound: the larger of its bytes over 3.35 TB/s and its f32
+operations over 67 TFLOP/s (H100 SXM peaks), from this run's inputs.  The
+gather's and scatter's records also carry ``card_ms`` and
+``library_card_ms``: the calls captured in a CUDA graph, cycling through
+copies of the inputs that hold 3x the L2 between two uses of one copy.  ``ptxas`` lines (registers, shared memory, spills) of the
+stencil, gather (s = 1, 2, 3, any s), scatter (s = 1, 2, any s) and
+stiffness kernels and all 132 element-sweep instantiations
 (11 elements x 3 materials x 4 modes) are printed, and a spill in any of
 them, or a missing instantiation, fails the run.  The card's
 ``nvidia-smi`` name and power limit are printed on a line of their own;
@@ -240,6 +246,7 @@ CARD_TESTS_TIMEOUT_S = 300
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20  # the H100's L2 cache
 F32_OPS_PER_S = 67e12
 # f32 operations of the element sweeps per element, counted at the fewest the arithmetic allows (a
 # multiply and an add are two, a division, reciprocal, comparison or log1p one), for d = s in {2, 3}: per
@@ -418,8 +425,8 @@ def timed(fn, times):
 # sweeps, 4 modes of each of ops/em_sweep's ELEMENTS and MATERIALS, by pattern)
 PTXAS_LABELS = {"nh_marchILb1E": "neo_hookean_hvp (nh_march<true>)",
                 "nh_marchILb0E": "neo_hookean_residual (nh_march<false>)",
-                "banded_gather_kernelILi3E": "banded_gather (s = 3)",
-                "banded_gather_kernelILi0E": "banded_gather (any s)"}
+                **{f"banded_{k}_kernelILi{s}E": f"banded_{k} ({'any s' if s == 0 else f's = {s}'})"
+                   for k, top in (("gather", 3), ("scatter", 2)) for s in range(top + 1)}}
 
 
 def ptxas_report(build_log):
@@ -1034,12 +1041,42 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
     vector_sweep_turns(model, u, shape_txt, smi)
 
 
+def banded_star_check(dev, m=6644):
+    """The gather and scatter at s = 1, 2, 3 on a closed fan of ``m`` tri3: the centre node has ``m`` rows,
+    which one scatter thread walks in hundreds of batches with one running sum.  Both kernels bitwise equal
+    to their plain versions and to their own repeats."""
+    import numpy as np
+    import torch
+
+    import fenris_tpu_torch.ops.banded as bd
+
+    rim = np.arange(1, m + 1)
+    cells = np.stack([np.zeros(m, np.int64), rim, np.roll(rim, -1)], axis=1)
+    for s in (1, 2, 3):
+        plan = bd.make_banded_plan(cells, m + 1, s=s, r_nodes=1024, device=dev)
+        centre = int(plan.row_ptr[1] - plan.row_ptr[0])
+        check(centre == m, f"banded star: the centre has {centre} rows, not {m}")
+        g = torch.Generator(device=dev).manual_seed(41 + s)
+        u = torch.randn((m + 1, s), generator=g, device=dev)
+        f_el = torch.randn((plan.padded_elements, plan.n, s), generator=g, device=dev)
+        txt = f"star m={m} s={s}"
+        for fn, plain, arg in ((bd.banded_gather, bd.banded_gather_plain, u),
+                               (bd.banded_scatter, bd.banded_scatter_plain, f_el)):
+            got, ref = fn(plan, arg), plain(plan, arg)
+            compare(fn.__name__, txt, got, fn(plan, arg), ref)
+            check(bool(torch.equal(got, ref)), f"{fn.__name__} {txt}: not bitwise equal to the plain version")
+        log(f"banded {txt}: gather and scatter bitwise equal to their plain versions and repeats")
+
+
 def gather_scatter_runs(plan, w, f_el, dev, names):
     """:func:`time_records` runs of the banded gather of node vectors ``w [N, s]`` and the banded scatter of
     rows ``f_el [E_pad, n, s]`` under the record names ``names``, with ``index_select`` and ``index_add_``
     as their library calls.  Bytes the functions need: the gather reads w, the valid rows' node indices and
     the per-block row counts and writes every row (padding rows are zeros); the scatter reads the valid rows
-    and its CSR map and writes the nodes."""
+    and its CSR map and writes the nodes.  Each run also carries, for :func:`card_ms`, the kernel's and the
+    library call's calls on :func:`l2_copies` copies of their inputs."""
+    import dataclasses
+
     import torch
 
     import fenris_tpu_torch.ops.banded as bd
@@ -1050,31 +1087,81 @@ def gather_scatter_runs(plan, w, f_el, dev, names):
     # index_add_'s padding rows go to 4096 spare rows past the N nodes (spread, so its atomics do not
     # pile onto one address)
     idx_spare = torch.where(valid, idx, torch.arange(idx.numel(), device=dev) % 4096 + N)
+    gather_bytes = (plan.padded_elements * plan.n * s + nv + plan.block_rows.numel() + N * s) * 4
+    scatter_bytes = (nv * s + plan.row_ptr.numel() + nv + N * s) * 4
+    sets = [(plan, w, f_el, idx, idx_spare)]
+    for _ in range(l2_copies(min(gather_bytes, scatter_bytes)) - 1):
+        p = dataclasses.replace(plan, **{k: getattr(plan, k).clone() for k in
+                                         ("nodes_padded", "block_rows", "row_ptr", "node_rows")})
+        sets.append((p, w.clone(), f_el.clone(), idx.clone(), idx_spare.clone()))
     return {
         names[0]: (lambda: bd.banded_gather(plan, w), lambda: bd.banded_gather_plain(plan, w),
-                   lambda: torch.index_select(w, 0, idx),
-                   (plan.padded_elements * plan.n * s + nv + plan.block_rows.numel() + N * s) * 4, 0, 20),
+                   lambda: torch.index_select(w, 0, idx), gather_bytes, 0, 20,
+                   ([lambda p=p, a=a: bd.banded_gather(p, a) for p, a, _, _, _ in sets],
+                    [lambda a=a, i=i: torch.index_select(a, 0, i) for _, a, _, i, _ in sets])),
         names[1]: (lambda: bd.banded_scatter(plan, f_el), lambda: bd.banded_scatter_plain(plan, f_el),
                    lambda: torch.zeros((N + 4096, s), device=dev).index_add_(0, idx_spare, f_el.reshape(-1, s)),
-                   (nv * s + plan.row_ptr.numel() + nv + N * s) * 4, nv * s, 20),
+                   scatter_bytes, nv * s, 20,
+                   ([lambda p=p, a=a: bd.banded_scatter(p, a) for p, _, a, _, _ in sets],
+                    [lambda a=a, i=i: torch.zeros((N + 4096, s), device=dev).index_add_(0, i, a.reshape(-1, s))
+                     for _, _, a, _, i in sets])),
     }
 
 
+def l2_copies(nbytes, most=20):
+    """Copies of a call's inputs to cycle through so that 3x the card's 50 MB L2 passes between two uses of
+    one copy: a call then finds little of its data in L2, as a call between other kernels does."""
+    return min(most, max(1, -(-3 * L2_BYTES // int(nbytes))))
+
+
+def card_ms(calls, reps=20):
+    """The card's time per call: ``reps`` calls, cycling through ``calls`` (each on its own copy of the
+    inputs), captured in one CUDA graph and replayed after warm-up calls on a side stream; each call's output
+    lives until ``len(calls)`` later calls were made, so no two calls in that span write one buffer.  The
+    host's time to make the calls is not in it."""
+    import collections
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph, kept = torch.cuda.CUDAGraph(), collections.deque(maxlen=len(calls))
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            kept.append(calls[i % len(calls)]())
+    ms = event_ms(graph.replay, 1, 1) / reps
+    del graph, kept
+    return ms
+
+
 def time_records(kernels, runs, shape_txt, smi):
-    """``runs``: ``{record name: (kernel, plain, library call or None, bytes, f32 operations, repeats)}``.
-    Times each kernel in turns with its plain version (two repeats of a plain version that runs at 5
-    repeats or fewer: it takes a large part of a second) and its library call, sets its bound, and writes
-    them into its record."""
-    for name, (run_k, run_p, run_lib, nbytes, ops, reps) in runs.items():
+    """``runs``: ``{record name: (kernel, plain, library call or None, bytes, f32 operations, repeats[,
+    (kernel calls, library calls)])}``.  Times each kernel in turns with its plain version (two repeats of a
+    plain version that runs at 5 repeats or fewer: it takes a large part of a second) and its library call,
+    all eagerly (``ms``, ``plain_ms``, ``library_ms``), sets its bound, and writes them into its record.
+    Where a run carries calls on copies of its inputs, the kernel and the library call are also timed on the
+    card alone (``card_ms``, ``library_card_ms``: :func:`card_ms`, the lower of two)."""
+    for name, (run_k, run_p, run_lib, nbytes, ops, reps, *cold) in runs.items():
         k = kernels[name]
         k["ms"], k["plain_ms"], txt = in_turns(run_k, run_p, reps=reps, plain_reps=None if reps > 5 else 2)
         k["library_ms"] = None
         if run_lib is not None:
             k["library_ms"] = min(event_ms(run_lib, reps), event_ms(run_lib, reps))
             txt += f", library {k['library_ms']:.4f} ms (kernel faster: {k['ms'] < k['library_ms']})"
-        log(f"time {name} {shape_txt}: {txt}; {set_bound(k, nbytes, ops)}, {k['bound_ms'] / k['ms'] * 100:.1f}% of "
-            f"it ({smi})")
-        free_memory()
+        bound_txt = set_bound(k, nbytes, ops)
+        if cold:
+            calls, lib_calls = cold[0]
+            k["card_ms"] = min(card_ms(calls, reps), card_ms(calls, reps))
+            k["library_card_ms"] = min(card_ms(lib_calls, reps), card_ms(lib_calls, reps))
+            txt += (f"; on the card ({len(calls)} input copies cycled): kernel {k['card_ms']:.4f} ms "
+                    f"({k['bound_ms'] / k['card_ms'] * 100:.1f}% of the bound), library {k['library_card_ms']:.4f}"
+                    f" ms (kernel faster: {k['card_ms'] < k['library_card_ms']})")
+        log(f"time {name} {shape_txt}: {txt}; {bound_txt}, {k['bound_ms'] / k['ms'] * 100:.1f}% of it eagerly "
+            f"({smi})")
 
 
 def vector_sweep_turns(model, u, shape_txt, smi, record=None):
@@ -2818,6 +2905,9 @@ def main() -> int:
     t0 = time.perf_counter()
     card_tests()
     log(f"phase card tests: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    banded_star_check(dev)
+    log(f"phase banded star: {time.perf_counter() - t0:.3f} s")
 
     kernels = {
         "neo_hookean_residual": dict(
@@ -3032,6 +3122,7 @@ def main() -> int:
                 "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"],
                 "library_ms": k["library_ms"],
+                **{key: k[key] for key in ("card_ms", "library_card_ms") if key in k},
             }
             for name, k in kernels.items()
         ]

@@ -6,6 +6,8 @@ kernels' index tables (the node -> rows CSR map, the per-block valid row
 counts) are checked here by emulating the kernels in numpy.
 """
 
+import re
+from pathlib import Path
 from types import SimpleNamespace
 
 import jax
@@ -92,39 +94,93 @@ def test_kernel_tables_reproduce_the_plain_versions(name):
     assert np.array_equal(emulated, to_numpy(tb.banded_scatter(tp, torch.as_tensor(f))))
 
 
+def _kernel_constant(name: str) -> int:
+    """``constexpr int name`` of csrc/banded.cu (the emulations below follow the source)."""
+    src = (Path(tb.__file__).resolve().parent.parent / "csrc" / "banded.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("s", [1, 2, 3])
 @pytest.mark.parametrize("name", list(CASES))
-def test_gather_kernel_tiles_reproduce_the_plan(name):
-    """Numpy emulation of the gather kernel's grid: thread block (k, tile) covers rows
-    ``[tile * 1024, (tile + 1) * 1024)`` of owner block k, a thread 4 consecutive rows, a row
-    valid iff its offset in the block is below ``block_rows[k]``, a tile's rows stored as one
-    contiguous run (as in csrc/banded.cu)."""
+def test_gather_kernel_tiles_reproduce_the_plan(name, s):
+    """Numpy emulation of the gather kernel's tiled body at s = 1, 2, 3 (csrc/banded.cu): thread block
+    (k, tile) covers rows ``[tile * 1024, (tile + 1) * 1024)`` of owner block k; thread t takes the 4 rows
+    from offset ``tile0 + 4 t``, their indices one int4 load (16-byte aligned) made iff the first row is
+    valid, a row valid iff its offset is below ``block_rows[k]``; at s = 1 the 4 values leave as one float4
+    straight from registers, at s = 2, 3 the tile is staged in shared memory (thread t's at float4 ``t s``)
+    and leaves as one contiguous float4 run.  The emulated rows equal the plain gather bitwise."""
     _, _, tp = _plans(name)
-    threads, rows_per_thread = 256, 4  # kThreads, kRowsPerThread
-    tile = threads * rows_per_thread
-    k, t, j = np.meshgrid(np.arange(tp.k_blocks), np.arange(-(-tp.rows // tile) * threads),
-                          np.arange(rows_per_thread), indexing="ij")
-    local = t * rows_per_thread + j  # row offset inside the owner block, 32-bit
+    threads, group = _kernel_constant("kThreads"), _kernel_constant("kGroupRows")
+    tile = threads * group
+    assert tp.rows % group == 0 and tp.k_blocks * tp.rows * s < 2**31
+    k, ty, t = np.meshgrid(np.arange(tp.k_blocks), np.arange(-(-tp.rows // tile)), np.arange(threads),
+                           indexing="ij")
+    local = ty * tile + t * group  # first row of the thread inside the owner block, 32-bit
     inside = local < tp.rows
-    row = (k * tp.rows + local)[inside]
-    valid = (local < to_numpy(tp.block_rows)[k])[inside]
-    assert tp.k_blocks * tp.rows * tp.s < 2**31
-    np.testing.assert_array_equal(np.sort(row), np.arange(tp.k_blocks * tp.rows))  # each row once
-    # the s = 3 path stages a tile's rows in shared memory and stores them as one float4 run of
-    # min(tile, rows - tile0) * s floats from (k * rows + tile0) * s: the runs tile the output
-    kb, t0 = np.meshgrid(np.arange(tp.k_blocks), np.arange(0, tp.rows, tile), indexing="ij")
-    start, length = ((kb * tp.rows + t0) * tp.s).ravel(), (np.minimum(tile, tp.rows - t0) * tp.s).ravel()
-    assert tp.rows % rows_per_thread == 0 and np.all(start % 4 == 0) and np.all(length % 4 == 0)
-    by_start = np.argsort(start)
-    np.testing.assert_array_equal(start[by_start], np.concatenate([[0], np.cumsum(length[by_start])[:-1]]))
-    assert length.sum() == tp.k_blocks * tp.rows * tp.s
-    order = np.argsort(row)
-    np.testing.assert_array_equal(valid[order], to_numpy(tp.valid_rows) > 0)
-    nodes = to_numpy(tp.nodes_padded)
-    np.testing.assert_array_equal(np.where(valid, nodes[row], 0)[order], nodes)  # padding rows hold node 0
-    u = rng(14).standard_normal((tp.num_nodes, tp.s))
-    out = np.zeros((tp.k_blocks * tp.rows, tp.s))
-    out[row[valid]] = u[nodes[row[valid]]]  # padding rows are written as zeros, u unread
-    assert np.array_equal(out.reshape(tp.padded_elements, tp.n, tp.s), to_numpy(tb.banded_gather(tp, torch.as_tensor(u))))
+    k, ty, t, local = (a[inside] for a in (k, ty, t, local))
+    first = k * tp.rows + local  # the int4 index load's first element
+    assert np.all(first % 4 == 0)
+    block_rows, nodes = to_numpy(tp.block_rows), to_numpy(tp.nodes_padded)
+    row = first[:, None] + np.arange(group)  # [threads, 4]
+    np.testing.assert_array_equal(np.sort(row.ravel()), np.arange(tp.k_blocks * tp.rows))  # each row once
+    loaded = local < block_rows[k]
+    idx = np.where(loaded[:, None], nodes[row], 0)
+    valid = (local[:, None] + np.arange(group)) < block_rows[k][:, None]
+    assert not np.any(valid & ~loaded[:, None])  # a valid row's index comes from its thread's load
+    np.testing.assert_array_equal(valid.ravel()[np.argsort(row.ravel())], to_numpy(tp.valid_rows) > 0)
+    u = rng(14).standard_normal((tp.num_nodes, s))
+    vals = np.where(valid[:, :, None], u[idx], 0.0).reshape(-1, group * s)  # padding rows: zeros, u unread
+    out = np.full(tp.k_blocks * tp.rows * s, np.nan)
+    if s == 1:  # one float4 a thread at float (k * rows + local)
+        out[first[:, None] + np.arange(4)] = vals
+    else:  # staged: the tile's floats in shared memory, then one run from (k * rows + tile0) * s
+        for kk, yy in {(a, b) for a, b in zip(k, ty)}:
+            sel = (k == kk) & (ty == yy)
+            smem = np.full(tile * s, np.nan)
+            smem[(t[sel] * s * 4)[:, None] + np.arange(group * s)] = vals[sel]  # s float4 a thread
+            n = min(tile, tp.rows - yy * tile) * s
+            assert n % 4 == 0
+            start = (kk * tp.rows + yy * tile) * s
+            out[start:start + n] = smem[:n]
+    assert not np.isnan(out).any()
+    got = to_numpy(tb.banded_gather(tp, torch.as_tensor(u)))
+    assert np.array_equal(out.reshape(tp.padded_elements, tp.n, s), got)
+
+
+def _star(m):
+    """A closed fan of ``m`` tri3 around node 0: node 0 has ``m`` rows, each rim node 2."""
+    rim = np.arange(1, m + 1)
+    return np.stack([np.zeros(m, np.int64), rim, np.roll(rim, -1)], axis=1)
+
+
+@pytest.mark.parametrize("name", [*CASES, "star_s1", "star_s2"])
+def test_scatter_kernel_batches_reproduce_the_plain_version(name):
+    """Numpy emulation of the scatter kernel's walk (csrc/banded.cu): a thread takes one node's CSR rows at
+    one component, at s = 1, 2 in batches of ``kScatterBatch`` rows (the batch's row indices, then their
+    element values, then the adds), at other s one row at a time, always adding in ascending row order
+    from 0.0 in f32.  Equal to the plain scatter bitwise; the star's centre has many batches of rows."""
+    if name.startswith("star"):
+        s = int(name[-1])
+        tp = tb.make_banded_plan(_star(200), 201, s=s, r_nodes=1024, rowt=256, device="cpu")
+    else:
+        _, _, tp = _plans(name)
+        s = tp.s
+    batch = _kernel_constant("kScatterBatch") if s <= 2 else 1
+    ptr, node_rows = to_numpy(tp.row_ptr), to_numpy(tp.node_rows)
+    if name.startswith("star"):
+        assert ptr[1] - ptr[0] == 200 > 10 * _kernel_constant("kScatterBatch")
+    f = rng(15).standard_normal((tp.padded_elements, tp.n, s)).astype(np.float32)
+    rows = f.reshape(-1, s)
+    out = np.full((tp.num_nodes, s), np.nan, np.float32)
+    for node in range(tp.num_nodes):
+        acc = np.zeros(s, np.float32)
+        for i0 in range(ptr[node], ptr[node + 1], batch):
+            idx = node_rows[i0:min(i0 + batch, ptr[node + 1])]  # the batch's row indices
+            vals = rows[idx]  # then their values
+            for v in vals:  # then the adds, in order
+                acc += v
+        out[node] = acc
+    assert np.array_equal(out, to_numpy(tb.banded_scatter_plain(tp, torch.as_tensor(f))))
 
 
 def test_kernels_refuse_layouts_past_32_bit_indices():
@@ -218,6 +274,33 @@ def test_wrappers_take_plain_versions_on_cpu_and_refuse_other_devices():
         tb.banded_gather(tp, torch.empty((tp.num_nodes, 3), device="meta"))
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tb.banded_scatter(tp, torch.empty((tp.padded_elements, tp.n, 3), device="meta"))
+
+
+def test_launches_skip_the_custom_op_only_when_untraced():
+    """The kernel wrappers call their launch straight from Python on a plain tensor, and go through the
+    custom op (which make_fx and functorch can trace) under a dispatch mode or a functorch transform."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    x = torch.zeros(3)
+    seen = []
+    torch.func.jvp(lambda a: seen.append(tb._eager(a)) or a, (x,), (x,))
+    make_fx(lambda a: seen.append(tb._eager(a)) or a)(x)
+    assert tb._eager(x) and seen == [False, False]
+    assert not tb._eager(torch.empty(3, device="meta").as_subclass(torch.nn.Parameter))
+
+
+def test_gather_alignment_is_checked_before_the_launch():
+    """The gather's alignment rules (int4 index loads, float2 node loads at s = 2), read from the tensors'
+    addresses: a view of u at an odd float offset, or of the plan's indices off 16 bytes, raises a
+    ValueError that says so; aligned inputs pass."""
+    _, _, tp = _plans("box5_s3")
+    N, nodes = tp.num_nodes, tp.nodes_padded
+    tb._check_aligned(nodes, torch.zeros((N, 2)))
+    tb._check_aligned(nodes, torch.zeros(3 * N + 1)[1:].view(N, 3))
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        tb._check_aligned(nodes, torch.zeros(2 * N + 1)[1:].view(N, 2))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tb._check_aligned(torch.zeros(nodes.numel() + 1, dtype=torch.int32)[1:], torch.zeros((N, 2)))
 
 
 @pytest.mark.parametrize("shuffle", [False, True], ids=["box", "shuffled"])

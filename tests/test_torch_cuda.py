@@ -291,26 +291,88 @@ BANDED_CASES = {
     # the scalar (Poisson) layouts: one component on the boxes the s = 3 cases use
     "box5_s1": ("box", 5, 1, 1024, 256),
     "box12_s1_blocks": ("box", 12, 1, 1024, 256),
+    # the 2D layouts (s = 2): a quad4 square of three owner blocks, the last one short, and RCM'd tri6
+    "quad4_s2_blocks": ("quad4", 48, 2, 1024, 256),
+    "tri6_s2": ("tri6", 16, 2, 1024, 256),
+    # a fan of tri3 whose centre has 2,548 rows (the scatter walks them in hundreds of batches)
+    "star_s1": ("star", 2548, 1, 1024, 256),
+    "star_s2": ("star", 2548, 2, 1024, 256),
+    "star_s3": ("star", 2548, 3, 1024, 256),
 }
+
+
+def star_cells(m):
+    """A closed fan of ``m`` tri3 around node 0 (rim nodes 1..m): node 0 has ``m`` rows."""
+    rim = np.arange(1, m + 1)
+    return np.stack([np.zeros(m, np.int64), rim, np.roll(rim, -1)], axis=1)
+
+
+def banded_cells(kind, res):
+    if kind == "star":
+        return star_cells(res)
+    if kind == "quad4":
+        return square_mesh("quad4", res).cells
+    if kind == "tri6":
+        return reorder_mesh(square_mesh("tri6", res))[0].cells
+    return (box(res) if kind == "box" else reorder_mesh(box(res))[0]).cells
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(BANDED_CASES))
 def test_banded_kernels_match_plain_on_card(name, cuda_device):
+    """Gather and scatter bitwise equal to their plain versions and to their own repeats (the star: one node
+    with thousands of rows)."""
     kind, res, s, r_nodes, rowt = BANDED_CASES[name]
-    mesh = box(res) if kind == "box" else reorder_mesh(box(res))[0]
-    N = int(mesh.cells.max()) + 1
-    tp = tb.make_banded_plan(mesh.cells, N, s=s, r_nodes=r_nodes, rowt=rowt, device=cuda_device)
+    cells = banded_cells(kind, res)
+    N = int(cells.max()) + 1
+    tp = tb.make_banded_plan(cells, N, s=s, r_nodes=r_nodes, rowt=rowt, device=cuda_device)
+    if kind == "star":
+        assert int(tp.row_ptr[1] - tp.row_ptr[0]) == res
+    before = (tb.banded_gather.launches, tb.banded_scatter.launches)
     u = torch.as_tensor(rng(12).standard_normal((N, s)), dtype=torch.float32, device=cuda_device)
     got = tb.banded_gather(tp, u)
+    again = tb.banded_gather(tp, u)
     torch.cuda.synchronize()
-    assert torch.equal(got, tb.banded_gather_plain(tp, u))
+    assert torch.equal(got, again) and torch.equal(got, tb.banded_gather_plain(tp, u))
     f = torch.as_tensor(rng(13).standard_normal((tp.padded_elements, tp.n, s)), dtype=torch.float32,
                         device=cuda_device)
     got = tb.banded_scatter(tp, f)
     again = tb.banded_scatter(tp, f)
     torch.cuda.synchronize()
     assert torch.equal(got, again) and torch.equal(got, tb.banded_scatter_plain(tp, f))
+    assert (tb.banded_gather.launches, tb.banded_scatter.launches) == (before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_banded_launch_route_on_card(cuda_device):
+    """On the card's torch: an untraced launch is called straight from Python, and under make_fx the custom
+    op is what the trace records (the kernel still launches, once)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    cells = banded_cells("quad4", 8)
+    N = int(cells.max()) + 1
+    tp = tb.make_banded_plan(cells, N, s=2, r_nodes=1024, rowt=256, device=cuda_device)
+    u = torch.as_tensor(rng(14).standard_normal((N, 2)), dtype=torch.float32, device=cuda_device)
+    seen = []
+    before = tb.banded_gather.launches
+    graph = make_fx(lambda a: seen.append(tb._eager(a)) or tb.banded_gather(tp, a))(u)
+    assert tb._eager(u) and seen == [False]
+    assert "banded_gather_kernel" in str(graph.graph) and tb.banded_gather.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_banded_gather_refuses_misaligned_input_on_card(cuda_device):
+    """At s = 2 the gather loads a node as one float2: a view of u at an odd float offset is refused with
+    a ValueError that names the alignment, before any launch."""
+    cells = banded_cells("quad4", 8)
+    N = int(cells.max()) + 1
+    tp = tb.make_banded_plan(cells, N, s=2, r_nodes=1024, rowt=256, device=cuda_device)
+    u = torch.zeros(2 * N + 1, device=cuda_device)[1:].view(N, 2)
+    before = tb.banded_gather.launches
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        tb.banded_gather(tp, u)
+    assert tb.banded_gather.launches == before
+    assert torch.equal(tb.banded_gather(tp, u.clone()), tb.banded_gather_plain(tp, u))
 
 
 # -- element sweeps (csrc/em_sweep.cu) ------------------------------------------------------
