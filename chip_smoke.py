@@ -128,8 +128,24 @@ versions) and drives the port's paths at full size:
   bitwise equal to the scalar launch, timed beside it; PE10,
   ``solve_mixed`` on S10's tet10 mesh with those parameters, checked by an
   independent f64 model holding them in the mesh's element order;
-* C2-MG: path C2's problem on 18^3 cells refined three times (9,145,875
-  dofs, RCM-reordered on the card in under 20 s) under
+* mesh topology, surface loads and the tet4 multigrid: TOPO, after
+  P40-tet10, the boundary queries on B20's hex20 and B10's tet10 meshes
+  (counts, host times, quad8 and tri6 boundary meshes) and in f64 on the
+  card a constant traction on the x = 0 faces summing to traction x area
+  and the consistent mass matrices' entries summing to rho x s x volume,
+  both within 1e-12; MMS-NL, tests/test_mms_nonlinear.py's Neo-Hookean
+  MMS on the structured grid at 16^3, 32^3 and 64^3 (823,875 dofs), each
+  ``solve_mixed(preconditioner="mg")`` to 1e-10, the last L2 order 2 +-
+  0.3, and the Hessian-action kernel at 64^3 in its own record; T4-MG, path C2's problem on the BCC tet4 box at res 8 refined
+  three times (3,145,728 tets, 1,610,307 dofs, RCM'd), the tet4 gather,
+  scatter and fused sweeps against their plain versions and timed, then
+  ``solve_mixed`` under Jacobi and under the banded geometric multigrid,
+  each to the independent f64 residual <= 1e-10; CANT,
+  examples/hyperelastic_cantilever_torch.py at res 32 with ``--banded``
+  (65,536 hex8), Newton converged;
+* C2-MG: path C2's problem on 18^3 cells refined twice (1,167,051 dofs;
+  three times, 9,145,875 dofs, until the slice above pushed the run past
+  600 s), RCM-reordered on the card in under 20 s, under
   ``GeometricMGPreconditioner(banded=True)``, ``solve_mixed`` to the
   independent f64 residual <= 1e-10, with CG iterations beside C2's Jacobi
   counts, the V-cycle's share of a CG iteration and a profile of one
@@ -239,9 +255,23 @@ BODY_2D = (0.0, -4.0)
 RES_S2D = 128
 PE10_CONTRAST = 10.0
 SLICE_CG_MAX_ITER = 20000
-# C2-MG: path C2's problem on 18^3 cells refined three times (144^3 = 2,985,984 hex8, 9,145,875 dofs)
+# C2-MG: path C2's problem on 18^3 cells refined twice (72^3 = 373,248 hex8, 1,167,051 dofs); refined three
+# times (144^3, 9,145,875 dofs) it took ~150 s, and the run with the topology, MMS-NL, T4-MG and CANT phases
+# went past 600 s (628 s), so it runs one level less
 RES_MG_COARSE = 18
-MG_LEVELS = 3
+MG_LEVELS = 2
+# the slice of mesh topology, surface loads, tet4 refinement and the nonlinear MMS.  TOPO: boundary queries on
+# B20's hex20 and B10's tet10 meshes, a constant traction on their x = 0 side and their consistent mass in f64
+# (density RHO_TOPO); MMS-NL: tests/test_mms_nonlinear.py's Neo-Hookean MMS (sine bubble) on the structured
+# grid at MMS_NL_CELLS; T4-MG: path C2's problem on the BCC tet4 box at res RES_T4_COARSE refined
+# T4_LEVELS times (3,145,728 tets) under the banded geometric multigrid and under Jacobi; CANT:
+# examples/hyperelastic_cantilever_torch.py at res RES_CANT (65,536 hex8) with --banded
+TRACTION_TOPO = (0.5, -1.25, 3.0)
+RHO_TOPO = 2.5
+MMS_NL_CELLS = (16, 32, 64)
+RES_T4_COARSE = 8
+T4_LEVELS = 3
+RES_CANT = 32
 CARD_TESTS_TIMEOUT_S = 300
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
@@ -1804,10 +1834,11 @@ def ragged_element_sweeps(dev):
     free_memory()
 
 
-def element_sweep_checks(kernels, model, cell, dev, smi):
-    """M10/M20/M2D on ``model``'s layout: the gather and scatter at its n nodes a row and s = d, and for each
-    material the fused tangent and vector sweeps, against their plain versions (rel <= KERNEL_RTOL,
-    bitwise repeats, padding rows zero), timed in turns with them beside their bounds."""
+def element_sweep_checks(kernels, model, cell, dev, smi, materials=None):
+    """M10/M20/M2D/T4-MG on ``model``'s layout: the gather and scatter at its n nodes a row and s = d, and for
+    each material (of ``materials``, default all) the fused tangent and vector sweeps, against their plain
+    versions (rel <= KERNEL_RTOL, bitwise repeats, padding rows zero), timed in turns with them beside their
+    bounds."""
     import torch
 
     import fenris_tpu_torch.ops.banded as bd
@@ -1829,6 +1860,8 @@ def element_sweep_checks(kernels, model, cell, dev, smi):
         kernels[rec]["max_abs_err"] = compare(fn.__name__, shape_txt, fn(plan, arg), fn(plan, arg), plain(plan, arg))
     runs = gather_scatter_runs(plan, w, f_el, dev, names)
     for material, cls in es.MATERIALS.items():
+        if materials is not None and material not in materials:
+            continue
         op = MaterialEllipticOperator(cls(), dim=d)
         for rec, fn, plain, args in zip(sweep_records(name, material),
                                         (es.banded_tangent_sweep, es.banded_vector_sweep),
@@ -2250,7 +2283,7 @@ def vcycle_profile(mg, model, wall_s, dev, smi):
 
 
 def path_c2_mg(kernels, c2_cg_iters, dev, smi):
-    """C2-MG: path C2's problem on 18^3 refined three times (2,985,984 hex8 cells, 9,145,875 dofs),
+    """C2-MG: path C2's problem on 18^3 refined MG_LEVELS times (twice: 373,248 hex8 cells, 1,167,051 dofs),
     RCM-reordered on the card, solve_mixed with the banded geometric multigrid; CG iterations beside C2's
     Jacobi counts, the operator and V-cycle shares of a CG iteration, and the independent f64 residual."""
     from unittest import mock
@@ -2282,7 +2315,7 @@ def path_c2_mg(kernels, c2_cg_iters, dev, smi):
         f"{model.space.num_dofs} dofs; refinement {t_refine[0]:.3f} s, RCM of the finest mesh on the card "
         f"{t_rcm[0]:.3f} s (limit 20 s), fused model {t_model:.3f} s, MG set-up (refinement again, intermediate "
         f"RCMs, level models, Jacobi diagonals) {t_mg:.3f} s; levels (nodes, cells) {levels} ({smi})")
-    check(t_rcm[0] < 20.0, f"C2-MG: RCM of the 144^3 mesh took {t_rcm[0]:.1f} s (limit 20 s)")
+    check(t_rcm[0] < 20.0, f"C2-MG: RCM of the finest mesh took {t_rcm[0]:.1f} s (limit 20 s)")
 
     inner_times, vcycle_times = [], []
     model._matrix_free_cg = timed(model._matrix_free_cg, inner_times)
@@ -2339,6 +2372,243 @@ def path_c2_mg(kernels, c2_cg_iters, dev, smi):
 
 
 # -- entry B: element stiffness ----------------------------------------------------------
+
+
+# -- the topology, surface-load, tet4 multigrid and nonlinear MMS slice ----------------------------------------
+
+
+def topo_phase(meshes, dev, smi):
+    """TOPO: the boundary queries on ``meshes`` (``{name: mesh}``: B20's hex20 and B10's tet10), with counts and
+    host times; the boundary vertices against the vertices on the box's surface found from their coordinates;
+    their boundary meshes' face elements; then in f64 on the card a constant traction on the x = 0
+    side's faces (``assemble_element_surface_source_vectors`` and ``assemble_vector``) summing to traction x
+    its area 1, and the entries of the consistent mass matrices (``assemble_element_mass_matrices``, s = 3)
+    summing to rho x s x the volume 1, both within 1e-12 relative."""
+    import numpy as np
+    import torch
+
+    from fenris_tpu_torch.assembly.global_ import assemble_vector, element_dof_indices
+    from fenris_tpu_torch.assembly.local import (
+        assemble_element_mass_matrices,
+        assemble_element_surface_source_vectors,
+        tabulate,
+    )
+    from fenris_tpu_torch.quadrature import canonical_mass
+
+    faces_of = {"hex20": "quad8", "tet10": "tri6"}
+    traction = torch.tensor(TRACTION_TOPO, dtype=torch.float64, device=dev)
+    for name, mesh in meshes.items():
+        out, times = {}, {}
+        for query in ("find_boundary_faces", "find_boundary_cells", "find_boundary_vertices", "boundary_mesh"):
+            t0 = time.perf_counter()
+            out[query] = getattr(mesh, query)()
+            times[query] = time.perf_counter() - t0
+        faces, cells, verts, bm = out.values()
+        log(f"TOPO {name}: {mesh.num_cells} cells, {mesh.num_vertices} vertices: {len(faces)} boundary faces, "
+            f"{len(cells)} boundary cells, {len(verts)} boundary vertices; host times "
+            + ", ".join(f"{q} {t:.3f} s" for q, t in times.items()))
+        check(bm.element.name == faces_of[name], f"TOPO {name}: boundary mesh of {bm.element.name}")
+        # independent of the topology: the unit box's vertices with a coordinate at 0 or 1
+        on_surface = np.flatnonzero((np.abs(mesh.points - 0.5) > 0.5 - 1e-12).any(axis=1))
+        check(np.array_equal(verts, on_surface), f"TOPO {name}: {len(verts)} boundary vertices, {len(on_surface)} "
+              "vertices on the box's surface")
+        fel = bm.element
+        side = bm.cells[(np.abs(mesh.points[bm.cells][:, :, 0]) < 1e-12).all(axis=1)]
+        tab = tabulate(fel, canonical_mass(fel.name))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X = torch.as_tensor(mesh.points[side[:, : fel.geometry.num_nodes]], dtype=torch.float64, device=dev)
+        b_el = assemble_element_surface_source_vectors(X, traction, None, 3, tab)
+        dofs = torch.as_tensor(element_dof_indices(side, 3), device=dev)
+        b = assemble_vector(b_el, dofs, 3 * mesh.num_vertices)
+        total = b.reshape(-1, 3).sum(0)
+        torch.cuda.synchronize()
+        t_traction = time.perf_counter() - t0
+        rel_t = float((total - traction).abs().max() / traction.abs().max())
+        geo = mesh.element.geometry.num_nodes
+        vtab = tabulate(mesh.element, canonical_mass(mesh.element.name))
+        t0 = time.perf_counter()
+        mass = torch.zeros((), dtype=torch.float64, device=dev)
+        for e0 in range(0, mesh.num_cells, 32768):
+            Xc = torch.as_tensor(mesh.points[mesh.cells[e0:e0 + 32768, :geo]], dtype=torch.float64, device=dev)
+            mass += assemble_element_mass_matrices(Xc, RHO_TOPO, 3, vtab).sum()
+        torch.cuda.synchronize()
+        t_mass = time.perf_counter() - t0
+        rel_m = abs(float(mass) - RHO_TOPO * 3) / (RHO_TOPO * 3)
+        log(f"TOPO {name}: traction {list(TRACTION_TOPO)} on {len(side)} {fel.name} faces of x = 0: sum "
+            f"{total.tolist()} (rel {rel_t:.3e}, {t_traction:.3f} s); mass matrices (rho {RHO_TOPO}, s = 3, "
+            f"{tab.num_points}/{vtab.num_points}-point rules): sum {float(mass):.15f} against {RHO_TOPO * 3} (rel "
+            f"{rel_m:.3e}, {t_mass:.3f} s) ({smi})")
+        check(rel_t <= 1e-12, f"TOPO {name}: traction sum rel {rel_t:.3e} > 1e-12")
+        check(rel_m <= 1e-12, f"TOPO {name}: mass sum rel {rel_m:.3e} > 1e-12")
+        free_memory()
+
+
+def mms_nl_phase(kernels, dev, smi):
+    """MMS-NL: tests/test_mms_nonlinear.py's Neo-Hookean MMS (the sine bubble, its PARAMS, the whole boundary
+    clamped) on the structured grid at MMS_NL_CELLS, each ``solve_mixed(preconditioner="mg")`` to 1e-10
+    relative (f64 outer residual, the Hessian-action kernel in every inner CG iteration); the L2 errors (by an
+    f64 model) and the order of the last pair 2 +- 0.3; then the Hessian-action kernel at the last grid's shapes
+    against its plain version and timed beside its bound, in its own record with the last solve's launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import fenris_tpu_torch.ops.structured_stencil as ss
+    from fenris_tpu_torch.optimize import NEWTON_CONVERGED
+    from fenris_tpu_torch.solid import LameParameters, NeoHookeanMaterial
+    from fenris_tpu_torch.solid.mms import manufactured_body_force, sine_bubble_displacement
+    from fenris_tpu_torch.structured import StructuredHyperelasticModel
+
+    params = LameParameters(mu=MU, lam=LAM)
+    u_exact = sine_bubble_displacement()
+    force = manufactured_body_force(NeoHookeanMaterial(), params, u_exact)
+    errors = []
+    for c in MMS_NL_CELLS:
+        m = np.zeros((c + 1,) * 3, dtype=bool)
+        m[0], m[-1], m[:, 0], m[:, -1], m[:, :, 0], m[:, :, -1] = (True,) * 6
+        kw = dict(cells=(c, c, c), spacing=1.0 / c, material=NeoHookeanMaterial(), params=params,
+                  dirichlet_mask=np.repeat(m.reshape(-1), 3), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = StructuredHyperelasticModel(body_force=force, dtype=torch.float32, **kw)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        history, cg_iters = [], []
+
+        def record(k, fn, cg):
+            history.append(fn)
+            if cg is not None:
+                cg_iters.append(cg.num_iterations)
+
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = model.solve_mixed(tolerance=1e-10, preconditioner="mg", callback=record)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hvp = kernels["neo_hookean_hvp"]["fn"].launches
+        ratio = res.residual_norm / history[0]
+        err = StructuredHyperelasticModel(dtype=torch.float64, **kw).l2_error(res.x, u_exact)
+        errors.append(err)
+        order = math.log2(errors[-2] / err) if len(errors) > 1 else float("nan")
+        log(f"MMS-NL c={c} ({c ** 3} cells, {model.num_dofs} dofs): status={res.status} newton_iters={res.iterations} "
+            f"cg_iters={cg_iters} |F|/|F0|={ratio:.6e} L2 error {err:.6e} order {order:.4f}; set-up {setup:.3f} s, "
+            f"solve_mixed {wall:.3f} s; neo_hookean_hvp launches {hvp} ({smi})")
+        check(res.status == NEWTON_CONVERGED and ratio <= 1e-10, f"MMS-NL c={c}: status {res.status}, rel {ratio:.3e}")
+        check(hvp >= sum(cg_iters) > 0, f"MMS-NL c={c}: {hvp} Hessian-action launches for {sum(cg_iters)} CG iterations")
+        check(bool(torch.isfinite(res.x).all()), f"MMS-NL c={c}: non-finite displacement")
+        del model, res
+        free_memory()
+    order = math.log2(errors[-2] / errors[-1])
+    log(f"MMS-NL L2 errors {[f'{e:.6e}' for e in errors]}, orders "
+        f"{[f'{math.log2(a / b):.4f}' for a, b in zip(errors, errors[1:])]} (expected 2 +- 0.3)")
+    check(abs(order - 2.0) <= 0.3, f"MMS-NL: last L2 order {order:.3f} not 2 +- 0.3")
+
+    # the Hessian-action kernel at the last grid's shapes: its own record, with the last solve's launches
+    k = kernels["neo_hookean_hvp (MMS-NL)"]
+    k["launches"] = hvp
+    cells = (MMS_NL_CELLS[-1],) * 3
+    h, u, v = kernel_inputs(cells, dev, seed=2)
+    gp, w = ss.gp_table(h)
+    k["max_abs_err"] = compare("neo_hookean_hvp (MMS-NL)", f"cells={cells}", k["fn"](u, v, gp, w, MU, LAM),
+                               k["fn"](u, v, gp, w, MU, LAM), k["plain"](u, v, gp, w, MU, LAM))
+    k["ms"], k["plain_ms"], txt = in_turns(lambda: k["fn"](u, v, gp, w, MU, LAM),
+                                           lambda: k["plain"](u, v, gp, w, MU, LAM))
+    bound_txt = set_bound(k, 3 * u.numel() * 4, stencil_ops(cells[0] * cells[1] * cells[2], hvp=True))
+    k["library_ms"] = None
+    log(f"time neo_hookean_hvp (MMS-NL) cells={cells}: {txt}; {bound_txt}; launches in the last solve {hvp} ({smi})")
+    del u, v
+    free_memory()
+
+
+def t4_mg_phase(kernels, dev, smi):
+    """T4-MG: path C2's problem on the BCC tet4 box at res RES_T4_COARSE refined T4_LEVELS times
+    (``rcm_refined_hierarchy``, RCM on the card), the fused banded model's ``solve_mixed`` under Jacobi and
+    then under ``GeometricMGPreconditioner(banded=True)``, each to the independent f64 residual <= 1e-10
+    (element_solve); the tet4 gather, scatter and both fused sweeps against their plain versions, timed
+    beside their bounds and library calls (element_sweep_checks).  The records' launches are the MG solve's."""
+    from unittest import mock
+
+    import torch
+
+    import fenris_tpu_torch.mesh.refinement as refinement
+    import fenris_tpu_torch.mesh.reorder as reorder
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_tet_mesh_3d
+    from fenris_tpu_torch.multigrid import GeometricMGPreconditioner, rcm_refined_hierarchy
+
+    coarse = create_unit_box_uniform_tet_mesh_3d(RES_T4_COARSE)
+    t_refine, t_rcm = [], []
+    torch.cuda.synchronize()
+    with mock.patch.object(refinement, "refine_uniformly_repeat", timed(refinement.refine_uniformly_repeat, t_refine)), \
+            mock.patch.object(reorder, "reorder_mesh", timed(reorder.reorder_mesh, t_rcm)):
+        fine, perm = rcm_refined_hierarchy(coarse, T4_LEVELS, device=dev)
+    t0 = time.perf_counter()
+    model = assembled_model(0, torch.float32, dev, None, mesh=fine, banded=True, fused_kernels=True)
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mg = GeometricMGPreconditioner(model, coarse, T4_LEVELS, fine_permutation=perm, banded=True)
+    torch.cuda.synchronize()
+    t_mg = time.perf_counter() - t0
+    levels = [(L["num_vertices"], L["model"].mesh.num_cells) for L in mg.levels_data]
+    setup = t_refine[0] + t_rcm[0] + t_model
+    log(f"T4-MG: BCC tet4 res {RES_T4_COARSE} ({coarse.num_cells} tets) refined {T4_LEVELS} times: {fine.num_cells} "
+        f"tet4, {model.space.num_dofs} dofs; refinement {t_refine[0]:.3f} s, RCM on the card {t_rcm[0]:.3f} s, "
+        f"fused model {t_model:.3f} s, MG set-up {t_mg:.3f} s; levels (nodes, cells) {levels} ({smi})")
+    element_sweep_checks(kernels, model, "T4-MG", dev, smi, materials=("neo_hookean",))
+    records = solve_records("tet4", "neo_hookean", 3, True)
+    element_solve(kernels, model, records, "T4-MG Jacobi", setup, dev, smi, mixed=True, cg_max_iter=SLICE_CG_MAX_ITER)
+    element_solve(kernels, model, records, "T4-MG MG", setup + t_mg, dev, smi, mixed=True, preconditioner=mg)
+    del model, mg
+    free_memory()
+
+
+def cantilever_phase(kernels, dev, smi):
+    """CANT: ``examples/hyperelastic_cantilever_torch.main(RES_CANT, banded=True)`` on the card (f32, RCM and
+    the fused kernels; ``solve_mixed`` to 1e-4 of the initial residual within the example's Newton cap):
+    Newton must converge (status 0) with the fused tangent sweep in every CG iteration; the Newton steps, CG
+    iterations and the tip deflection.  ``solve_mixed``'s residuals are f64 on the plain sweeps, so the vector
+    sweep is not on this path."""
+    import numpy as np
+    import torch
+
+    from unittest import mock
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import hyperelastic_cantilever_torch as example
+
+    from fenris_tpu_torch.elasticity import HyperelasticModel
+
+    path = ("banded_gather", "banded_scatter", "em_vector_tangent_sweep", "em_vector_sweep")
+    history = []
+    solve = HyperelasticModel.solve_mixed
+
+    def traced(self, *args, **kwargs):
+        kwargs["callback"] = lambda k, fn, cg: history.append((fn, None if cg is None else cg.num_iterations))
+        return solve(self, *args, **kwargs)
+
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(HyperelasticModel, "solve_mixed", traced):
+        res, u, tip = example.main(RES_CANT, banded=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: kernels[name]["fn"].launches for name in path}
+    cg = [c for _, c in history if c is not None]
+    log(f"CANT res {RES_CANT}: status {res.status}, {res.iterations} Newton steps (cap {example.MAX_NEWTON_ITERATIONS}), |F| "
+        f"{history[0][0]:.6e} -> {history[-1][0]:.6e}, CG iterations {sum(cg)} (a step: min {min(cg, default=0)}, "
+        f"max {max(cg, default=0)}), tip deflection {u[tip].tolist()}, wall {wall:.3f} s (mesh, RCM, model and "
+        f"solve); launches {launches} ({smi})")
+    log("CANT |F| a Newton step: " + " ".join(f"{fn:.3e}" for fn, _ in history))
+    check(res.status == 0, f"CANT: Newton status {res.status}")
+    check(bool(np.isfinite(u).all()) and u[tip, 2] < 0.0, f"CANT: tip deflection {u[tip].tolist()}")
+    # solve_mixed's residuals are f64 on the plain sweeps: its kernels are the tangent sweep and the scatter
+    check(launches["em_vector_tangent_sweep"] >= sum(cg) > 0 and launches["banded_scatter"] > 0,
+          f"CANT: the tangent sweep and the scatter were not launched for every CG iteration: {launches}")
+    free_memory()
 
 
 def stiffness_accuracy(sp, X, op, params, tab, got, ref):
@@ -2999,6 +3269,21 @@ def main() -> int:
                                     replaces="fenris_tpu/ops/em_sweep.py:251")
             kernels[vector] = dict(fn=es.banded_vector_sweep, path=f"M2D {name}", source=SOURCES["em_sweep"],
                                    replaces="fenris_tpu/ops/em_sweep.py:233")
+    # T4-MG: the gather and scatter at n = 4 (s = 3) and the Neo-Hookean fused sweeps on the refined tet4 box
+    kernels["banded_gather (s=3, tet4)"] = dict(
+        fn=bd.banded_gather, path="T4-MG", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:285")
+    kernels["banded_scatter (s=3, tet4)"] = dict(
+        fn=bd.banded_scatter, path="T4-MG", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:346")
+    tangent, vector = sweep_records("tet4", "neo_hookean")
+    kernels[tangent] = dict(fn=es.banded_tangent_sweep, path="T4-MG", source=SOURCES["em_sweep"],
+                            replaces="fenris_tpu/ops/em_sweep.py:251")
+    kernels[vector] = dict(fn=es.banded_vector_sweep, path="T4-MG", source=SOURCES["em_sweep"],
+                           replaces="fenris_tpu/ops/em_sweep.py:233")
+    # MMS-NL: the Hessian-action kernel on the last MMS grid
+    kernels["neo_hookean_hvp (MMS-NL)"] = dict(
+        fn=ss.neo_hookean_hvp, plain=ss.neo_hookean_hvp_plain, nargs=2, path="MMS-NL",
+        source=SOURCES["structured_stencil"], replaces="fenris_tpu/ops/structured_stencil.py:319",
+    )
     # ME: the fused sweeps with per-element Lame parameters on hex8 (C1's layout) and tet10 (PE10's)
     for name in ("hex8", "tet10, neo_hookean"):
         kernels[f"em_vector_tangent_sweep ({name}, [E])"] = dict(
@@ -3100,9 +3385,17 @@ def main() -> int:
     element_meshes["tet10"] = poisson_p40_tet10(kernels, element_meshes["tet10"], dev, smi)
     log(f"phase P40-tet10: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
+    topo_phase({"hex20": element_meshes["hex20"], "tet10": element_meshes["tet10"][0]}, dev, smi)
+    log(f"phase TOPO: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
     element_sweep_phases(kernels, {**element_meshes, "hex20": (element_meshes["hex20"], None)}, dev, smi)
     log(f"phase M10/M20, S10/S20, PE10 and ME tet10: {time.perf_counter() - t0:.3f} s")
     del element_meshes
+    free_memory()
+    for name, phase in (("MMS-NL", mms_nl_phase), ("T4-MG", t4_mg_phase), ("CANT", cantilever_phase)):
+        t0 = time.perf_counter()
+        phase(kernels, dev, smi)
+        log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     path_c2_mg(kernels, c2_cg_iters, dev, smi)
     log(f"phase C2-MG: {time.perf_counter() - t0:.3f} s")

@@ -36,7 +36,7 @@ def u_exact_grad(x):
 
 def main(resolution: int = 50, matrix_free: bool = False, device="cuda", dtype=torch.float32):
     mesh = create_unit_square_uniform_quad_mesh_2d(resolution)
-    dirichlet = np.flatnonzero(np.abs(mesh.points - 0.5).max(axis=1) > 0.4999)
+    dirichlet = mesh.find_boundary_vertices()
     solver = fem.solve_poisson_matrix_free if matrix_free else fem.solve_poisson
     result = solver(
         mesh,

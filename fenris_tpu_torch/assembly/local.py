@@ -40,7 +40,10 @@ __all__ = [
     "assemble_element_elliptic_vectors",
     "assemble_element_elliptic_matrices",
     "assemble_element_elliptic_matrices_pairs",
+    "assemble_element_elliptic_matrices_em",
+    "assemble_element_mass_matrices",
     "assemble_element_source_vectors",
+    "assemble_element_surface_source_vectors",
 ]
 
 
@@ -323,6 +326,16 @@ def _chunked_elliptic_matrices(X_geo, u_el, op, params, tab: Tabulation, chunk: 
     return torch.cat(parts, 0)
 
 
+def assemble_element_elliptic_matrices_em(X_geo, u_el, op, params, tab: Tabulation):
+    """Element matrices in the element-minor layout ``A[n*s, n*s, E]``.
+
+    The values of :func:`assemble_element_elliptic_matrices` with the
+    element axis last (the JAX package's TPU layout; its block-DIA scatter
+    reads it).
+    """
+    return assemble_element_elliptic_matrices(X_geo, u_el, op, params, tab).permute(1, 2, 0).contiguous()
+
+
 def assemble_element_elliptic_matrices_pairs(X_geo, u_el, op, params, tab: Tabulation, kernel=False):
     """Element matrices in the component-pair layout ``[s², n², E]``.
 
@@ -453,6 +466,45 @@ def _elliptic_matrices_affine_const(X_geo, op, params, tab: Tabulation, out_layo
     return (lhs.T @ W4).reshape(E, n * s, n * s)
 
 
+def assemble_element_mass_matrices(X_geo, density, solution_dim: int, tab: Tabulation):
+    """Element mass matrices ``M[e, (I,i), (J,j)] = ∫ ρ φ_I φ_J δ_ij`` (mass.rs:191).
+
+    ``density``: a scalar, per element ``[E]`` or per point ``[E, q]``.
+    ``solution_dim`` 1 gives ``[E, n, n]``, s gives ``[E, n*s, n*s]``.
+    """
+    J = jacobians(X_geo, tab.geo_dphi)
+    _, detJ = inv_and_det(J)
+    rho = _leaf_tensor(density, X_geo)
+    if rho.ndim == 1 and rho.shape[0] == X_geo.shape[0]:
+        rho = rho[:, None]  # per element, the same at every point
+    phi = _const(tab.phi, X_geo)
+    Mn = torch.einsum("eq,qn,qm->enm", _wdet(tab, detJ) * rho, phi, phi)  # [E, n, n]
+    s = solution_dim
+    if s == 1:
+        return Mn
+    E, n = Mn.shape[0], Mn.shape[1]
+    eye = torch.eye(s, dtype=X_geo.dtype, device=X_geo.device)
+    return torch.einsum("enm,ij->enimj", Mn, eye).reshape(E, n * s, n * s)
+
+
+def _source_values(X_geo, source, params, solution_dim: int, tab: Tabulation) -> torch.Tensor:
+    """``f(x) [E, q, s]`` at the mapped quadrature points: ``source`` a pointwise callable ``f(x [D], params)
+    -> [s]`` (per-element and per-point parameter leaves map by :func:`_leaf_axes`) or a constant ``[s]``."""
+    E, q = X_geo.shape[0], tab.num_points
+    if not callable(source):
+        return _leaf_tensor(source, X_geo).reshape(1, 1, solution_dim).expand(E, q, solution_dim)
+    x = torch.einsum("qm,emd->eqd", _const(tab.geo_phi, X_geo), X_geo)
+
+    def f(xp, p):  # a number is a constant source, as in the JAX package
+        return torch.atleast_1d(torch.as_tensor(source(xp, p), dtype=xp.dtype, device=xp.device))
+
+    if has_mapped_params(params, E, q):
+        fvals = _vmap2(f, params, E, q)(x, params)
+    else:
+        fvals = vmap(lambda xp: f(xp, params))(x.reshape(E * q, -1))
+    return fvals.to(X_geo.dtype).reshape(E, q, solution_dim)
+
+
 def assemble_element_source_vectors(X_geo, source, params, solution_dim: int, tab: Tabulation):
     """Element source vectors ``b[e, (I,i)] = ∫ f(x)_i φ_I`` (source.rs:217).
 
@@ -461,13 +513,22 @@ def assemble_element_source_vectors(X_geo, source, params, solution_dim: int, ta
     """
     J = jacobians(X_geo, tab.geo_dphi)
     _, detJ = inv_and_det(J)
-    wdet = _wdet(tab, detJ)
-    E, q = wdet.shape
-    if callable(source):
-        x = torch.einsum("qm,emd->eqd", _const(tab.geo_phi, X_geo), X_geo)
-        fvals = vmap(lambda xp: torch.atleast_1d(source(xp, params)))(x.reshape(E * q, -1))
-        fvals = fvals.to(X_geo.dtype).reshape(E, q, solution_dim)
-    else:
-        fvals = _const(source, X_geo).reshape(1, 1, solution_dim).expand(E, q, solution_dim)
-    b = torch.einsum("eq,eqs,qn->ens", wdet, fvals, _const(tab.phi, X_geo))
-    return b.reshape(E, -1)
+    fvals = _source_values(X_geo, source, params, solution_dim, tab)
+    b = torch.einsum("eq,eqs,qn->ens", _wdet(tab, detJ), fvals, _const(tab.phi, X_geo))
+    return b.reshape(X_geo.shape[0], -1)
+
+
+def assemble_element_surface_source_vectors(X_geo, source, params, solution_dim: int, tab: Tabulation):
+    """Surface (traction, Neumann) load vectors ``b[e, (I,i)] = ∫_Γ t(x)_i φ_I``.
+
+    :func:`assemble_element_source_vectors` on faces embedded in a space of
+    higher dimension: ``X_geo [E, m, D]`` are face nodes (e.g. of
+    ``mesh.boundary_mesh()``), ``tab`` tabulates the face element, and the
+    weight is the generalised volume form sqrt(det(JᵀJ)).
+    """
+    from ..integrate import volume_form
+
+    wvol = _const(tab.weights, X_geo)[None, :] * volume_form(jacobians(X_geo, tab.geo_dphi))
+    fvals = _source_values(X_geo, source, params, solution_dim, tab)
+    b = torch.einsum("eq,eqs,qn->ens", wvol, fvals, _const(tab.phi, X_geo))
+    return b.reshape(X_geo.shape[0], -1)

@@ -33,15 +33,16 @@ def element_chunks(num_elements: int, tab: Tabulation):
 
 
 def volume_form(J: torch.Tensor) -> torch.Tensor:
-    """Volume factor |det J| of square Jacobians (integrate.rs:20).
+    """Generalised volume factor sqrt(det(JᵀJ)) of ``J [..., D, d]`` (integrate.rs:20).
 
-    The JAX package's non-square case, sqrt(det(JᵀJ)), serves surface
-    elements, which the port does not have yet.
+    Non-square Jacobians belong to surface and curve elements embedded in
+    a space of higher dimension; a square J gives |det J|.
     """
-    if J.shape[-2] != J.shape[-1]:
-        raise NotImplementedError(f"volume_form of a non-square Jacobian {tuple(J.shape[-2:])}")
-    _, det = inv_and_det(J)
-    return det.abs()
+    if J.shape[-2] == J.shape[-1]:
+        _, det = inv_and_det(J)
+        return det.abs()
+    _, det = inv_and_det(torch.einsum("...ki,...kj->...ij", J, J))
+    return torch.sqrt(det)
 
 
 def quadrature_fields(X_geo, u_el, tab: Tabulation, needs_gradient: bool):

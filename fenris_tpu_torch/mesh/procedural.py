@@ -1,13 +1,15 @@
-"""Procedural quad4, tri3, hex8 and tet4 meshes.
+"""Procedural quad4, tri3, hex8 and tet4 meshes, and meshes of 2D signed distance functions.
 
 Counterpart of ``create_rectangular_uniform_quad_mesh_2d``,
 ``create_unit_square_uniform_quad_mesh_2d``,
 ``create_unit_square_uniform_tri_mesh_2d``,
 ``create_rectangular_uniform_hex_mesh``,
-``create_unit_box_uniform_hex_mesh_3d``, ``create_rectangular_uniform_tet_mesh``
-and ``create_unit_box_uniform_tet_mesh_3d`` in ``fenris_tpu/mesh/procedural.py``
-(procedural.rs:46, :15, :22, :216, :30, :286, :37), with the same vertex
-and cell numbering, so vectors compare one to one.
+``create_unit_box_uniform_hex_mesh_3d``, ``create_rectangular_uniform_tet_mesh``,
+``create_unit_box_uniform_tet_mesh_3d``, ``voxelize_bounding_box_2d``,
+``voxelize_sdf_2d``, ``approximate_quad_mesh_for_sdf_2d`` and
+``approximate_triangle_mesh_for_sdf_2d`` in ``fenris_tpu/mesh/procedural.py``
+(procedural.rs:46, :15, :22, :216, :30, :286, :37, :96, :140, :156, :178),
+with the same vertex and cell numbering, so vectors compare one to one.
 """
 
 from __future__ import annotations
@@ -25,6 +27,10 @@ __all__ = [
     "create_unit_box_uniform_hex_mesh_3d",
     "create_rectangular_uniform_tet_mesh",
     "create_unit_box_uniform_tet_mesh_3d",
+    "voxelize_bounding_box_2d",
+    "voxelize_sdf_2d",
+    "approximate_quad_mesh_for_sdf_2d",
+    "approximate_triangle_mesh_for_sdf_2d",
 ]
 
 
@@ -179,3 +185,59 @@ def create_rectangular_uniform_tet_mesh(
 def create_unit_box_uniform_tet_mesh_3d(cells_per_dim: int) -> Mesh:
     """BCC tet mesh of the unit box with ``cells_per_dim`` hex cells per axis."""
     return create_rectangular_uniform_tet_mesh(1.0, 1, 1, 1, cells_per_dim)
+
+
+# -- SDF voxelization ------------------------------------------------------------------------
+
+
+def voxelize_bounding_box_2d(min_corner, max_corner, max_cell_size: float) -> Mesh:
+    """Uniform quad mesh covering the box enlarged by 1% a side, cells no larger than ``max_cell_size``
+    (procedural.rs:96)."""
+    lo = np.asarray(min_corner, dtype=np.float64)
+    hi = np.asarray(max_corner, dtype=np.float64)
+    if max_cell_size <= 0:
+        raise ValueError("max cell size must be positive")
+    ext = hi - lo
+    ext2 = (hi + ext * 0.01) - (lo - ext * 0.01)
+    cell = float(np.min(ext2 / np.ceil(ext2 / max_cell_size)))
+    n = np.ceil(ext2 / cell).astype(int)
+    final_ext = n * cell
+    center = (lo + hi) / 2.0
+    top_left = (center[0] - final_ext[0] / 2.0, center[1] + final_ext[1] / 2.0)
+    return create_rectangular_uniform_quad_mesh_2d(cell, int(n[0]), int(n[1]), 1, top_left)
+
+
+def _inside_cells(mesh: Mesh, sdf) -> np.ndarray:
+    """Cells with at least one vertex where the SDF is <= 0."""
+    phi = np.asarray(sdf.eval(mesh.points))
+    return np.flatnonzero((phi[mesh.cells] <= 0.0).any(axis=1))
+
+
+def voxelize_sdf_2d(sdf, max_cell_size: float) -> Mesh:
+    """The quads of the voxelized bounding box with a vertex inside the SDF (procedural.rs:140).
+
+    ``sdf`` has ``bounding_box() -> (min, max)`` and a vectorised
+    ``eval(points [N, 2]) -> [N]``.
+    """
+    lo, hi = sdf.bounding_box()
+    mesh = voxelize_bounding_box_2d(lo, hi, max_cell_size)
+    return mesh.keep_cells(_inside_cells(mesh, sdf))
+
+
+def _project_outside_vertices(mesh: Mesh, sdf) -> Mesh:
+    """Vertices outside the SDF moved along its ``gradient(points [N, 2]) -> [N, 2]`` onto the zero level."""
+    phi = np.asarray(sdf.eval(mesh.points))
+    grad = np.asarray(sdf.gradient(mesh.points))
+    pts = mesh.points - np.where((phi > 0.0)[:, None], phi[:, None] * grad, 0.0)
+    return Mesh(pts, mesh.cells, mesh.element)
+
+
+def approximate_quad_mesh_for_sdf_2d(sdf, max_cell_size: float) -> Mesh:
+    """Voxelize, then snap the outside vertices onto the zero level set (procedural.rs:156)."""
+    return _project_outside_vertices(voxelize_sdf_2d(sdf, max_cell_size), sdf)
+
+
+def approximate_triangle_mesh_for_sdf_2d(sdf, max_cell_size: float) -> Mesh:
+    """The triangle variant of :func:`approximate_quad_mesh_for_sdf_2d` (procedural.rs:178)."""
+    mesh = voxelize_sdf_2d(sdf, max_cell_size).split_into_triangles()
+    return _project_outside_vertices(mesh.keep_cells(_inside_cells(mesh, sdf)), sdf)

@@ -4,13 +4,14 @@ Counterpart of ``fenris_tpu/multigrid.py``.  :class:`StructuredMGPreconditioner`
 is the matrix-free geometric V-cycle on the uniform hex grid, where every
 transfer operator is slicing and averaging;
 :class:`GeometricMGPreconditioner` the V-cycle over a uniform refinement
-hierarchy of an unstructured hex8 mesh (see its notes).  Both share:
+hierarchy of an unstructured tri3, quad4, tet4 or hex8 mesh (see its
+notes).  Both share:
 
 * levels: cell counts halved per level while even (at most 6 levels);
 * level operators: rediscretized constant-coefficient linear elasticity
   (the u-independent small-strain Hessian), built once per model;
 * smoother: damped Jacobi (symmetric pre/post sweeps);
-* transfers: restriction R = Pᵀ and trilinear prolongation P;
+* transfers: restriction R = Pᵀ and the P1/Q1 prolongation P of the refinement;
 * Dirichlet constraints masked at every level (restricted by injection).
 
 The structured V-cycle runs in grid layout ``[s, z, y, x]``; only its

@@ -13,12 +13,13 @@ Contraction convention (as in the reference): ``D[k, i, m, j] =
 
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Any, Callable
 
 import torch
 from torch.func import grad, jacfwd, jvp, vmap
 
-__all__ = ["EllipticOperator", "LaplaceOperator", "pointwise"]
+__all__ = ["EllipticOperator", "LaplaceOperator", "operator_from_energy", "pointwise"]
 
 
 def pointwise(fn: Callable, *mats: torch.Tensor) -> torch.Tensor:
@@ -86,3 +87,15 @@ class LaplaceOperator(EllipticOperator):
 
     def g_tangent(self, G, dG, params):
         return dG
+
+
+@dataclass
+class operator_from_energy(EllipticOperator):
+    """An energy density ``psi(G, params)`` as an operator: ``g`` and the contraction come from ``torch.func``."""
+
+    psi: Callable[[Any, Any], Any]
+    solution_dim: int = 1
+    symmetric: bool = True
+
+    def energy(self, G, params):
+        return pointwise(lambda Gm: self.psi(Gm, params), G)

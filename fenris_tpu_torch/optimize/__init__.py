@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Callable, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -21,6 +22,8 @@ __all__ = [
     "newton_line_search",
     "backtracking_alphas",
     "mixed_precision_newton",
+    "approximate_jacobian_fd",
+    "approximate_gradient_fd",
     "NEWTON_CONVERGED",
     "NEWTON_MAX_ITER",
     "NEWTON_LINE_SEARCH_FAILED",
@@ -169,3 +172,31 @@ def mixed_precision_newton(
             status = NEWTON_CONVERGED
             break
     return NewtonResult(x=u, iterations=k, status=status, residual_norm=nf)
+
+
+# -- finite-difference calculus (test utilities; calculus.rs:156-305) --------------------------
+
+
+def approximate_jacobian_fd(f: Callable, x, h: float = 1e-6) -> np.ndarray:
+    """Central-difference Jacobian ``[m, n]`` of ``f: R^n -> R^m`` at ``x`` (calculus.rs:266).
+
+    ``f`` takes and returns float64 CPU tensors; the result is numpy.
+    """
+    x = torch.as_tensor(np.asarray(x, dtype=np.float64))
+    cols = []
+    for j in range(x.shape[0]):
+        e = torch.zeros_like(x)
+        e[j] = h
+        cols.append((torch.as_tensor(f(x + e)) - torch.as_tensor(f(x - e))) / (2 * h))
+    return torch.stack(cols, dim=1).numpy()
+
+
+def approximate_gradient_fd(f: Callable, x, h: float = 1e-6) -> np.ndarray:
+    """Central-difference gradient ``[n]`` of a scalar ``f`` at ``x`` (calculus.rs:205)."""
+    x = torch.as_tensor(np.asarray(x, dtype=np.float64))
+    g = np.zeros(x.shape[0])
+    for j in range(x.shape[0]):
+        e = torch.zeros_like(x)
+        e[j] = h
+        g[j] = (float(f(x + e)) - float(f(x - e))) / (2 * h)
+    return g

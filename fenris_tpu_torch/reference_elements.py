@@ -168,6 +168,20 @@ class ReferenceElement:
         C = self.coeffs
         return self.monomials(points) @ C, np.einsum("qkd,kn->qnd", self.monomial_gradients(points), C)
 
+    def face_element(self) -> Optional["ReferenceElement"]:
+        """Element of this element's boundary faces (None for segments and tet20)."""
+        name = _face_element_name(self.name)
+        return ELEMENTS[name] if name else None
+
+    def face_nodes(self) -> Tuple[Tuple[int, ...], ...]:
+        """Local node indices of each boundary face, in the face element's node order.
+
+        Corners run outward (3D) or counter-clockwise along the boundary
+        (2D), as ``Connectivity::get_face_connectivity`` gives them; an
+        element without a face element (tet20) has corner-only faces.
+        """
+        return _face_nodes_by_name(self.name)
+
     def __hash__(self):
         return hash(self.name)
 
@@ -307,6 +321,44 @@ HEX27 = _register(
     ReferenceElement("hex27", "hex", 3, _hex_v + _hex_edge_mids + _hex_face_centers + (_fr(0, 0, 0),),
                      _q_space(3, 2), 8, 2, edges=_HEX_EDGES, faces=_HEX_FACES, geometry_name="hex8")
 )
+
+
+# -- face topology ------------------------------------------------------------------------
+
+#: the face element of each element with one (the JAX package's table; tet20's tri10 faces are not defined)
+_FACE_ELEMENTS = {
+    "tri3": "seg2", "tri6": "seg3", "quad4": "seg2", "quad8": "seg3", "quad9": "seg3",
+    "tet4": "tri3", "tet10": "tri6", "hex8": "quad4", "hex20": "quad8", "hex27": "quad9",
+}
+
+
+def _face_element_name(name: str) -> Optional[str]:
+    return _FACE_ELEMENTS.get(name)
+
+
+@lru_cache(maxsize=None)
+def _face_nodes_by_name(name: str) -> Tuple[Tuple[int, ...], ...]:
+    """Each face's cell nodes, found by mapping the face element's nodes into the cell.
+
+    The face element's nodes go through the (bi)linear map of the face's
+    corners in the cell's reference domain; each lands on one cell node.
+    """
+    el = ELEMENTS[name]
+    corner_faces = el.edges if el.ref_dim == 2 else el.faces
+    fel = el.face_element()
+    if fel is None:
+        return corner_faces
+    flin = ELEMENTS[{"segment": "seg2", "tri": "tri3", "quad": "quad4"}[fel.domain]]
+    phi, _ = flin.tabulate(fel.nodes)  # [fn, fv]
+    out = []
+    for corners in corner_faces:
+        mapped = phi @ el.nodes[list(corners)]  # [fn, cell_dim]
+        dist = np.abs(el.nodes[None, :, :] - mapped[:, None, :]).max(axis=-1)  # [fn, n]
+        idx = dist.argmin(axis=1)
+        if (dist[np.arange(len(idx)), idx] > 1e-12).any():
+            raise AssertionError(f"a face node of {name} is not a node of the element")
+        out.append(tuple(int(j) for j in idx))
+    return tuple(out)
 
 
 def element(name: str) -> ReferenceElement:

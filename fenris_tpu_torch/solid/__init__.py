@@ -182,6 +182,21 @@ class HyperelasticMaterial:
         """Directional stress tangent dP = (∂P/∂F)[dF], dF = (δ∇u)ᵀ; default AD."""
         return jvp(lambda G: self.stress_du(G, params), (u_grad,), (du_grad,))[1]
 
+    # -- functions of F (lib.rs:143) ---------------------------------------------------------
+
+    def energy_density(self, F, params):
+        """ψ(F): :meth:`energy_density_du` at ``∇u = Fᵀ - I``."""
+        return self.energy_density_du(_t(F) - _eye(F.shape[-1], F), params)
+
+    def stress(self, F, params):
+        """P(F): :meth:`stress_du` at ``∇u = Fᵀ - I``."""
+        return self.stress_du(_t(F) - _eye(F.shape[-1], F), params)
+
+    def stress_contraction(self, F, a, b, params):
+        """``C_P(F, a, b)[i, j] = a_k (∂P_ik/∂F_jm) b_m`` (lib.rs:143); leading axes are batch axes."""
+        A = self.stress_contraction_tensor_du(_t(F) - _eye(F.shape[-1], F), params)
+        return torch.einsum("...k,...ikjm,...m->...ij", a, A, b)
+
 
 class LinearElasticMaterial(HyperelasticMaterial):
     """ψ = μ ε:ε + λ/2 tr²(ε), ε = sym(∇u) (materials.rs:68)."""

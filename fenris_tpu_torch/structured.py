@@ -226,6 +226,17 @@ class StructuredHyperelasticModel:
         """Internal forces in grid layout [s, z, y, x] (flat dof input), plain path."""
         return self._forces_grid(self._grid(u))
 
+    def internal_forces(self, u):
+        """Internal forces as a flat dof vector, plain path."""
+        return self._ungrid(self.internal_forces_grid(u))
+
+    def to_mesh(self):
+        """The equivalent unstructured hex8 mesh, with the same node numbering."""
+        from .mesh.procedural import create_rectangular_uniform_hex_mesh
+
+        ncx, ncy, ncz = self.cells
+        return create_rectangular_uniform_hex_mesh(self.spacing, ncx, ncy, ncz, 1)
+
     # -- stencil-kernel path (ops/structured_stencil.py) ------------------------
 
     def _check_kernel(self):

@@ -718,6 +718,63 @@ def test_unstructured_vcycle_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_tet4_vcycle_on_card_matches_cpu(cuda_device):
+    """One banded V-cycle over a tet4 hierarchy (BCC res 2, two refinements, RCM, f32) on the card against the
+    CPU: the levels' gathers and scatters launch the kernels; rel 1e-4 (f32 roundoff through the cycle)."""
+    from fenris_tpu_torch.multigrid import GeometricMGPreconditioner, rcm_refined_hierarchy
+
+    coarse = tet_box(2)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        fine, perm = rcm_refined_hierarchy(coarse, 2, device=dev)
+        model = HyperelasticModel(mesh=fine, material=LinearElasticMaterial(), params=LameParameters(MU, LAM),
+                                  dirichlet_nodes=np.flatnonzero(fine.points[:, 0] < 1e-12), dtype=torch.float32,
+                                  device=dev, banded=True, banded_r_nodes=1024)
+        mg = GeometricMGPreconditioner(model, coarse, 2, fine_permutation=perm, banded=True)
+        r = torch.as_tensor(rng(17).standard_normal(model.space.num_dofs), dtype=torch.float32, device=dev)
+        before = (tb.banded_gather.launches, tb.banded_scatter.launches)
+        out[str(dev)] = (mg(r), perm)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tb.banded_gather.launches > before[0] and tb.banded_scatter.launches > before[1]
+    (cpu, perm_cpu), (card, perm_card) = out["cpu"], out[str(cuda_device)]
+    np.testing.assert_array_equal(perm_cpu, perm_card)
+    assert rel_err(cpu, card) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hex20", "tet10"])
+def test_mass_and_surface_assemblers_on_card_match_cpu(name, cuda_device):
+    """The mass matrices (per-element density, s = 3) of a distorted res-3 box and the traction vectors
+    (a traction varying over the faces) of its boundary faces, in f64 on the card against the CPU (1e-12)."""
+    from fenris_tpu_torch.assembly.local import assemble_element_mass_matrices, assemble_element_surface_source_vectors
+    from fenris_tpu_torch.quadrature import canonical_mass
+
+    base = (tet_box if name.startswith("tet") else box)(3)
+    mesh = convert_mesh(base, name)
+    el, fel = mesh.element, mesh.boundary_mesh().element
+    g = rng(18)
+    X = mesh.points[mesh.cells[:, : el.geometry.num_nodes]]
+    X = X + 0.01 * g.standard_normal(X.shape)
+    rho = g.uniform(1.0, 3.0, mesh.num_cells)
+    faces = mesh.boundary_mesh().cells
+    Xf = mesh.points[faces[:, : fel.geometry.num_nodes]]
+    tab, ftab = tabulate(el, canonical_mass(name)), tabulate(fel, canonical_mass(fel.name))
+
+    def traction(x, p):
+        return torch.stack([x[0] * x[1], 1.0 + x[2], -x[0]])
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        Xt = torch.as_tensor(X, device=dev)
+        out[str(dev)] = (assemble_element_mass_matrices(Xt, torch.as_tensor(rho, device=dev), 3, tab),
+                         assemble_element_surface_source_vectors(torch.as_tensor(Xf, device=dev), traction, None, 3,
+                                                                 ftab))
+    for cpu, card in zip(out["cpu"], out[str(cuda_device)]):
+        assert card.is_cuda and rel_err(cpu, card) < 1e-12
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("route", ["assembled", "matrix_free"])
 @pytest.mark.parametrize("name", ["tet10", "hex20"])
 def test_poisson_elements_on_card_match_cpu(name, route, cuda_device):

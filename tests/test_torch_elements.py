@@ -24,6 +24,7 @@ from fenris_tpu.elasticity import HyperelasticModel as JaxModel
 from fenris_tpu.assembly.local import tabulate as jax_tabulate
 from fenris_tpu.mesh import procedural as JP
 from fenris_tpu.mesh.convert import convert_mesh as jax_convert
+from fenris_tpu.mesh.refinement import refine_uniformly as jax_refine
 from fenris_tpu.reference_elements import element as jax_element
 from fenris_tpu.solid import LameParameters as JaxLame
 from fenris_tpu.solid import NeoHookeanMaterial as JaxNeoHookean
@@ -160,8 +161,10 @@ def test_rectangular_tet_mesh_matches_jax():
     jm = JP.create_rectangular_uniform_tet_mesh(0.5, 2, 1, 3, 2)
     np.testing.assert_array_equal(tm.cells, jm.cells)
     assert np.abs(tm.points - jm.points).max() <= 1e-15
-    with pytest.raises(NotImplementedError, match="tet4"):
-        refine_uniformly(tm)
+    # its refinement (tet4 refines since the port has tri3/quad4/tet4 refinement) equals JAX's too
+    rm, rjm = refine_uniformly(tm), jax_refine(jm)
+    np.testing.assert_array_equal(rm.cells, rjm.cells)
+    np.testing.assert_array_equal(rm.points, rjm.points)
 
 
 def test_tet10_model_carried_across_matches_jax():

@@ -39,7 +39,7 @@ from fenris_tpu_torch.multigrid import (
     rcm_refined_hierarchy,
 )
 from fenris_tpu_torch.optimize import NEWTON_CONVERGED
-from fenris_tpu_torch.reference_elements import QUAD4
+from fenris_tpu_torch.reference_elements import QUAD8
 from fenris_tpu_torch.solid import LameParameters, LinearElasticMaterial, NeoHookeanMaterial
 
 
@@ -63,9 +63,11 @@ def test_refinement_matches_jax(levels):
 
 
 def test_refinement_of_unported_elements_raises():
-    mesh = Mesh(np.array([[0, 0], [1, 0], [1, 1], [0, 1]], float), np.array([[0, 1, 2, 3]]), QUAD4)
+    """Elements without a refinement rule (here quad8) raise the JAX package's ``ValueError``."""
+    mesh = Mesh(np.array([[0, 0], [1, 0], [1, 1], [0, 1], [0.5, 0], [1, 0.5], [0.5, 1], [0, 0.5]], float),
+                np.array([[0, 1, 2, 3, 4, 5, 6, 7]]), QUAD8)
     for fn in (refine_uniformly, prolongation_for_refinement):
-        with pytest.raises(NotImplementedError, match="quad4"):
+        with pytest.raises(ValueError, match="quad8"):
             fn(mesh)
 
 

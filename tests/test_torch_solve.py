@@ -123,21 +123,28 @@ def test_mg_transfers_match_jax(transfer):
     assert rel_err(ref, got) < 1e-15
 
 
+#: the smallest grid with two multigrid levels (4^3 cells and 2^3 below it)
+CELLS = (4, 4, 4)
+
+
 def test_mg_vcycle_matches_jax():
-    jm, tm = model_pair((8, 8, 8), spacing=1.0 / 8)
+    jm, tm = model_pair(CELLS, spacing=1.0 / 4)
     jp, tp = jmg.StructuredMGPreconditioner(jm), tmg.StructuredMGPreconditioner(tm)
-    assert len(tp.levels) == len(jp.levels) == 3
+    assert len(tp.levels) == len(jp.levels) == 2
     r = rng(5).standard_normal(jm.num_dofs) * np.asarray(jm.free_mask)
     ref, got = both(jp, tp, r)
     # ~100 f64 stencil applications, summed in another order: roundoff only
     assert rel_err(ref, got) < 1e-12
 
 
-CELLS = (4, 4, 8)
+@pytest.fixture(scope="module")
+def f64_pair():
+    """The f64 model pair of the two solve tests, built once."""
+    return model_pair(CELLS, spacing=1.0 / 8, body_force=(0.0, 0.0, -9.81))
 
 
-def test_solve_jacobi_matches_jax():
-    jm, tm = model_pair(CELLS, spacing=1.0 / 8, body_force=(0.0, 0.0, -9.81))
+def test_solve_jacobi_matches_jax(f64_pair):
+    jm, tm = f64_pair
     kw = dict(tolerance=1e-10, cg_rel_tolerance=1e-8, preconditioner="jacobi")
     jres = jm.solve(**kw)
     history = []
@@ -151,14 +158,14 @@ def test_solve_jacobi_matches_jax():
     assert all(cg.status == tcg.CG_CONVERGED for _, _, cg in history[1:])
 
 
-def test_solve_mixed_mg_matches_jax():
+def test_solve_mixed_mg_matches_jax(f64_pair):
     jm, tm = model_pair(CELLS, dtype=torch.float32, spacing=1.0 / 8, body_force=(0.0, 0.0, -9.81))
     jres = jm.solve_mixed(tolerance=1e-10, preconditioner="mg")
     tres = tm.solve_mixed(tolerance=1e-10, preconditioner="mg")
     assert tres.status == int(jres.status) == topt.NEWTON_CONVERGED
     assert tres.x.dtype == torch.float64
     # f64 outer residual relative to its start, as solve_mixed defines tolerance
-    _, m64 = model_pair(CELLS, spacing=1.0 / 8, body_force=(0.0, 0.0, -9.81))
+    _, m64 = f64_pair
     r0 = float(torch.linalg.vector_norm(m64.residual(torch.zeros(m64.num_dofs, dtype=torch.float64))))
     rel = float(torch.linalg.vector_norm(m64.residual(tres.x))) / r0
     rel_jax = float(jres.residual_norm) / r0

@@ -1,8 +1,9 @@
 """Port parity: the stencil kernels' plain versions and wrappers.
 
-The JAX Pallas kernels run in interpret mode on the CPU, patched as in
-tests/test_stencil_kernel.py.  The CUDA kernels themselves run only on a
-card: their test is in ``tests/test_torch_cuda.py``.
+The JAX Pallas kernels run in Pallas's TPU interpret mode on the CPU,
+patched in as tests/test_stencil_kernel.py patches ``interpret=True``.
+The CUDA kernels themselves run only on a card: their test is in
+``tests/test_torch_cuda.py``.
 """
 
 import re
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 from torch_parity import LAM, MU, model_pair, rel_err, rng
 
 import fenris_tpu.ops.structured_stencil as jss
@@ -22,10 +24,13 @@ from fenris_tpu_torch.interop import flat_to_grid
 
 @pytest.fixture
 def interpret_pallas(monkeypatch):
+    """Pallas's TPU interpret mode (``pltpu.InterpretParams``): it runs the kernel body on the CPU one grid step
+    at a time, with the outputs of ``interpret=True`` (bitwise equal in a check on this grid), in less than half the
+    time, because XLA does not compile the whole interpreted kernel."""
     orig = pl.pallas_call
 
     def patched(*args, **kwargs):
-        kwargs["interpret"] = True
+        kwargs["interpret"] = pltpu.InterpretParams()
         return orig(*args, **kwargs)
 
     monkeypatch.setattr(pl, "pallas_call", patched)
@@ -48,9 +53,14 @@ def test_gp_table_matches_jax(spacing):
     assert np.abs(w - w_ref).max() <= 1e-15 * np.abs(w_ref).max()
 
 
+#: ragged in x, y and z, and two KZ = 4 slabs in z: the smallest grid that reaches every branch of the kernels'
+#: tiling
+INTERPRET_CELLS = (3, 2, 5)
+
+
 def test_residual_plain_matches_pallas_interpret(interpret_pallas):
     h = 0.25
-    u, _ = _grids((5, 4, 11), h)
+    u, _ = _grids(INTERPRET_CELLS, h)
     u = u.astype(np.float32)
     ref = np.asarray(jss.neo_hookean_residual_pallas(jnp.asarray(u), h, MU, LAM, KZ=4))
     gp, w = tss.gp_table(h)
@@ -61,7 +71,7 @@ def test_residual_plain_matches_pallas_interpret(interpret_pallas):
 
 def test_hvp_plain_matches_pallas_interpret(interpret_pallas):
     h = 0.25
-    u, v = _grids((5, 4, 11), h)
+    u, v = _grids(INTERPRET_CELLS, h)
     u, v = u.astype(np.float32), v.astype(np.float32)
     ref = np.asarray(jss.neo_hookean_hvp_pallas(jnp.asarray(u), jnp.asarray(v), h, MU, LAM, KZ=4))
     gp, w = tss.gp_table(h)
