@@ -143,6 +143,27 @@ versions) and drives the port's paths at full size:
   each to the independent f64 residual <= 1e-10; CANT,
   examples/hyperelastic_cantilever_torch.py at res 32 with ``--banded``
   (65,536 hex8), Newton converged;
+* point location, interpolation, I/O and mixed-element assembly (no kernel
+  of their own): ERR, the reference's whole tri3 error-estimation suite
+  (tests/reference_values/error_estimation_tri3_summary.json, 56
+  samples, fine meshes up to 2,097,152 cells) in f64 through
+  ``interpolate_at_points``/``interpolate_gradient_at_points`` on a
+  ``GridIndex``, each L2 and H1 error within 1%; LOC, 10^6 seeded interior
+  points of B10's tet10 mesh located at distance 0, mapped back within
+  1e-12 and a quadratic field reproduced within 1e-10 through
+  ``FixedInterpolator`` (its ``interpolate`` timed beside its bytes bound),
+  then a 100^3 grid around the Gmsh sphere refined three times (303,616
+  tets, about 60% of the points outside) through the grid branch, 4,096 of
+  them also through the brute force (distances 1e-12, unique-nearest
+  elements equal, values 1e-12); MSH, every Gmsh fixture from ASCII and
+  binary files, then that sphere RCM'd under gravity with its cap clamped,
+  the fused banded ``solve_mixed`` to the independent f64 residual with
+  the tet4 gather, scatter and sweeps timed at its layout, the deformed
+  mesh's VTU parsed back exactly, a checkpoint loaded bitwise and the f64
+  ``solve`` resumed from it at iteration 0; AGG, mixed quad4/tri3 Poisson
+  on 1,050,625 nodes through the quadrature tables and the aggregate CSR
+  assembly (two assemblies bitwise equal, nodal error <= 1e-8); and in P2D
+  ``block_dia_from_csr`` of the CSR matrices through the band sweep;
 * C2-MG: path C2's problem on 18^3 cells refined twice (1,167,051 dofs;
   three times, 9,145,875 dofs, until the slice above pushed the run past
   600 s), RCM-reordered on the card in under 20 s, under
@@ -272,6 +293,22 @@ MMS_NL_CELLS = (16, 32, 64)
 RES_T4_COARSE = 8
 T4_LEVELS = 3
 RES_CANT = 32
+# point location, I/O and mixed-element assembly.  ERR: the reference's tri3 error-estimation suite, every
+# sample, with the triangle rule of strength ERR_RULE (tests/test_error_estimation.py); LOC: 10^6 points in B10's
+# tet10 mesh and a LOC_GRID^3 grid around the refined sphere, the brute force on LOC_SUBSET of them; MSH: the Gmsh
+# fixtures, and the sphere refined MSH_LEVELS times (303,616 tets) under gravity with the cap z < MSH_CAP_Z
+# clamped; AGG: mixed_square(AGG_RES), 1,572,864 cells on 1,050,625 nodes, Jacobi CG to AGG_CG_TOL
+ERR_SUMMARY = "tests/reference_values/error_estimation_tri3_summary.json"
+ERR_RULE = 20
+LOC_POINTS = 1_000_000
+LOC_GRID = 100
+LOC_SUBSET = 4096
+MSH_LEVELS = 3
+MSH_CAP_Z = -0.45
+AGG_RES = 512
+# the nodal error after Jacobi CG to 1e-10 grows about as the resolution (on the CPU, f64: 3.3e-10, 2.1e-9,
+# 5.0e-9, 9.4e-9 at AGG_RES 16, 64, 128, 256) and passes 1e-8 at 512 (2.28e-8 on the card), so AGG solves to 1e-12
+AGG_CG_TOL = 1e-12
 CARD_TESTS_TIMEOUT_S = 300
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 operations/s
@@ -1834,11 +1871,11 @@ def ragged_element_sweeps(dev):
     free_memory()
 
 
-def element_sweep_checks(kernels, model, cell, dev, smi, materials=None):
-    """M10/M20/M2D/T4-MG on ``model``'s layout: the gather and scatter at its n nodes a row and s = d, and for
-    each material (of ``materials``, default all) the fused tangent and vector sweeps, against their plain
+def element_sweep_checks(kernels, model, cell, dev, smi, materials=None, key=None):
+    """M10/M20/M2D/T4-MG/MSH on ``model``'s layout: the gather and scatter at its n nodes a row and s = d, and
+    for each material (of ``materials``, default all) the fused tangent and vector sweeps, against their plain
     versions (rel <= KERNEL_RTOL, bitwise repeats, padding rows zero), timed in turns with them beside their
-    bounds."""
+    bounds, into the records of ``key`` (default: the element's name)."""
     import torch
 
     import fenris_tpu_torch.ops.banded as bd
@@ -1854,7 +1891,8 @@ def element_sweep_checks(kernels, model, cell, dev, smi, materials=None):
     u = displacement(model, 32).reshape(N, d)
     v = torch.randn((N, d), generator=g, device=dev)
     padding = ~(plan.valid_rows > 0).reshape(pe, n)[:, 0]
-    names = (f"banded_gather (s={d}, {name})", f"banded_scatter (s={d}, {name})")
+    key = key or name
+    names = (f"banded_gather (s={d}, {key})", f"banded_scatter (s={d}, {key})")
     for rec, fn, plain, arg in zip(names, (bd.banded_gather, bd.banded_scatter),
                                    (bd.banded_gather_plain, bd.banded_scatter_plain), (w, f_el)):
         kernels[rec]["max_abs_err"] = compare(fn.__name__, shape_txt, fn(plan, arg), fn(plan, arg), plain(plan, arg))
@@ -1863,7 +1901,7 @@ def element_sweep_checks(kernels, model, cell, dev, smi, materials=None):
         if materials is not None and material not in materials:
             continue
         op = MaterialEllipticOperator(cls(), dim=d)
-        for rec, fn, plain, args in zip(sweep_records(name, material),
+        for rec, fn, plain, args in zip(sweep_records(key, material),
                                         (es.banded_tangent_sweep, es.banded_vector_sweep),
                                         (es.banded_tangent_sweep_plain, es.banded_vector_sweep_plain),
                                         ((plan, X, u, v), (plan, X, u))):
@@ -1903,12 +1941,12 @@ def element_solve(kernels, model, records, cell, setup_s, dev, smi, mixed, check
     """S10/S20/S2D/PE10: the fused model's ``solve_mixed`` to 1e-10, checked by an independent f64 model
     ``check_model(mesh)`` (``mixed``; default tools/solve_assembled.py's), or its f32 ``solve`` with
     ``solve_kwargs`` (``|F| / |F0| <= max_ratio``; None: M2D's capped step, which only counts launches),
-    under reset counts: wall and set-up time, Newton steps, CG
+    under reset counts (``solve_mixed`` returns its f64 solution): wall and set-up time, Newton steps, CG
     iterations a step, ms a CG iteration, peak memory and the launches of the kernels of ``records``
     (``{role: record}``, roles tangent, vector, gather, scatter; the records get them); no plain tangent sweep
     may run, and the tangent sweep must carry every CG iteration.  ``solve_mixed`` takes its residuals in f64
-    on the plain sweeps, so there the vector sweep's launches are those of one f32 ``model.residual``, which
-    must launch it once and no gather."""
+    on the plain sweeps, so it launches no vector sweep and its record gets 0; one f32 ``model.residual`` after
+    it must launch the vector sweep once and no gather (logged, not recorded)."""
     from unittest import mock
 
     import torch
@@ -1917,7 +1955,6 @@ def element_solve(kernels, model, records, cell, setup_s, dev, smi, mixed, check
     from fenris_tpu_torch.optimize import NEWTON_CONVERGED
 
     name = model.mesh.element.name
-    solve_roles = {role: rec for role, rec in records.items() if not (mixed and role == "vector")}
     inner_times, diag_times, history, cg_iters, plain_calls = [], [], [], [], []
     # instance attributes shadow the methods for this solve only
     model._matrix_free_cg = timed(model._matrix_free_cg, inner_times)
@@ -1946,8 +1983,8 @@ def element_solve(kernels, model, records, cell, setup_s, dev, smi, mixed, check
             res = model.solve(cg_rel_tolerance=1e-4, callback=record, **solve_kwargs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {role: kernels[rec]["fn"].launches for role, rec in solve_roles.items()}
-    for role, rec in solve_roles.items():
+    launches = {role: kernels[rec]["fn"].launches for role, rec in records.items()}
+    for role, rec in records.items():
         kernels[rec]["launches"] = launches[role]
     del model._matrix_free_cg, model.hessian_diagonal
     t_inner, t_diag, iters = sum(inner_times), sum(diag_times), max(sum(cg_iters), 1)
@@ -1963,7 +2000,9 @@ def element_solve(kernels, model, records, cell, setup_s, dev, smi, mixed, check
     check(not plain_calls, f"{cell}: the plain tangent sweep ran {len(plain_calls)} times")
     check(launches["tangent"] >= sum(cg_iters) > 0,
           f"{cell}: {launches['tangent']} tangent sweeps for {sum(cg_iters)} CG iterations")
-    check(all(c > 0 for c in launches.values()), f"{cell}: a kernel of the path was not launched: {launches}")
+    path = {role: c for role, c in launches.items() if not (mixed and role == "vector")}
+    check(all(c > 0 for c in path.values()), f"{cell}: a kernel of the path was not launched: {path}")
+    check(not mixed or launches["vector"] == 0, f"{cell}: solve_mixed launched {launches['vector']} vector sweeps")
     if not mixed:
         check(max_ratio is None or ratio <= max_ratio, f"{cell}: |F|/|F0| = {ratio:.3e} > {max_ratio}")
         return
@@ -1975,7 +2014,6 @@ def element_solve(kernels, model, records, cell, setup_s, dev, smi, mixed, check
     torch.cuda.synchronize()
     vector = kernels[records["vector"]]["fn"].launches
     gathers = kernels[records.get("gather", "banded_gather")]["fn"].launches
-    kernels[records["vector"]]["launches"] = vector
     log(f"{cell} one f32 residual: banded_vector_sweep launches {vector}, banded_gather {gathers}")
     check(vector == 1 and gathers == 0, f"{cell}: one residual launched {vector} vector sweeps and {gathers} gathers")
     free_memory()
@@ -1988,8 +2026,9 @@ def element_solve(kernels, model, records, cell, setup_s, dev, smi, mixed, check
     check(true_r / r0 <= 1e-10, f"{cell}: independent relative residual {true_r / r0:.3e} > 1e-10")
     log(f"{cell} the f32 Hessian action against the f64 one at the solution, on the solution: rel "
         f"{operator_floor(model, fresh, x64):.3e}")
-    del fresh, x64
+    del fresh
     free_memory()
+    return x64
 
 
 def element_sweep_phases(kernels, meshes, dev, smi):
@@ -3128,6 +3167,7 @@ def poisson_p2d(kernels, dev, smi):
         del residual, b, solutions, ref
         free_memory()
         csr_spmv_record(captured["csr"][0], dev, smi, cell)
+        p2d_block_dia_from_csr(kernels, captured["csr"][0], mesh, cell, dev, smi)
         matrix = captured["matrix"]
         scalar_kernel_checks(kernels, matrix.bands, matrix.offsets, captured["plan"], dev, smi, cell=cell)
         del captured, matrix
@@ -3136,48 +3176,512 @@ def poisson_p2d(kernels, dev, smi):
     return meshes
 
 
-def main() -> int:
-    if not (ROOT / "fenris_tpu_torch").is_dir():
-        raise SystemExit("chip_smoke: fenris_tpu_torch/ not found next to this script; run it in a checkout")
+# -- point location, interpolation, I/O and mixed-element assembly -------------------------------------------
+
+
+def err_phase(dev, smi):
+    """ERR: the reference's tri3 error-estimation suite, all samples of ERR_SUMMARY, f64 on the card, as
+    tests/test_error_estimation.py runs them with FENRIS_TPU_FULL_CONVERGENCE=1: the L2 and H1-seminorm errors
+    of the nodal interpolant of sin(pi x) sin(pi y) on the coarse tri3 squares (rule total_order.triangle(
+    ERR_RULE)) against the function itself and against its interpolant on the fine squares, evaluated at the
+    coarse quadrature points through ``interpolate_at_points`` and ``interpolate_gradient_at_points`` on the
+    fine mesh's ``GridIndex``; each within 1% of the committed value.  Per fine mesh: the index's host build
+    seconds, its K and grid, the location and interpolation time, points a second, re-runs and peak memory."""
+    import json
+
+    import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; this script measures the port on a GPU")
-    sys.path.insert(0, str(ROOT))
+    import fenris_tpu_torch.space as S
+    from fenris_tpu_torch import quadrature
+    from fenris_tpu_torch.assembly.local import tabulate
+    from fenris_tpu_torch.error import estimate_H1_seminorm_error_batched, estimate_L2_error_batched
+    from fenris_tpu_torch.mesh.procedural import create_unit_square_uniform_tri_mesh_2d as tri_square
+
+    samples = json.load(open(ROOT / ERR_SUMMARY))["samples"]
+
+    def u_fn(p):
+        return torch.sin(np.pi * p[:, 0]) * torch.sin(np.pi * p[:, 1])
+
+    def grad_fn(p):
+        return np.pi * torch.stack([torch.cos(np.pi * p[:, 0]) * torch.sin(np.pi * p[:, 1]),
+                                    torch.sin(np.pi * p[:, 0]) * torch.cos(np.pi * p[:, 1])], -1)
+
+    coarse = {}
+    for r in sorted({s["coarse_res"] for s in samples}):
+        mesh = tri_square(r)
+        X = torch.as_tensor(mesh.cell_points(), device=dev)
+        u = u_fn(torch.as_tensor(mesh.points, device=dev))
+        coarse[r] = (X, u[torch.as_tensor(mesh.cells, dtype=torch.int64, device=dev)][:, :, None],
+                     tabulate(mesh.element, quadrature.total_order.triangle(ERR_RULE)))
+    worst = []
+
+    def estimate(s, u_ref, g_ref):
+        X, u_el, tab = coarse[s["coarse_res"]]
+        l2 = float(estimate_L2_error_batched(X, u_el, u_ref, tab))
+        h1 = float(estimate_H1_seminorm_error_batched(X, u_el, g_ref, tab))
+        rel = (abs(l2 - s["L2_error"]) / s["L2_error"], abs(h1 - s["H1_semi_error"]) / s["H1_semi_error"])
+        worst.append((max(rel), s["coarse_res"], s["fine_res"]))
+        check(max(rel) <= 0.01, f"ERR coarse {s['coarse_res']} fine {s['fine_res']}: L2 {l2:.9e} (ref "
+              f"{s['L2_error']:.9e}), H1 {h1:.9e} (ref {s['H1_semi_error']:.9e}): rel {rel[0]:.3e}, {rel[1]:.3e} > 1%")
+        return rel
+
+    t0 = time.perf_counter()
+    for s in samples:
+        if s["fine_res"] == 0:
+            estimate(s, lambda p: u_fn(p)[:, None], lambda p: grad_fn(p)[:, :, None])
+    log(f"ERR analytic: {sum(s['fine_res'] == 0 for s in samples)} samples, {time.perf_counter() - t0:.3f} s")
+    for fine in sorted({s["fine_res"] for s in samples} - {0}):
+        t0 = time.perf_counter()
+        fm = tri_square(fine)
+        mesh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        idx = S.GridIndex.build(fm)
+        build_s = time.perf_counter() - t0
+        fu = u_fn(torch.as_tensor(fm.points, device=dev))
+        loc_s, npts = [], [0]
+
+        def located(fn, p):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(fm, fu, p, index=idx)[0]
+            torch.cuda.synchronize()
+            loc_s.append(time.perf_counter() - t)
+            npts[0] += p.shape[0]
+            return out
+
+        S.location_counts.update(charted=0, reruns=0)
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rels = [estimate(s, lambda p: located(S.interpolate_at_points, p),
+                         lambda p: located(S.interpolate_gradient_at_points, p))
+                for s in samples if s["fine_res"] == fine]
+        wall = time.perf_counter() - t0
+        log(f"ERR fine {fine}: {fm.num_cells} tri3, {fm.num_vertices} nodes (mesh {mesh_s:.3f} s); GridIndex.build "
+            f"{build_s:.3f} s on the host (K {idx.table.shape[1]}, grid {idx.dims.tolist()}); {len(rels)} samples, "
+            f"{npts[0]} points located and interpolated in {len(loc_s)} calls: {sum(loc_s) * 1e3:.3f} ms "
+            f"({npts[0] / sum(loc_s):.4e} points/s), re-runs {S.location_counts['reruns']}, charted "
+            f"{S.location_counts['charted']}; worst rel error {max(max(r) for r in rels):.3e}; wall {wall:.3f} s; "
+            f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
+        del idx, fm, fu
+    check(len(worst) == len(samples), f"ERR: {len(worst)} of {len(samples)} samples ran")
+    log(f"ERR: {len(worst)} of {len(samples)} samples within 1%; worst {max(worst)[0]:.3e} (coarse {max(worst)[1]}, "
+        f"fine {max(worst)[2]})")
+    free_memory()
+
+
+def refined_sphere():
+    """The Gmsh sphere (tests/assets/meshes/sphere_tet4_593.msh) refined MSH_LEVELS times, with the seconds."""
+    from fenris_tpu_torch.io import load_msh
+    from fenris_tpu_torch.mesh.refinement import refine_uniformly_repeat
+
+    t0 = time.perf_counter()
+    mesh = refine_uniformly_repeat(load_msh(ROOT / "tests/assets/meshes/sphere_tet4_593.msh"), MSH_LEVELS)
+    return mesh, time.perf_counter() - t0
+
+
+def loc_grid_points(sphere, dev):
+    """LOC (b)'s points: a LOC_GRID^3 grid over the sphere's bounding box enlarged by 10%, f64 on ``dev``."""
+    import numpy as np
+    import torch
+
+    lo, hi = sphere.points.min(0), sphere.points.max(0)
+    c, half = (lo + hi) / 2, (hi - lo) / 2 * 1.1
+    axis = np.linspace(-1.0, 1.0, LOC_GRID)
+    return torch.as_tensor(np.stack(np.meshgrid(axis, axis, axis, indexing="ij"), -1).reshape(-1, 3) * half + c,
+                           device=dev)
+
+
+def loc_phase(sphere, dev, smi):
+    """LOC: location and interpolation at 10^6 points.  (a) B10's mesh (tet10 BCC res 40): 10^6 seeded
+    (element, xi) pairs, every barycentric coordinate >= 0.01, mapped forward; each must be found at distance 0,
+    map back within 1e-12 of the box size, and a quadratic field (tet10's degree) must come back within 1e-10
+    relative in values and gradients through ``FixedInterpolator``, whose ``interpolate`` on a 3-component
+    field is timed beside its bytes bound.  (b) The refined sphere: a LOC_GRID^3 grid over its bounding box
+    enlarged by 10% (about half the points outside), the grid branch; on a seeded subset of LOC_SUBSET points
+    the brute-force branch must agree: distances within 1e-12, equal elements where the nearest is unique by
+    more than 1e-9, interpolated values within 1e-12 relative."""
+    import numpy as np
+    import torch
+
+    import fenris_tpu_torch.space as S
+
+    def locate(mesh, pts, **kw):
+        S.location_counts.update(charted=0, reruns=0)
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = S.find_closest_element(mesh, pts, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, dict(S.location_counts), torch.cuda.max_memory_allocated() / 1e9
+
+    # (a)
+    mesh = element_box("tet10", RES_B10)
+    g = np.random.default_rng(61)
+    Q = LOC_POINTS
+    ei = torch.as_tensor(g.integers(0, mesh.num_cells, Q), device=dev)
+    bary = torch.as_tensor(0.01 + 0.96 * g.dirichlet(np.ones(4), Q), device=dev)  # every coordinate >= 0.01
+    X4 = torch.as_tensor(mesh.points, device=dev)[torch.as_tensor(mesh.cells[:, :4], dtype=torch.int64, device=dev)[ei]]
+    x = (bary[:, :, None] * X4).sum(1)
+    del X4
+    t0 = time.perf_counter()
+    idx = S.GridIndex.build(mesh)
+    build_s = time.perf_counter() - t0
+    res, loc_s, counts, peak = locate(mesh, x, index=idx)
+    found = res.domain_distance
+    Xf = torch.as_tensor(mesh.points, device=dev)[torch.as_tensor(mesh.cells[:, :4], dtype=torch.int64,
+                                                                   device=dev)[res.element_indices]]
+    back = float((mesh.element.geometry.phi(res.reference_coords)[:, None, :] @ Xf)[:, 0].sub(x).abs().max())
+    del Xf
+    log(f"LOC (a) B10 tet10 res {RES_B10}: {mesh.num_cells} cells, {mesh.num_vertices} nodes, {Q} points; "
+        f"GridIndex.build {build_s:.3f} s on the host (K {idx.table.shape[1]}, grid {idx.dims.tolist()}); location "
+        f"{loc_s * 1e3:.3f} ms ({Q / loc_s:.4e} points/s), re-runs {counts['reruns']}, charted {counts['charted']}, "
+        f"peak memory {peak:.2f} GB; found at distance 0: {int((found == 0).sum())} of {Q}; max |T(xi) - x| "
+        f"{back:.3e} (box size 1); same element as drawn: {int((res.element_indices == ei).sum())} ({smi})")
+    check(bool((found == 0).all()), f"LOC (a): {int((found != 0).sum())} points not found at distance 0")
+    check(bool((res.element_indices == ei).all()),
+          f"LOC (a): {int((res.element_indices != ei).sum())} points found in another element than drawn")
+    check(back <= 1e-12, f"LOC (a): a located point maps back {back:.3e} away")
+    a = torch.tensor([0.3, -0.7, 0.5], dtype=torch.float64, device=dev)
+
+    def quad_field(p):
+        return 1.0 + p @ a + p[:, 0] * p[:, 2] + p[:, 1] ** 2
+
+    def quad_grad(p):
+        return a + torch.stack([p[:, 2], 2 * p[:, 1], p[:, 0]], -1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fixed = S.FixedInterpolator.from_space_and_points(mesh, x, with_gradients=True, index=idx)
+    torch.cuda.synchronize()
+    build_fixed = time.perf_counter() - t0
+    u = quad_field(torch.as_tensor(mesh.points, device=dev))
+    ref_v, ref_g = quad_field(x), quad_grad(x)
+    rel_v = float((fixed.interpolate(u)[:, 0] - ref_v).abs().max() / ref_v.abs().max())
+    rel_g = float((fixed.interpolate_gradient(u)[:, :, 0] - ref_g).abs().max() / ref_g.abs().max())
+    u3 = torch.randn(mesh.num_vertices * 3, generator=torch.Generator(device=dev).manual_seed(62), device=dev,
+                     dtype=torch.float64)
+    ms = min(event_ms(lambda: fixed.interpolate(u3, 3), 10), event_ms(lambda: fixed.interpolate(u3, 3), 10))
+    n = fixed.nodes.shape[1]
+    nbytes = Q * n * (fixed.nodes.element_size() + fixed.phi.element_size()) + u3.numel() * 8 + Q * 3 * 8
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"LOC (a) FixedInterpolator: built in {build_fixed:.3f} s (location and basis); the quadratic field "
+        f"rel error values {rel_v:.3e}, gradients {rel_g:.3e}; interpolate of a 3-component field at {Q} points: "
+        f"{ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.1f} GB/s), bytes bound {bound:.4f} ms ({nbytes / 1e9:.4f} GB: "
+        f"nodes, basis values, the field and the output once each), {bound / ms * 100:.1f}% of it ({smi})")
+    check(rel_v <= 1e-10 and rel_g <= 1e-10, f"LOC (a): quadratic field rel errors {rel_v:.3e}, {rel_g:.3e} > 1e-10")
+    del mesh, idx, res, fixed, x, u, u3, ref_v, ref_g
+    free_memory()
+
+    # (b)
+    P = loc_grid_points(sphere, dev)
+    t0 = time.perf_counter()
+    idx = S.GridIndex.build(sphere)
+    build_s = time.perf_counter() - t0
+    grid, grid_s, counts, peak = locate(sphere, P, index=idx)
+    outside = int((grid.domain_distance > 0).sum())
+    log(f"LOC (b) sphere: {sphere.num_cells} tets, {P.shape[0]} grid points, {outside} outside; GridIndex.build "
+        f"{build_s:.3f} s (K {idx.table.shape[1]}, grid {idx.dims.tolist()}); grid branch {grid_s:.3f} s "
+        f"({P.shape[0] / grid_s:.4e} points/s), charted {counts['charted']}, re-runs {counts['reruns']}, peak "
+        f"memory {peak:.2f} GB ({smi})")
+    check(bool(torch.isfinite(grid.domain_distance).all()), "LOC (b): a non-finite distance")
+    sub = torch.as_tensor(np.sort(np.random.default_rng(63).choice(P.shape[0], LOC_SUBSET, replace=False)),
+                          device=dev)
+    brute, brute_s, bcounts, _ = locate(sphere, P[sub])
+    g_sub = [t[sub] for t in grid]
+    d_err = float((g_sub[2] - brute.domain_distance).abs().max())
+    # the nearest is unique where the second best among the 32 nearest boxes, or the 33rd box's distance (a
+    # lower bound of every other element's), exceeds the best by 1e-9
+    a_ = S._mesh_arrays(sphere, dev, torch.float64)
+    cand, box_d, _ = S._brute_candidates(a_, P[sub], 33)
+    Xc = a_["X"][cand[:, :32].reshape(-1)]
+    d_all = S.closest_point_in_element(sphere.element, Xc, P[sub].repeat_interleave(32, 0))[2].reshape(-1, 32)
+    d_sorted = d_all.sort(1).values
+    unique = torch.minimum(d_sorted[:, 1], box_d[:, 32]) - d_sorted[:, 0] > 1e-9
+    same = bool((g_sub[0] == brute.element_indices)[unique].all())
+    u = torch.randn(sphere.num_vertices, generator=torch.Generator(device=dev).manual_seed(64), device=dev,
+                    dtype=torch.float64)
+    cells = torch.as_tensor(sphere.cells, dtype=torch.int64, device=dev)
+
+    def values(ei_, xi_):
+        return (sphere.element.phi(xi_) * u[cells[ei_]]).sum(1)
+
+    vb = values(brute.element_indices, brute.reference_coords)
+    v_err = float((values(g_sub[0], g_sub[1]) - vb).abs().max() / vb.abs().max())
+    log(f"LOC (b) grid against brute force on {LOC_SUBSET} points ({int((brute.domain_distance > 0).sum())} outside): "
+        f"brute force {brute_s:.3f} s (re-runs {bcounts['reruns']}); max distance difference {d_err:.3e}; "
+        f"{int(unique.sum())} with a unique nearest element, the same element on all of them: {same}; values rel "
+        f"{v_err:.3e} ({smi})")
+    check(d_err <= 1e-12, f"LOC (b): distances differ by {d_err:.3e}")
+    check(same, "LOC (b): another element where the nearest is unique")
+    check(v_err <= 1e-12, f"LOC (b): interpolated values differ by rel {v_err:.3e}")
+    del idx, grid, brute, P, a_, cand, Xc, d_all
+    free_memory()
+
+
+def msh_phase(kernels, sphere, refine_s, dev, smi):
+    """MSH: every Gmsh fixture (tests/assets/meshes, tests/test_io.py's cell counts) from its ASCII file and
+    from binary rewrites in both byte orders (tests/msh_fixtures.py), the same points and cells each time;
+    then the refined sphere, RCM-reordered on the card, Neo-Hookean under gravity BODY_A with the cap z <
+    MSH_CAP_Z clamped: the fused banded model's f32 ``solve_mixed`` to 1e-10 checked by an independent f64
+    residual (element_solve) after the gather, scatter and fused sweeps were checked and timed at this layout;
+    the deformed mesh's VTU parsed back with xml.etree (counts, connectivity, the displacement exactly); a
+    checkpoint saved and loaded bitwise; and the f64 model's ``solve`` resumed from the loaded state with
+    tolerance 1e-10 ||F(0)|| converged at iteration 0."""
+    import tempfile
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    import torch
+
+    from fenris_tpu_torch.elasticity import HyperelasticModel
+    from fenris_tpu_torch.io import FiniteElementMeshDataSetBuilder, load_checkpoint, load_msh, load_msh_from_bytes
+    from fenris_tpu_torch.io import save_checkpoint
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+    from fenris_tpu_torch.optimize import NEWTON_CONVERGED
+    from fenris_tpu_torch.solid import LameParameters, NeoHookeanMaterial
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from msh_fixtures import FIXTURES, MESH_DIR, msh_to_binary
+
+    t0 = time.perf_counter()
+    for fname, eltype, ncells in FIXTURES:
+        ascii_mesh = load_msh(MESH_DIR / fname)
+        check(ascii_mesh.element.name == eltype and ascii_mesh.num_cells == ncells,
+              f"MSH {fname}: {ascii_mesh.element.name} x {ascii_mesh.num_cells}, expected {eltype} x {ncells}")
+        text = (MESH_DIR / fname).read_text()
+        for order in ("<", ">"):
+            m = load_msh_from_bytes(msh_to_binary(text, order))
+            check(np.array_equal(m.points, ascii_mesh.points) and np.array_equal(m.cells, ascii_mesh.cells),
+                  f"MSH {fname}: the binary ({order}) file gives other points or cells")
+    log(f"MSH: {len(FIXTURES)} fixtures loaded, ASCII and binary in both byte orders, {time.perf_counter() - t0:.3f} s")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh, _ = reorder_mesh(sphere, device=dev)
+    rcm_s = time.perf_counter() - t0
+    clamped = np.flatnonzero(mesh.points[:, 2] < MSH_CAP_Z)
+
+    def model_of(mesh_, dtype, **kw):
+        return HyperelasticModel(mesh=mesh_, material=NeoHookeanMaterial(), params=LameParameters(mu=MU, lam=LAM),
+                                 dirichlet_nodes=clamped, body_force=np.array(BODY_A), dtype=dtype, device=dev, **kw)
+
+    t0 = time.perf_counter()
+    model = model_of(mesh, torch.float32, banded=True, fused_kernels=True)
+    torch.cuda.synchronize()
+    model_s = time.perf_counter() - t0
+    log(f"MSH sphere: {mesh.num_cells} tet4, {mesh.num_vertices} nodes, {model.space.num_dofs} dofs, {len(clamped)} "
+        f"nodes clamped (z < {MSH_CAP_Z}); refinement {refine_s:.3f} s, RCM on the card {rcm_s:.3f} s, fused model "
+        f"{model_s:.3f} s ({smi})")
+    element_sweep_checks(kernels, model, "MSH", dev, smi, materials=("neo_hookean",), key="tet4 sphere")
+    check_model = lambda mesh_: model_of(mesh_, torch.float64, chunk_size=8192)  # noqa: E731
+    x64 = element_solve(kernels, model, solve_records("tet4 sphere", "neo_hookean", 3, True), "MSH",
+                        refine_s + rcm_s + model_s, dev, smi, mixed=True, check_model=check_model)
+    del model
+    free_memory()
+    u = x64.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        deformed = mesh.transform_points(lambda p: p + u.reshape(-1, 3))
+        t0 = time.perf_counter()
+        (FiniteElementMeshDataSetBuilder.from_mesh(deformed).with_title("Neo-Hookean sphere")
+         .with_point_vector_attributes("displacement", u).try_export(Path(tmp) / "sphere.vtu"))
+        write_s = time.perf_counter() - t0
+        nbytes = (Path(tmp) / "sphere.vtu").stat().st_size
+        t0 = time.perf_counter()
+        piece = ET.parse(Path(tmp) / "sphere.vtu").getroot().find(".//Piece")
+        conn = np.array(piece.find(".//Cells/DataArray[@Name='connectivity']").text.split(), dtype=np.int64)
+        disp = np.array(piece.find(".//PointData/DataArray[@Name='displacement']").text.split(), dtype=np.float64)
+        pts = np.array(piece.find(".//Points/DataArray").text.split(), dtype=np.float64).reshape(-1, 3)
+        parse_s = time.perf_counter() - t0
+        ok_vtu = (int(piece.get("NumberOfPoints")) == mesh.num_vertices and int(piece.get("NumberOfCells")) ==
+                  mesh.num_cells and np.array_equal(conn.reshape(mesh.cells.shape), mesh.cells) and
+                  np.array_equal(disp, u) and np.array_equal(pts, deformed.points))
+        log(f"MSH VTU: {nbytes / 1e6:.3f} MB written in {write_s:.3f} s, parsed back in {parse_s:.3f} s; counts, "
+            f"connectivity, points and displacement (.17g) exact: {ok_vtu}")
+        check(ok_vtu, "MSH: the VTU file does not give back the mesh and its displacement")
+        t0 = time.perf_counter()
+        save_checkpoint(Path(tmp) / "sphere.npz", mesh=mesh, u=x64, newton_iterations=np.asarray(0))
+        loaded_mesh, state = load_checkpoint(Path(tmp) / "sphere.npz")
+        ckpt_s = time.perf_counter() - t0
+    ok_ckpt = (np.array_equal(loaded_mesh.points, mesh.points) and np.array_equal(loaded_mesh.cells, mesh.cells)
+               and loaded_mesh.element is mesh.element and np.array_equal(state["u"], u) and state["u"].dtype == u.dtype)
+    log(f"MSH checkpoint: saved and loaded in {ckpt_s:.3f} s; mesh and state bitwise equal: {ok_ckpt}")
+    check(ok_ckpt, "MSH: the loaded checkpoint differs")
+    fresh = check_model(loaded_mesh)
+    f0 = float(torch.linalg.vector_norm(fresh.residual(torch.zeros_like(x64))))
+    t0 = time.perf_counter()
+    res = fresh.solve(u0=torch.as_tensor(state["u"], device=dev), tolerance=1e-10 * f0)
+    torch.cuda.synchronize()
+    log(f"MSH resume: the f64 model's solve from the loaded state, tolerance 1e-10 ||F(0)|| = {1e-10 * f0:.6e}: status "
+        f"{res.status}, {res.iterations} iterations, |F| {float(res.residual_norm):.6e}, {time.perf_counter() - t0:.3f} s")
+    check(res.status == NEWTON_CONVERGED and res.iterations == 0,
+          f"MSH: the resumed solve reports status {res.status} after {res.iterations} iterations")
+    del fresh, res, x64
+    free_memory()
+
+
+def mixed_square(nq):
+    """The unit square as quad4 on [0, 0.5] x [0, 1] (nq x 2nq cells) and tri3 split from quads on [0.5, 1] x
+    [0, 1], the nodes merged by their coordinates (tests/test_aggregate.py:19-36): ``(points, quad cells, tri
+    cells)``."""
+    import numpy as np
+
+    from fenris_tpu_torch.mesh.procedural import create_rectangular_uniform_quad_mesh_2d
+
+    quads = create_rectangular_uniform_quad_mesh_2d(0.5, 1, 2, nq, (0.0, 1.0))
+    tris = create_rectangular_uniform_quad_mesh_2d(0.5, 1, 2, nq, (0.5, 1.0)).split_into_triangles()
+    uniq, inverse = np.unique(np.round(np.concatenate([quads.points, tris.points]), 12), axis=0, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    return uniq, inverse[quads.cells.astype(np.int64)], inverse[tris.cells.astype(np.int64) + quads.num_vertices]
+
+
+def agg_phase(dev, smi):
+    """AGG: mixed-element Poisson at about 1M nodes (mixed_square(AGG_RES)): Laplace element matrices through
+    one UniformQuadratureTable per block, and on the quad block also through a GeneralQuadratureTable of two
+    groups (Gauss 2 and Gauss 3, both exact on these affine cells; within 1e-12 relative); the aggregate
+    pattern on the card and two assemblies (bitwise equal); interior row sums <= 1e-12 max|A|; f64 Jacobi CG on
+    the CSR product for u = 1 + x + 2y with its boundary values (both elements reproduce it) to AGG_CG_TOL,
+    the max nodal error <= 1e-8; pattern, assembly and solve seconds and the product's GB/s."""
+    import numpy as np
+    import torch
+
+    from fenris_tpu_torch import quadrature
+    from fenris_tpu_torch.assembly.aggregate import aggregate_csr_pattern, assemble_aggregate_csr
+    from fenris_tpu_torch.assembly.global_ import apply_homogeneous_dirichlet_bc_csr
+    from fenris_tpu_torch.assembly.quadrature_table import GeneralQuadratureTable, UniformQuadratureTable
+    from fenris_tpu_torch.operators import LaplaceOperator
+    from fenris_tpu_torch.reference_elements import QUAD4, TRI3
+    from fenris_tpu_torch.sparse.cg import CG_CONVERGED, conjugate_gradient
+    from fenris_tpu_torch.sparse.csr import from_pattern
+
+    t0 = time.perf_counter()
+    pts, qcells, tcells = mixed_square(AGG_RES)
+    mesh_s = time.perf_counter() - t0
+    N = len(pts)
+    op = LaplaceOperator()
+    times = {}
+
+    def sync_time(key, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[key] = time.perf_counter() - t
+        return out
+
+    Xq = torch.as_tensor(pts[qcells], device=dev)
+    Xt = torch.as_tensor(pts[tcells], device=dev)
+    Aq = sync_time("quad matrices", lambda: UniformQuadratureTable.from_rule(QUAD4, quadrature.quadrilateral_gauss(2))
+                   .assemble_elliptic_matrices(Xq, None, op))
+    At = sync_time("tri matrices", lambda: UniformQuadratureTable.from_rule(TRI3, quadrature.total_order.triangle(2))
+                   .assemble_elliptic_matrices(Xt, None, op))
+    ids = np.arange(len(qcells)) % 2
+    general = GeneralQuadratureTable.from_rules(QUAD4, [quadrature.quadrilateral_gauss(2),
+                                                        quadrature.quadrilateral_gauss(3)], ids)
+    Ag = sync_time("general quad matrices", lambda: general.assemble_elliptic_matrices(Xq, None, op))
+    rel_tables = float((Ag - Aq).abs().max() / Aq.abs().max())
+    del Ag, Xq, Xt
+    agg = sync_time("pattern", lambda: aggregate_csr_pattern([qcells, tcells], N, 1, device=dev))
+    sync_time("scatter layers", lambda: agg.block_plans)
+    values = sync_time("assembly", lambda: assemble_aggregate_csr([Aq, At], agg))
+    again = assemble_aggregate_csr([Aq, At], agg)
+    same = bool(torch.equal(values, again))
+    del again
+    p = agg.pattern
+    amax = float(values.abs().max())
+    sums = torch.zeros(N, dtype=values.dtype, device=dev).index_add_(0, p.rows_of_nnz.long(), values)
+    interior = torch.as_tensor((pts[:, 0] > 1e-9) & (pts[:, 0] < 1 - 1e-9) & (pts[:, 1] > 1e-9) & (pts[:, 1] < 1 - 1e-9),
+                               device=dev)
+    row_sum = float(sums[interior].abs().max())
+    x = torch.as_tensor(pts, device=dev)
+    exact = 1.0 + x[:, 0] + 2.0 * x[:, 1]
+    boundary = np.flatnonzero(~interior.cpu().numpy())
+    g = torch.where(interior, 0.0, exact)
+    A = from_pattern(p, values)
+    rhs = torch.where(interior, -(A @ g), 0.0)
+    Ah = from_pattern(p, apply_homogeneous_dirichlet_bc_csr(values, p, boundary))
+    inv_diag = 1.0 / Ah.diagonal()
+    cg = sync_time("solve", lambda: conjugate_gradient(Ah, rhs, preconditioner=lambda v: inv_diag * v,
+                                                       rel_tolerance=AGG_CG_TOL, max_iter=100000))
+    err = float((g + cg.x - exact).abs().max())
+    y = Ah @ rhs
+    sp = Ah.sparse
+    nbytes = (Ah.nnz * (Ah.values.element_size() + sp.col_indices().element_size())
+              + sp.crow_indices().numel() * sp.crow_indices().element_size() + 2 * N * 8)
+    ms = min(event_ms(lambda: Ah @ rhs, reps=20), event_ms(lambda: Ah @ rhs, reps=20))
+    log(f"AGG: mixed square res {AGG_RES}: {len(qcells)} quad4 + {len(tcells)} tri3 = {len(qcells) + len(tcells)} cells "
+        f"on {N} nodes (mesh and node merge {mesh_s:.3f} s on the host), nnz {p.nnz}; general table (Gauss 2 and 3 "
+        f"groups) against the uniform one on the quads: rel {rel_tables:.3e}; two assemblies bitwise equal: {same}; "
+        f"interior row sums max {row_sum:.3e} (max|A| {amax:.6e}); Jacobi CG to {AGG_CG_TOL:g}: status "
+        f"{cg.status}, {cg.num_iterations} iterations, max nodal error {err:.3e}; seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f"; CSR product {ms:.4f} ms, {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s ({nbytes / 1e9:.4f} GB) ({smi})")
+    check(bool(torch.isfinite(y).all()), "AGG: non-finite CSR product")
+    check(rel_tables <= 1e-12, f"AGG: the two tables' matrices differ by rel {rel_tables:.3e}")
+    check(same, "AGG: two assemblies differ")
+    check(row_sum <= 1e-12 * amax, f"AGG: interior row sum {row_sum:.3e} > 1e-12 max|A|")
+    check(cg.status == CG_CONVERGED, f"AGG: CG status {cg.status}")
+    check(err <= 1e-8, f"AGG: max nodal error {err:.3e} > 1e-8")
+    del values, sums, A, Ah, cg, Aq, At, agg
+    free_memory()
+
+
+def p2d_block_dia_from_csr(kernels, A, mesh, cell, dev, smi):
+    """P2D's CSR matrix ``A`` (f32) through ``block_dia_from_csr`` (bands for the node deltas on at least
+    MMS_MIN_FILL of the rows, the rest in the block-ELL remainder) and the band sweep kernel: the operator
+    against the CSR product (rel <= KERNEL_RTOL), the sweep against its plain version, timed beside its bound
+    and cuSPARSE, into the record ``dia_sweep (s=1, {cell}, from CSR)``."""
+    import torch
+
+    import fenris_tpu_torch.assembly.global_ as G
+    import fenris_tpu_torch.ops.dia_sweep as ds
+    from fenris_tpu_torch.sparse.block_dia import block_dia_from_csr
+    from fenris_tpu_torch.sparse.dia_kernel import block_dia_operator
+
+    pattern = G.csr_pattern(mesh.cells, mesh.num_vertices, 1, device=dev)
+    check(torch.equal(pattern.col_indices, A.col_indices) and torch.equal(pattern.row_ptr, A.row_ptr),
+          f"{cell}: the CSR route's matrix has another pattern")
+    N = mesh.num_vertices
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = block_dia_from_csr(pattern, A.values, min_count=int(MMS_MIN_FILL * N))
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    x = torch.randn(N, generator=torch.Generator(device=dev).manual_seed(71), device=dev)
+    k = kernels[f"dia_sweep (s=1, {cell}, from CSR)"]
+    ds.dia_sweep.launches = 0
+    y = block_dia_operator(m, kernel=True)(x)
+    k["launches"] = ds.dia_sweep.launches
+    ref = A @ x
+    rel = float((y.double() - ref.double()).abs().max() / ref.double().abs().max())
+    rem = m.remainder
+    log(f"{cell} block_dia_from_csr: {len(m.offsets)} bands, remainder width "
+        f"{0 if rem is None else rem.neighbors.shape[0]}, {conv_s:.3f} s; band sweep kernel plus remainder against "
+        f"the CSR product: rel {rel:.3e} (limit {KERNEL_RTOL:g}); sweep launches {k['launches']}")
+    check(rel <= KERNEL_RTOL and k["launches"] == 1, f"{cell}: block_dia_from_csr through the band sweep: rel {rel:.3e}")
+    x2 = x.reshape(1, N)
+    txt = f"{cell} from CSR s=1 N={N} D={len(m.offsets)}"
+    k["max_abs_err"] = compare("dia_sweep", txt, ds.dia_sweep(m.bands, m.offsets, x2), ds.dia_sweep(m.bands, m.offsets, x2),
+                               ds.dia_sweep_plain(m.bands, m.offsets, x2))
+    k["ms"], k["plain_ms"], ttxt = in_turns(lambda: ds.dia_sweep(m.bands, m.offsets, x2),
+                                            lambda: ds.dia_sweep_plain(m.bands, m.offsets, x2))
+    bound_txt = set_bound(k, (m.bands.numel() + 2 * N) * 4, 2 * m.bands.numel())
+    k["library_ms"] = csr_library_ms(m._replace(remainder=None), x2, ds.dia_sweep(m.bands, m.offsets, x2), smi)
+    log(f"time dia_sweep {txt}: {ttxt}, library {k['library_ms']:.4f} ms; {bound_txt} ({smi})")
+    del m, pattern
+    free_memory()
+
+
+def kernel_records():
+    """Every kernel record of the kernel line: its wrapper, path, source and the TPU kernel it replaces; the
+    phases fill in launches, errors and times."""
     import fenris_tpu_torch.ops.banded as bd
     import fenris_tpu_torch.ops.dia_sweep as ds
     import fenris_tpu_torch.ops.em_sweep as es
     import fenris_tpu_torch.ops.stiffness_pairs as sp
     import fenris_tpu_torch.ops.structured_stencil as ss
-    from fenris_tpu_torch.ops._build import build_log, load_library
-    from fenris_tpu_torch.ops.banded import make_banded_plan
-
-    dev = torch.device("cuda", 0)
-    t_start = time.perf_counter()
-
-    # -- card and build ------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
-    log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    load_library()
-    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources in parallel)")
-    found = ptxas_report(build_log())
-    for prefix in ("stiffness_pairs", "em_sweep", *PTXAS_LABELS.values()):
-        entries = {n: t for n, t in found.items() if n.startswith(prefix)}
-        check(len(entries) > 0 and all("0 bytes spill stores, 0 bytes spill loads" in t for t in entries.values()),
-              f"{prefix}: ptxas reports spills or no entry: {entries}")
-    em_entries, em_all = sum(n.startswith("em_sweep") for n in found), len(es.ELEMENTS) * len(es.MATERIALS) * 4
-    check(em_entries == em_all, f"em_sweep: ptxas reports {em_entries} of {em_all} instantiations")
-    t0 = time.perf_counter()
-    card_tests()
-    log(f"phase card tests: {time.perf_counter() - t0:.3f} s")
-    t0 = time.perf_counter()
-    banded_star_check(dev)
-    log(f"phase banded star: {time.perf_counter() - t0:.3f} s")
 
     kernels = {
         "neo_hookean_residual": dict(
@@ -3299,19 +3803,74 @@ def main() -> int:
                 fn=sp.stiffness_pairs, path="B2", source=SOURCES["stiffness_pairs"],
                 replaces="fenris_tpu/ops/stiffness_kernel.py:162",
             )
-    # P2D: rows 4-7 at s = 1 on the 2D meshes (n = 9 and 6 nodes a row)
+    # P2D: rows 4-7 at s = 1 on the 2D meshes (n = 9 and 6 nodes a row), and row 4 on the bands that
+    # block_dia_from_csr makes of the CSR route's matrix
     for name in P2D_MESHES:
         cell = f"P2D {name}"
-        kernels[f"dia_sweep (s=1, {cell})"] = dict(
-            fn=ds.dia_sweep, path=cell, source=SOURCES["dia_sweep"],
-            replaces="fenris_tpu/sparse/dia_kernel.py:380 and fenris_tpu/sparse/dia_kernel.py:186",
-        )
+        for rec in (f"dia_sweep (s=1, {cell})", f"dia_sweep (s=1, {cell}, from CSR)"):
+            kernels[rec] = dict(
+                fn=ds.dia_sweep, path=cell, source=SOURCES["dia_sweep"],
+                replaces="fenris_tpu/sparse/dia_kernel.py:380 and fenris_tpu/sparse/dia_kernel.py:186",
+            )
         kernels[f"banded_gather (s=1, {cell})"] = dict(
             fn=bd.banded_gather, path=cell, source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:285",
         )
         kernels[f"banded_scatter (s=1, {cell})"] = dict(
             fn=bd.banded_scatter, path=cell, source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:346",
         )
+    # MSH: the gather, scatter and fused sweeps on the refined Gmsh sphere (tet4, s = 3)
+    kernels["banded_gather (s=3, tet4 sphere)"] = dict(
+        fn=bd.banded_gather, path="MSH", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:285")
+    kernels["banded_scatter (s=3, tet4 sphere)"] = dict(
+        fn=bd.banded_scatter, path="MSH", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:346")
+    tangent, vector = sweep_records("tet4 sphere", "neo_hookean")
+    kernels[tangent] = dict(fn=es.banded_tangent_sweep, path="MSH", source=SOURCES["em_sweep"],
+                            replaces="fenris_tpu/ops/em_sweep.py:251")
+    kernels[vector] = dict(fn=es.banded_vector_sweep, path="MSH", source=SOURCES["em_sweep"],
+                           replaces="fenris_tpu/ops/em_sweep.py:233")
+    return kernels
+
+
+def main() -> int:
+    if not (ROOT / "fenris_tpu_torch").is_dir():
+        raise SystemExit("chip_smoke: fenris_tpu_torch/ not found next to this script; run it in a checkout")
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script measures the port on a GPU")
+    sys.path.insert(0, str(ROOT))
+    import fenris_tpu_torch.ops.em_sweep as es
+    from fenris_tpu_torch.ops._build import build_log, load_library
+    from fenris_tpu_torch.ops.banded import make_banded_plan
+
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    # -- card and build ------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    load_library()
+    log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources in parallel)")
+    found = ptxas_report(build_log())
+    for prefix in ("stiffness_pairs", "em_sweep", *PTXAS_LABELS.values()):
+        entries = {n: t for n, t in found.items() if n.startswith(prefix)}
+        check(len(entries) > 0 and all("0 bytes spill stores, 0 bytes spill loads" in t for t in entries.values()),
+              f"{prefix}: ptxas reports spills or no entry: {entries}")
+    em_entries, em_all = sum(n.startswith("em_sweep") for n in found), len(es.ELEMENTS) * len(es.MATERIALS) * 4
+    check(em_entries == em_all, f"em_sweep: ptxas reports {em_entries} of {em_all} instantiations")
+    t0 = time.perf_counter()
+    card_tests()
+    log(f"phase card tests: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    banded_star_check(dev)
+    log(f"phase banded star: {time.perf_counter() - t0:.3f} s")
+
+    kernels = kernel_records()
     phases = [
         ("structured path", lambda: structured_phases(kernels, dev, smi)),
         ("entry B", lambda: stiffness_phases(kernels, dev, smi)),
@@ -3396,6 +3955,20 @@ def main() -> int:
         t0 = time.perf_counter()
         phase(kernels, dev, smi)
         log(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    err_phase(dev, smi)
+    log(f"phase ERR: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    sphere, refine_s = refined_sphere()
+    loc_phase(sphere, dev, smi)
+    log(f"phase LOC: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    msh_phase(kernels, sphere, refine_s, dev, smi)
+    log(f"phase MSH: {time.perf_counter() - t0:.3f} s")
+    del sphere
+    t0 = time.perf_counter()
+    agg_phase(dev, smi)
+    log(f"phase AGG: {time.perf_counter() - t0:.3f} s")
     t0 = time.perf_counter()
     path_c2_mg(kernels, c2_cg_iters, dev, smi)
     log(f"phase C2-MG: {time.perf_counter() - t0:.3f} s")

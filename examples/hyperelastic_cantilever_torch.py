@@ -14,11 +14,13 @@ residual has a floor above 1e-4 of the initial one (1.4e-3 at resolution
 32), which examples/hyperelastic_cantilever.py's note on the f32 floor
 points to.  ``--banded`` RCM-reorders the mesh and runs the fused
 element-sweep kernels through the banded layout.  It prints the cells,
-dofs, Newton steps and the tip deflection, and forms the deformed mesh
-with ``Mesh.transform_points``; the VTU export of
-examples/hyperelastic_cantilever.py waits for the port's ``io`` package.
+dofs, Newton steps and the tip deflection, forms the deformed mesh with
+``Mesh.transform_points`` and, given an output directory, writes it with
+its ``displacement`` to ``cantilever.vtu`` there, as
+examples/hyperelastic_cantilever.py does (the command line writes to
+data/examples unless given ``--out DIR``).
 
-Run:  python examples/hyperelastic_cantilever_torch.py [resolution] [--banded] [--cpu]
+Run:  python examples/hyperelastic_cantilever_torch.py [resolution] [--banded] [--cpu] [--out DIR]
       (f32 on the card by default; --cpu runs in f64 on the CPU)
 """
 
@@ -33,6 +35,7 @@ import torch  # noqa: E402
 
 from fenris_tpu_torch.config import resolve_device  # noqa: E402
 from fenris_tpu_torch.elasticity import HyperelasticModel  # noqa: E402
+from fenris_tpu_torch.io import FiniteElementMeshDataSetBuilder  # noqa: E402
 from fenris_tpu_torch.mesh.procedural import create_rectangular_uniform_hex_mesh  # noqa: E402
 from fenris_tpu_torch.mesh.reorder import reorder_mesh  # noqa: E402
 from fenris_tpu_torch.solid import NeoHookeanMaterial, lame_from_young_poisson  # noqa: E402
@@ -44,8 +47,11 @@ from fenris_tpu_torch.solid import NeoHookeanMaterial, lame_from_young_poisson  
 MAX_NEWTON_ITERATIONS = 200
 
 
-def main(resolution: int = 8, banded: bool = False, device="cuda", dtype=torch.float32):
-    """Solve the cantilever; returns ``(result, u [num_vertices, 3] in the beam's own node order, tip index)``."""
+def main(resolution: int = 8, banded: bool = False, device="cuda", dtype=torch.float32, out_dir=None):
+    """Solve the cantilever; returns ``(result, u [num_vertices, 3] in the beam's own node order, tip index)``.
+
+    With ``out_dir``, the deformed mesh and its displacement go to ``out_dir/cantilever.vtu``.
+    """
     device = resolve_device(device)
     beam = create_rectangular_uniform_hex_mesh(1.0, 2, 1, 1, resolution)
     mesh, perm = reorder_mesh(beam, device=device) if banded else (beam, None)
@@ -82,11 +88,30 @@ def main(resolution: int = 8, banded: bool = False, device="cuda", dtype=torch.f
     print(f"tip deflection: {u[tip]}")
     deformed = beam.transform_points(lambda p: p + u)
     print(f"deformed: {deformed}, tip at {deformed.points[tip]}")
+    if out_dir is not None:
+        path = Path(out_dir) / "cantilever.vtu"
+        (
+            FiniteElementMeshDataSetBuilder.from_mesh(deformed)
+            .with_title("Neo-Hookean cantilever")
+            .with_point_vector_attributes("displacement", u)
+            .try_export(path)
+        )
+        print(f"wrote {path}")
     return res, u, tip
 
 
+def _cli():
+    argv = sys.argv[1:]
+    out = "data/examples"
+    if "--out" in argv:
+        i = argv.index("--out")
+        out = argv[i + 1]
+        del argv[i : i + 2]
+    args = [a for a in argv if not a.startswith("--")]
+    cpu = "--cpu" in argv
+    main(int(args[0]) if args else 8, banded="--banded" in argv, device="cpu" if cpu else "cuda",
+         dtype=torch.float64 if cpu else torch.float32, out_dir=out)
+
+
 if __name__ == "__main__":
-    args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    cpu = "--cpu" in sys.argv
-    main(int(args[0]) if args else 8, banded="--banded" in sys.argv, device="cpu" if cpu else "cuda",
-         dtype=torch.float64 if cpu else torch.float32)
+    _cli()

@@ -36,8 +36,14 @@ tri3/quad4/tet4 refinement with the unstructured multigrid on those
 elements, the nonlinear MMS (``solid.mms``), the SDF meshes of
 ``mesh.procedural`` and the small API gaps (``operators.operator_from_energy``,
 the F-based material wrappers, the finite-difference approximations of
-``optimize``, ``StructuredHyperelasticModel.internal_forces``/``to_mesh``).  Entry points run on
-the card unless the caller passes ``device="cpu"``.  It imports ``torch``
+``optimize``, ``StructuredHyperelasticModel.internal_forces``/``to_mesh``), and the slice of
+point location and I/O: ``space`` (inverse mapping, closest points, ``GridIndex``,
+``find_closest_element``, interpolation, ``FixedInterpolator``), ``ReferenceElement.phi``/``dphi``
+on tensors, ``assembly.quadrature_table`` and ``assembly.aggregate`` (mixed-element CSR),
+``io`` (Gmsh MSH 4.1, VTU, checkpoints in the JAX package's layout), ``containers.NestedArray``,
+``sparse.block_dia.block_dia_from_csr``/``sparse.block_ell.block_ell_from_csr``,
+``EllipticOperator.has_energy`` and the Gauss-Lobatto, prism and pyramid rules.  Entry points run
+on the card unless the caller passes ``device="cpu"``.  It imports ``torch``
 and numpy only; the JAX package ``fenris_tpu`` is its reference.
 """
 

@@ -138,7 +138,7 @@ class Mesh:
     def find_boundary_cells(self) -> np.ndarray:
         """Indices of the cells with at least one boundary face (src/mesh.rs:154)."""
         _, mask = self._boundary_face_mask()
-        return np.flatnonzero(mask.reshape(self.num_cells, -1).any(axis=1))
+        return np.flatnonzero(mask.reshape(self.num_cells, len(self.element.face_nodes())).any(axis=1))
 
     def find_boundary_vertices(self) -> np.ndarray:
         """Sorted indices of the vertices on the boundary (src/mesh.rs:208)."""

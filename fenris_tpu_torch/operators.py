@@ -65,6 +65,17 @@ class EllipticOperator:
         """
         return jvp(lambda Gm: self.g(Gm, params), (G,), (dG,))[1]
 
+    def has_energy(self) -> bool:
+        """Whether :meth:`energy` is implemented (``operators.py:82``): it is tried on one zero gradient
+        with ``params=None``; only ``NotImplementedError`` means no."""
+        try:
+            self.energy(torch.zeros((1, self.solution_dim), dtype=torch.float64), None)
+            return True
+        except NotImplementedError:
+            return False
+        except Exception:
+            return True
+
 
 class LaplaceOperator(EllipticOperator):
     """g(∇u) = ∇u; ψ = |∇u|²/2 (operators/laplace.rs:14)."""

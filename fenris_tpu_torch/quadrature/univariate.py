@@ -1,8 +1,9 @@
-"""Univariate Gauss-Legendre and Gauss-Jacobi rules on [-1, 1].
+"""Univariate Gauss-Legendre, Gauss-Lobatto and Gauss-Jacobi rules on [-1, 1].
 
 Counterpart of ``fenris_tpu/quadrature/univariate.py``: numpy's
-``leggauss`` for Gauss-Legendre, Golub-Welsch on the Jacobi recurrence
-for Gauss-Jacobi (the collapsed simplex rules' weights).
+``leggauss`` for Gauss-Legendre, the Newton-polished roots of P'_{n-1}
+for Gauss-Lobatto, Golub-Welsch on the Jacobi recurrence for
+Gauss-Jacobi (the collapsed simplex rules' weights).
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from math import lgamma
 
 import numpy as np
 
-__all__ = ["gauss", "gauss_jacobi"]
+__all__ = ["gauss", "gauss_lobatto", "gauss_jacobi"]
 
 
 @lru_cache(maxsize=None)
@@ -28,6 +29,38 @@ def gauss(num_points: int):
     if num_points < 1:
         raise ValueError("number of points must be positive")
     w, p = _gauss(int(num_points))
+    return Rule(w.copy(), p.copy())
+
+
+def _legendre_deriv_roots(n: int) -> np.ndarray:
+    """Roots of P'_{n-1}, the interior Gauss-Lobatto points, Newton-polished."""
+    c = np.zeros(n)
+    c[-1] = 1.0
+    dleg = np.polynomial.legendre.Legendre(c).deriv()
+    roots = dleg.roots()
+    for _ in range(3):
+        roots = roots - dleg(roots) / dleg.deriv()(roots)
+    return np.sort(np.real(roots))
+
+
+@lru_cache(maxsize=None)
+def _gauss_lobatto(n: int):
+    if n == 2:
+        return np.array([1.0, 1.0]), np.array([[-1.0], [1.0]])
+    x = np.concatenate([[-1.0], _legendre_deriv_roots(n), [1.0]])
+    c = np.zeros(n)
+    c[-1] = 1.0
+    w = 2.0 / (n * (n - 1) * np.polynomial.legendre.Legendre(c)(x) ** 2)  # 2 / (n (n-1) P_{n-1}(x)^2)
+    return w, x.reshape(-1, 1)
+
+
+def gauss_lobatto(num_points: int):
+    """Gauss-Lobatto rule with ``n >= 2`` points, both endpoints included (exact to degree ``2n - 3``)."""
+    from . import Rule
+
+    if num_points < 2:
+        raise ValueError("Gauss-Lobatto requires at least 2 points")
+    w, p = _gauss_lobatto(int(num_points))
     return Rule(w.copy(), p.copy())
 
 

@@ -1,4 +1,4 @@
-"""Reference finite elements: nodes, Lagrange bases, topology (numpy, host side).
+"""Reference finite elements: nodes, Lagrange bases, topology (numpy, host side; ``phi``/``dphi`` on tensors).
 
 Counterpart of ``fenris_tpu/reference_elements.py``, with its reference
 domains ([-1, 1]-based), node orders, polynomial spaces and subparametric
@@ -22,6 +22,7 @@ from functools import lru_cache
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "ReferenceElement",
@@ -168,6 +169,64 @@ class ReferenceElement:
         C = self.coeffs
         return self.monomials(points) @ C, np.einsum("qkd,kn->qnd", self.monomial_gradients(points), C)
 
+    # -- tensor evaluation (point location, interpolation) --------------------------------------
+
+    @property
+    def is_affine(self) -> bool:
+        """Whether the basis is linear on a simplex (P1): its gradients are the same at every point."""
+        return self.degree == 1 and self.domain in ("segment", "tri", "tet")
+
+    def _tensors(self, xi):
+        """On ``xi``'s device, made once: the power-table columns of each axis for the monomials ``[K]`` and
+        for their derivatives ``[d*K]`` (axis-major), the derivatives' factors ``[d*K]``, the coefficients
+        and the highest exponent."""
+        key = (self.name, xi.dtype, xi.device)
+        out = _TENSOR_CACHE.get(key)
+        if out is None:
+            exps = np.asarray(self.exponents)  # [K, d]
+            d, p = self.ref_dim, int(exps.max())
+            lowered = np.concatenate([np.where(np.arange(d) == ax, np.maximum(exps - 1, 0), exps) for ax in range(d)])
+            as_long = lambda e: [torch.as_tensor(ax * (p + 1) + e[:, ax], device=xi.device) for ax in range(d)]  # noqa: E731
+            out = _TENSOR_CACHE[key] = (
+                as_long(exps),
+                as_long(lowered),
+                torch.as_tensor(exps.T.reshape(-1).astype(np.float64), dtype=xi.dtype, device=xi.device),
+                torch.as_tensor(np.array(self.coeffs), dtype=xi.dtype, device=xi.device),
+                p,
+            )
+        return out
+
+    @staticmethod
+    def _monomials(xi, p: int, cols):
+        """``prod_ax xi[..., ax] ** e[ax]`` for the exponent columns ``cols`` -> ``[K, N]`` (feature-major, N the
+        points), integer powers by products."""
+        x = xi.reshape(-1, xi.shape[-1]).T  # [d, N]
+        pw = [torch.ones_like(x)]
+        for _ in range(p):
+            pw.append(pw[-1] * x)
+        P = torch.stack(pw, dim=1).reshape(x.shape[0] * (p + 1), x.shape[1])  # [d * (p + 1), N], row ax * (p + 1) + e
+        out = P.index_select(0, cols[0])
+        for c in cols[1:]:
+            out = out * P.index_select(0, c)
+        return out
+
+    def phi(self, xi: torch.Tensor) -> torch.Tensor:
+        """Basis values at points ``xi [..., d]`` -> ``[..., n]``, in ``xi``'s dtype and device.
+
+        The monomial form of the JAX package's ``ReferenceElement.phi``
+        (every element, HEX8 included), with integer powers by products.
+        """
+        cols, _, _, C, p = self._tensors(xi)
+        return (self._monomials(xi, p, cols).T @ C).reshape(xi.shape[:-1] + (C.shape[1],))
+
+    def dphi(self, xi: torch.Tensor) -> torch.Tensor:
+        """Reference gradients at points ``xi [..., d]`` -> ``[..., n, d]`` (``ReferenceElement.dphi``)."""
+        _, cols, factors, C, p = self._tensors(xi)
+        d = self.ref_dim
+        m = factors[:, None] * self._monomials(xi, p, cols)  # [d * K, N], axis-major
+        out = m.reshape(d, C.shape[0], m.shape[1]).permute(2, 0, 1) @ C  # [N, d, n]
+        return out.transpose(1, 2).reshape(xi.shape[:-1] + (C.shape[1], d))
+
     def face_element(self) -> Optional["ReferenceElement"]:
         """Element of this element's boundary faces (None for segments and tet20)."""
         name = _face_element_name(self.name)
@@ -198,6 +257,9 @@ def _tabulate_hex8(nodes: np.ndarray, points: np.ndarray):
     for ax in range(3):
         dphi[:, :, ax] = 0.5 * nodes[None, :, ax] * np.prod(np.delete(factors, ax, axis=-1), axis=-1)
     return phi, dphi
+
+
+_TENSOR_CACHE: dict = {}
 
 
 def _read_only(a: np.ndarray) -> np.ndarray:

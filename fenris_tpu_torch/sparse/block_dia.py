@@ -32,13 +32,14 @@ import torch.nn.functional as F
 
 from ..assembly.global_ import scatter_add_rows, scatter_plan
 from ..ops.dia_sweep import dia_sweep_plain
-from .block_ell import BlockEllMatrix, block_ell_matvec, block_ell_matvec_cm
+from .block_ell import BlockEllMatrix, block_ell_matvec, block_ell_matvec_cm, gather_values, node_adjacency
 
 __all__ = [
     "BlockDiaMatrix",
     "BlockDiaAssemblyPlan",
     "BandExpandPlan",
     "block_dia_assembly_plan",
+    "block_dia_from_csr",
     "band_expand_plan",
     "expand_rows_pairs_masked",
     "assemble_block_dia",
@@ -65,6 +66,65 @@ class BlockDiaMatrix(NamedTuple):
 
     def __matmul__(self, v):
         return block_dia_matvec(self, v)
+
+
+def block_dia_from_csr(pattern, values: torch.Tensor, *, max_diagonals: Optional[int] = None,
+                       min_count: int = 1) -> BlockDiaMatrix:
+    """Convert assembled CSR values into block-DIA plus a block-ELL remainder (``block_dia.py:103``).
+
+    Every node delta occurring on at least ``min_count`` rows becomes a
+    band, at most ``max_diagonals`` of them (the most populated first,
+    chosen on the host with the JAX package's numpy calls); the other
+    entries spill into the remainder.  The index maps are built on the
+    pattern's device; the bands feed :func:`~..ops.dia_sweep.dia_sweep`
+    as they are.
+    """
+    N, s, K, nk_n, nk_k, nbr, pos = node_adjacency(pattern)
+    dev = pattern.row_ptr.device
+    delta = nbr - nk_n
+    offs_t, counts_t = torch.unique(delta, sorted=True, return_counts=True)
+    offs, counts = offs_t.cpu().numpy(), counts_t.cpu().numpy()
+    keep = counts >= min_count
+    if max_diagonals is not None and keep.sum() > max_diagonals:
+        order = np.argsort(counts)[::-1]
+        kept = np.zeros(len(offs), bool)
+        kept[order[:max_diagonals]] = True
+        keep &= kept
+    offsets = offs[keep]
+    D = len(offsets)
+    offsets_t = torch.as_tensor(offsets, dtype=torch.int64, device=dev)
+    slot = torch.searchsorted(offsets_t, delta)
+    if D:
+        on_dia = (slot < D) & (offsets_t[slot.clamp(max=D - 1)] == delta)
+    else:
+        on_dia = torch.zeros_like(delta, dtype=torch.bool)
+
+    nnz = pattern.nnz
+    c = torch.arange(s, device=dev)
+    idx = torch.full((D, s, s, N), nnz, dtype=torch.int64, device=dev)
+    idx[slot[on_dia][:, None, None], c[None, :, None], c[None, None, :], nk_n[on_dia][:, None, None]] = pos[on_dia]
+    bands = gather_values(values, idx, (D * s * s, N))
+
+    remainder = None
+    off = ~on_dia
+    n_off = int(off.sum())
+    if n_off:
+        rn, rnbr, rpos = nk_n[off], nbr[off], pos[off]
+        rcounts = torch.bincount(rn, minlength=N)
+        Kr = int(rcounts.max())
+        rk = torch.arange(n_off, device=dev) - (torch.cumsum(rcounts, 0) - rcounts)[rn]
+        rneighbors = torch.full((N, Kr), N, dtype=torch.int32, device=dev)
+        rneighbors[rn, rk] = rnbr.to(torch.int32)
+        ridx = torch.full((N, Kr, s, s), nnz, dtype=torch.int64, device=dev)
+        ridx[rn, rk] = rpos
+        remainder = BlockEllMatrix(
+            neighbors=rneighbors.T.contiguous(),
+            blocks=gather_values(values, ridx.permute(1, 2, 3, 0).contiguous(), (Kr * s * s, N)),
+            num_nodes=N,
+            solution_dim=s,
+        )
+    return BlockDiaMatrix(offsets=tuple(int(o) for o in offsets), bands=bands, num_nodes=N, solution_dim=s,
+                          remainder=remainder)
 
 
 class BlockDiaAssemblyPlan(NamedTuple):

@@ -264,3 +264,60 @@ def test_dia_sweep_wrapper_takes_plain_version_on_cpu_and_refuses_other_devices(
     meta = torch.empty((27 * 9, 8), device="meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tds.dia_sweep(meta, tm.offsets, torch.empty((3, 8), device="meta"))
+
+
+# -- CSR -> block-DIA and block-ELL ------------------------------------------------------------------
+
+
+def _csr_case(s, permuted):
+    """A res-3 hex box's CSR pattern at solution dim ``s`` (nodes randomly renumbered: many deltas) and random
+    values, for both packages."""
+    from fenris_tpu.assembly import global_ as jax_global
+    from fenris_tpu_torch.assembly import global_ as torch_global
+
+    cells, N = _box_cells(3)
+    if permuted:
+        cells = np.argsort(rng(12).permutation(N))[cells]
+    jp = jax_global.csr_pattern(cells, N, s)
+    tp = torch_global.csr_pattern(cells, N, s, device="cpu")
+    return jp, tp, rng(13).standard_normal(jp.nnz)
+
+
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("kw", [{}, {"max_diagonals": 7}, {"min_count": 20}])
+def test_block_dia_from_csr_equals_jax(s, kw):
+    """Offsets, bands and the block-ELL remainder bitwise (sparse/block_dia.py:103), and the product against
+    the CSR one (tests/test_sparse.py:296)."""
+    from fenris_tpu.sparse.block_dia import block_dia_from_csr as jax_from_csr
+    from fenris_tpu_torch.sparse import from_pattern, spmv
+
+    jp, tp, vals = _csr_case(s, permuted=bool(kw))
+    ref = jax_from_csr(jp, jnp.asarray(vals), **kw)
+    got = tbd.block_dia_from_csr(tp, torch.as_tensor(vals), **kw)
+    assert got.offsets == ref.offsets and (got.remainder is None) == (ref.remainder is None) == (not kw)
+    np.testing.assert_array_equal(got.bands.numpy(), np.asarray(ref.bands))
+    if got.remainder is not None:
+        np.testing.assert_array_equal(got.remainder.neighbors.numpy(), np.asarray(ref.remainder.neighbors))
+        np.testing.assert_array_equal(got.remainder.blocks.numpy(), np.asarray(ref.remainder.blocks))
+    v = torch.as_tensor(rng(14).standard_normal(tp.num_rows))
+    assert rel_err(spmv(from_pattern(tp, torch.as_tensor(vals)), v), got @ v) < 1e-12
+    if s == 1 and not kw:  # the bands feed the band sweep as they are (tests/test_dia_kernel.py:69)
+        ref_y = spmv(from_pattern(tp, torch.as_tensor(vals)), v)
+        assert rel_err(ref_y, tds.dia_sweep(got.bands, got.offsets, v.reshape(1, -1)).reshape(-1)) < 1e-12
+
+
+@pytest.mark.parametrize("s", [1, 3])
+def test_block_ell_from_csr_equals_jax(s):
+    """Neighbours and blocks bitwise (sparse/block_ell.py:61), and the product against the CSR one
+    (tests/test_sparse.py:140)."""
+    from fenris_tpu.sparse.block_ell import block_ell_from_csr as jax_ell
+    from fenris_tpu_torch.sparse import from_pattern, spmv
+    from fenris_tpu_torch.sparse.block_ell import block_ell_from_csr
+
+    jp, tp, vals = _csr_case(s, permuted=True)
+    ref = jax_ell(jp, jnp.asarray(vals))
+    got = block_ell_from_csr(tp, torch.as_tensor(vals))
+    np.testing.assert_array_equal(got.neighbors.numpy(), np.asarray(ref.neighbors))
+    np.testing.assert_array_equal(got.blocks.numpy(), np.asarray(ref.blocks))
+    v = torch.as_tensor(rng(15).standard_normal(tp.num_rows))
+    assert rel_err(spmv(from_pattern(tp, torch.as_tensor(vals)), v), got @ v) < 1e-12

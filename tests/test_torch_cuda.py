@@ -900,3 +900,83 @@ def test_solve_poisson_on_card_matches_cpu(cuda_device):
     assert rel_err(cpu.u, card.u) < 1e-4
     assert abs(card.l2_error - cpu.l2_error) <= 1e-3 * cpu.l2_error
     assert abs(card.h1_seminorm_error - cpu.h1_seminorm_error) <= 1e-3 * cpu.h1_seminorm_error
+
+
+# -- location, interpolation and aggregate assembly (plain PyTorch on the card) ---------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tet10", "quad9"])
+def test_find_closest_element_on_card_matches_cpu(name, cuda_device):
+    """``find_closest_element`` (grid and brute force, chunked) and ``FixedInterpolator`` in f64 on the card
+    against the same calls on the CPU: element ids equal, distances, coordinates and values within 1e-12."""
+    from fenris_tpu_torch import space as S
+
+    mesh = convert_mesh(tet_box(2), name) if name == "tet10" else square_mesh(name, 4)
+    g = rng(20)
+    pts = np.concatenate([g.uniform(0.02, 0.98, size=(80, mesh.dim)), g.uniform(-0.4, 1.4, size=(40, mesh.dim))])
+    u = g.standard_normal(mesh.num_vertices)
+    idx = S.GridIndex.build(mesh)
+    cpu_grid = S.find_closest_element(mesh, pts, device="cpu", index=idx)
+    for kw, cpu in ((dict(index=idx), cpu_grid), (dict(index=idx, chunk_size=37), cpu_grid),
+                    (dict(), S.find_closest_element(mesh, pts, device="cpu"))):
+        card = S.find_closest_element(mesh, pts, device=cuda_device, **kw)
+        assert card.element_indices.device.type == "cuda"
+        assert torch.equal(card.element_indices.cpu(), cpu.element_indices)
+        assert (card.domain_distance.cpu() - cpu.domain_distance).abs().max() <= 1e-12
+        assert (card.reference_coords.cpu() - cpu.reference_coords).abs().max() <= 1e-12
+    fixed = [S.FixedInterpolator.from_space_and_points(mesh, pts, with_gradients=True, index=idx, device=d)
+             for d in (cuda_device, "cpu")]
+    uc = torch.as_tensor(u, device=cuda_device)
+    assert rel_err(fixed[1].interpolate(torch.as_tensor(u)), fixed[0].interpolate(uc)) < 1e-12
+    assert rel_err(fixed[1].interpolate_gradient(torch.as_tensor(u)), fixed[0].interpolate_gradient(uc)) < 1e-12
+
+
+@pytest.mark.cuda
+def test_aggregate_assembly_on_card_matches_cpu(cuda_device):
+    """The mixed quad/tri pattern built on the card equals the CPU's array for array; the aggregate values
+    (f64 and f32) are bitwise repeatable and equal the CPU's f64 values (f64: 1e-12, f32: 1e-5)."""
+    from fenris_tpu_torch.assembly import aggregate as A
+    from fenris_tpu_torch.mesh.procedural import create_rectangular_uniform_quad_mesh_2d
+
+    quads = create_rectangular_uniform_quad_mesh_2d(0.5, 1, 2, 6, (0.0, 1.0))
+    tris = create_rectangular_uniform_quad_mesh_2d(0.5, 1, 2, 6, (0.5, 1.0)).split_into_triangles()
+    pts = np.concatenate([quads.points, tris.points])
+    uniq, inverse = np.unique(np.round(pts, 12), axis=0, return_inverse=True)
+    blocks = [inverse[quads.cells.astype(np.int64)], inverse[tris.cells.astype(np.int64) + quads.num_vertices]]
+    card, cpu = (A.aggregate_csr_pattern(blocks, len(uniq), 2, device=d) for d in (cuda_device, "cpu"))
+    for field in ("row_ptr", "col_indices", "rows_of_nnz", "diag_positions", "scatter_indices"):
+        assert torch.equal(getattr(card.pattern, field).cpu(), getattr(cpu.pattern, field)), field
+    for a, b in zip(card.block_scatter, cpu.block_scatter):
+        assert torch.equal(a.cpu(), b)
+    g = rng(21)
+    mats = [g.standard_normal((len(c), 2 * c.shape[1], 2 * c.shape[1])) for c in blocks]
+    ref = A.assemble_aggregate_csr([torch.as_tensor(m) for m in mats], cpu)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, KERNEL_RTOL)):
+        m_card = [torch.as_tensor(m, dtype=dtype, device=cuda_device) for m in mats]
+        values = A.assemble_aggregate_csr(m_card, card)
+        assert torch.equal(values, A.assemble_aggregate_csr(m_card, card))
+        assert rel_err(ref, values) < tol
+
+
+@pytest.mark.cuda
+def test_block_dia_from_csr_on_card_feeds_band_sweep(cuda_device):
+    """``block_dia_from_csr`` on the card's CSR of a tri6 square (s = 1): bands equal to the CPU's, and the
+    band sweep kernel on them against the CSR product (f32, 1e-5)."""
+    from fenris_tpu_torch.assembly import global_ as G
+    from fenris_tpu_torch.sparse.block_dia import block_dia_from_csr
+    from fenris_tpu_torch.sparse.csr import from_pattern
+
+    mesh = square_mesh("tri6", 8)
+    card, cpu = (G.csr_pattern(mesh.cells, mesh.num_vertices, 1, device=d) for d in (cuda_device, "cpu"))
+    E, nd, _ = cpu.scatter_indices.shape
+    el = rng(22).standard_normal((E, nd, nd))
+    values = G.assemble_csr(torch.as_tensor(el, dtype=torch.float32, device=cuda_device), card)
+    m = block_dia_from_csr(card, values)
+    m_cpu = block_dia_from_csr(cpu, values.cpu())
+    assert m.offsets == m_cpu.offsets and torch.equal(m.bands.cpu(), m_cpu.bands) and m.remainder is None
+    x = torch.as_tensor(rng(23).standard_normal((1, cpu.num_rows)), dtype=torch.float32, device=cuda_device)
+    before = tds.dia_sweep.launches
+    y = tds.dia_sweep(m.bands, m.offsets, x)
+    assert tds.dia_sweep.launches == before + 1
+    assert rel_err(from_pattern(card, values) @ x[0], y[0]) < KERNEL_RTOL

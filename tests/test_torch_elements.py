@@ -12,6 +12,7 @@ at the first two resolutions, with sources written in torch.
 import json
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -225,3 +226,88 @@ def test_poisson_mms_gate_truncated(name):
     mf = TF.solve_poisson_matrix_free(mesh, rule(TQ), err(TQ), source, None, None, nd,
                                       dtype=torch.float64, device="cpu")
     assert rel_err(r.u, mf.u) <= 1e-8
+
+
+# -- the small API gaps: Gauss-Lobatto, prism and pyramid rules, Rule.integrate, phi/dphi, has_energy ---------------
+
+
+def test_gauss_lobatto_and_integrate_match_jax():
+    for n in (2, 3, 4, 7, 12):
+        t, j = TQ.gauss_lobatto(n), JQ.gauss_lobatto(n)
+        np.testing.assert_array_equal(t.weights, j.weights)
+        np.testing.assert_array_equal(t.points, j.points)
+        assert t.points[0, 0] == -1.0 and t.points[-1, 0] == 1.0
+        f = lambda p: p[0] ** (2 * n - 3) + p[0] ** (2 * n - 4)  # noqa: E731
+        assert t.integrate(f) == j.integrate(f)
+        assert abs(t.integrate(f) - 2.0 / (2 * n - 3)) < 1e-13  # exact to degree 2n - 3
+    with pytest.raises(ValueError):
+        TQ.gauss_lobatto(1)
+
+
+@pytest.mark.parametrize("domain", ["pri", "prism", "pyr", "pyramid", "segment", "tri", "quad", "tet", "hex"])
+def test_prism_pyramid_and_for_domain_match_jax(domain):
+    """Tabulated strengths and the collapsed prism and pyramid rules past the tables, bitwise."""
+    for strength in (0, 3, 10, 25):
+        t, j = TQ.total_order.for_domain(domain, strength), JQ.total_order.for_domain(domain, strength)
+        np.testing.assert_array_equal(t.weights, j.weights)
+        np.testing.assert_array_equal(t.points, j.points)
+    if domain in ("pri", "pyr"):
+        fn = {"pri": "prism_collapsed", "pyr": "pyramid_collapsed"}[domain]
+        for strength in (1, 4, 9):
+            t, j = getattr(TQ.simplex, fn)(strength), getattr(JQ.simplex, fn)(strength)
+            np.testing.assert_array_equal(t.weights, j.weights)
+            np.testing.assert_array_equal(t.points, j.points)
+            # x^a z^b monomials integrate exactly: the volumes (prism 4, pyramid 8/3) at degree 0
+            vol = 4.0 if domain == "pri" else 8.0 / 3.0
+            assert abs(t.integrate(lambda p: 1.0) - vol) < 1e-13
+
+
+@pytest.fixture(scope="module")
+def jax_bases():
+    """Points ``[2, 5, d]`` per element and JAX's ``phi``/``dphi`` there, all elements in one trace."""
+    pts = {name: rng(11).uniform(-1.0, 1.0, size=(2, 5, element(name).ref_dim)) for name in ALL_ELEMENTS}
+    ref = jax.jit(lambda p: {n: (jax_element(n).phi(x), jax_element(n).dphi(x)) for n, x in p.items()})(
+        {n: jnp.asarray(x) for n, x in pts.items()})
+    return pts, ref
+
+
+@pytest.mark.parametrize("name", ALL_ELEMENTS)
+def test_phi_dphi_on_tensors_match_jax(name, jax_bases):
+    """``ReferenceElement.phi``/``dphi`` on a batch ``[2, 5, d]`` of points, against JAX's and the host
+    tabulation, in f64 and f32."""
+    te = element(name)
+    xi = jax_bases[0][name]
+    phi, dphi = te.phi(torch.as_tensor(xi)), te.dphi(torch.as_tensor(xi))
+    assert phi.shape == (2, 5, te.num_nodes) and dphi.shape == (2, 5, te.num_nodes, te.ref_dim)
+    ref_phi, ref_dphi = jax_bases[1][name]
+    assert np.abs(phi.numpy() - np.asarray(ref_phi)).max() <= 1e-13
+    assert np.abs(dphi.numpy() - np.asarray(ref_dphi)).max() <= 1e-12
+    tphi, tdphi = te.tabulate(xi.reshape(-1, te.ref_dim))
+    assert np.abs(phi.numpy().reshape(tphi.shape) - tphi).max() <= 1e-13
+    assert np.abs(dphi.numpy().reshape(tdphi.shape) - tdphi).max() <= 1e-12
+    phi32 = te.phi(torch.as_tensor(xi, dtype=torch.float32))
+    assert phi32.dtype == torch.float32 and np.abs(phi32.numpy() - phi.numpy()).max() <= 1e-5
+    assert te.is_affine == (name in ("seg2", "tri3", "tet4"))
+
+
+def test_has_energy_matches_jax():
+    from fenris_tpu.operators import EllipticOperator as JaxElliptic
+    from fenris_tpu.operators import LaplaceOperator as JaxLaplace
+    from fenris_tpu.solid import MaterialEllipticOperator as JaxMaterialOperator
+    from fenris_tpu_torch.operators import EllipticOperator, LaplaceOperator, operator_from_energy
+    from fenris_tpu_torch.solid import MaterialEllipticOperator, NeoHookeanMaterial
+
+    class GOnly(EllipticOperator):
+        def g(self, G, params):
+            return G
+
+    class JaxGOnly(JaxElliptic):
+        def g(self, G, params):
+            return G
+
+    assert LaplaceOperator().has_energy() == JaxLaplace().has_energy() is True
+    assert GOnly().has_energy() == JaxGOnly().has_energy() is False
+    # an energy that needs its parameters still has one (the probe passes params=None)
+    assert MaterialEllipticOperator(NeoHookeanMaterial(), dim=3).has_energy() is True
+    assert JaxMaterialOperator(JaxNeoHookean(), dim=3).has_energy() is True
+    assert operator_from_energy(lambda G, p: (G * G).sum()).has_energy() is True

@@ -80,6 +80,17 @@ def test_boundary_queries_match_jax(name):
     _equal_meshes(tm.keep_cells(keep), jm.keep_cells(keep))
 
 
+@pytest.mark.parametrize("name", ["hex8", "tet4"])
+def test_boundary_queries_of_an_empty_mesh_match_jax(name):
+    """``keep_cells([])``: the face mask is reshaped by the face count, so a mesh without cells gives JAX's
+    empty arrays (it raised before)."""
+    jm = _jax_mesh(name).keep_cells([])
+    tm = _port(_jax_mesh(name)).keep_cells([])
+    for query in ("find_boundary_faces", "find_boundary_cells", "find_boundary_vertices"):
+        got, ref = getattr(tm, query)(), getattr(jm, query)()
+        assert got.shape == ref.shape and got.dtype == ref.dtype and got.size == 0, query
+
+
 def test_boundary_mesh_of_tet20_raises():
     with pytest.raises(ValueError, match="tet20"):
         _port(_jax_mesh("tet20")).boundary_mesh()
