@@ -170,7 +170,25 @@ versions) and drives the port's paths at full size:
   ``GeometricMGPreconditioner(banded=True)``, ``solve_mixed`` to the
   independent f64 residual <= 1e-10, with CG iterations beside C2's Jacobi
   counts, the V-cycle's share of a CG iteration and a profile of one
-  V-cycle.
+  V-cycle;
+* geometry, helpers and the sharded classes (no kernel of their own):
+  GEO, the procedural sphere (8 x 8 tangent clips of a cube) against
+  4π/3 and its triangulation's volume, welded, refined to 1,081,344 tets,
+  RCM'd, the fused banded ``solve_mixed`` under gravity with its cap
+  clamped (rows 6-8 under reset counts) to the independent f64 residual;
+  UTIL, ``rotation_svd``, ``polar_decomposition``, ``apd`` and
+  ``extremal_eigenvalues`` in f64 and f32 on GEO's 4,325,376 deformation
+  gradients (RᵀR = I, det R = +1, F = RS with S symmetric, apd against the
+  SVD rotation), timed, and ``profiling.trace`` around one Hessian action;
+  PAR, two ranks spawned once on cuda:0 over gloo, every sharded class of
+  ``parallel/`` against the single-process model: ``ShardedBandedElasticity``
+  on path A's RCM'd mesh (residual and Hessian action through rows 6-9 on
+  each rank's plan) and its Newton solve on C3's mesh, ``ShardedElasticity``
+  on C3's mesh, the two structured classes on the flagship grid and a halo
+  Newton solve at 32^3, ``ShardedBlockDia`` on P149's bands (the product
+  through row 4 on each rank's window) and its CG; operator applications in
+  f32 within 1e-5, solves in f64; launches, ms per application and the
+  collectives' share per rank (gloo stages CUDA tensors through the host).
 
 Every kernel check is ``max |kernel - plain| / max |plain| <= 1e-5`` (f32
 roundoff: FMA contraction and summation order) with two launches bitwise
@@ -3674,6 +3692,536 @@ def p2d_block_dia_from_csr(kernels, A, mesh, cell, dev, smi):
     free_memory()
 
 
+# -- geometry, helpers and profiling, the sharded classes -----------------------------------------------
+# GEO: the procedural sphere (procedural.rs:405) of GEO_SWEEPS x GEO_SWEEPS tangent clips, triangulated,
+# welded, refined until it has GEO_MIN_TETS tets (four levels: 1,081,344), RCM'd, Neo-Hookean under gravity
+# BODY_A with the cap z < GEO_CAP_Z clamped (MSH's cap on the Gmsh sphere of radius 0.5, scaled to radius 1).
+# UTIL: the helpers of utils.py on GEO's deformation gradients at the points of the degree-UTIL_RULE
+# tetrahedron rule (4 a tet: 4,325,376 matrices; the tet4 stiffness rule has one).  PAR: PAR_WORLD ranks on
+# cuda:0 over gloo against the single-process models, max |diff| / max |ref| <= PAR_RTOL: operator
+# applications in f32, the halo Newton solve and the block-DIA CG in f64 (two f32 Krylov solves can differ
+# by up to about eps_f32 x kappa), the banded Newton solve in f32 on its kernels, PAR_B_NEWTON steps from
+# zero on both sides (its ranks sum each node's rows in the single plan's order but at the ranks' seam)
+GEO_SWEEPS = 8
+GEO_MIN_TETS = 1_000_000
+GEO_CAP_Z = -0.9
+UTIL_RULE = 2
+PAR_WORLD = 2
+PAR_RTOL = 1e-5
+PAR_REPS = 5
+PAR_TIMEOUT_S = 400
+RES_PAR_H = 32  # the halo class's Newton solve
+PAR_NEWTON_TOL = 1e-6  # relative to ||F(0)||
+PAR_B_NEWTON = 2  # Newton steps of the f32 banded solve
+
+
+def weld(mesh, tol):
+    """``mesh`` with vertices closer than ``tol`` merged into the first of them and the cells that lose their
+    volume (below 1e-12 of the largest) dropped; returns it, the merged vertices and the dropped cells."""
+    import numpy as np
+
+    pts, rep = mesh.points, np.arange(mesh.num_vertices)
+    for i in range(mesh.num_vertices):
+        if rep[i] == i:
+            close = np.flatnonzero(np.linalg.norm(pts[i + 1 :] - pts[i], axis=1) <= tol) + i + 1
+            rep[close[rep[close] == close]] = i
+    cells = rep[mesh.cells]
+    v = pts[cells]
+    vol = np.abs(np.linalg.det(v[:, 1:] - v[:, :1]))
+    keep = np.flatnonzero(vol > 1e-12 * vol.max())
+    welded = type(mesh)(pts, cells, mesh.element).keep_cells(keep)
+    return welded, int((rep != np.arange(mesh.num_vertices)).sum()), mesh.num_cells - len(keep)
+
+
+def geo_phase(kernels, dev, smi):
+    """GEO: the sphere's PolyMesh volume against 4π/3 and its triangulation's, the triangulation welded (the
+    clips leave coincident vertices where a plane passes through a vertex or an edge, so some fan tets have no
+    volume), the refinement to GEO_MIN_TETS tets, the RCM and the fused banded model's ``solve_mixed``
+    (element_solve: rows 6-8 under reset counts, the independent f64 residual <= 1e-10).  Returns (mesh, f64
+    solution, the f32 model)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from fenris_tpu_torch.elasticity import HyperelasticModel
+    from fenris_tpu_torch.mesh.procedural import create_simple_stupid_sphere
+    from fenris_tpu_torch.mesh.refinement import refine_uniformly
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+    from fenris_tpu_torch.solid import LameParameters, NeoHookeanMaterial
+
+    t0 = time.perf_counter()
+    pm = create_simple_stupid_sphere([0.0, 0.0, 0.0], 1.0, GEO_SWEEPS)
+    volume = pm.volume()
+    tets = pm.triangulate()
+    host_s = time.perf_counter() - t0
+    v = tets.points[tets.cells]
+    tet_volume = float((np.abs(np.linalg.det(v[:, 1:] - v[:, :1])) / 6.0).sum())
+    ball = 4.0 / 3.0 * math.pi
+    log(f"GEO sphere ({GEO_SWEEPS} x {GEO_SWEEPS} clips): {len(pm.faces)} faces, {pm.num_cells} cell, volume "
+        f"{volume:.15f} = {volume / ball:.6f} x 4π/3, its {tets.num_cells}-tet triangulation {tet_volume:.15f} "
+        f"(rel {abs(tet_volume - volume) / volume:.3e}); host geometry {host_s:.3f} s")
+    check(0.8 * ball < volume < 1.5 * ball, f"GEO: sphere volume {volume / ball:.4f} x 4π/3 outside (0.8, 1.5)")
+    check(abs(tet_volume - volume) <= 1e-12 * volume, "GEO: the triangulation's volume differs from the PolyMesh's")
+    t0 = time.perf_counter()
+    mesh, merged, dropped = weld(tets, 1e-12)
+    v = mesh.points[mesh.cells]
+    welded_volume = float((np.abs(np.linalg.det(v[:, 1:] - v[:, :1])) / 6.0).sum())
+    log(f"GEO weld: {merged} coincident vertices merged, {dropped} tets without volume dropped, {mesh.num_cells} "
+        f"tets on {mesh.num_vertices} vertices, volume {welded_volume:.15f}; {time.perf_counter() - t0:.3f} s")
+    check(abs(welded_volume - volume) <= 1e-12 * volume, "GEO: welding changed the volume")
+    levels = 0
+    while mesh.num_cells < GEO_MIN_TETS:
+        mesh, levels = refine_uniformly(mesh), levels + 1
+    refine_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh, _ = reorder_mesh(mesh, device=dev)
+    clamped = np.flatnonzero(mesh.points[:, 2] < GEO_CAP_Z)
+
+    def model_of(mesh_, dtype, **kw):
+        return HyperelasticModel(mesh=mesh_, material=NeoHookeanMaterial(), params=LameParameters(mu=MU, lam=LAM),
+                                 dirichlet_nodes=clamped, body_force=np.array(BODY_A), dtype=dtype, device=dev, **kw)
+
+    model = model_of(mesh, torch.float32, banded=True, fused_kernels=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    log(f"GEO mesh: {levels} refinements to {mesh.num_cells} tet4, {mesh.num_vertices} nodes, {model.space.num_dofs} "
+        f"dofs, {len(clamped)} nodes clamped (z < {GEO_CAP_Z}); refinement {refine_s:.3f} s, RCM and fused model "
+        f"{setup_s:.3f} s ({smi})")
+    sources = {"tangent": "em_vector_tangent_sweep", "vector": "em_vector_sweep", "gather": "banded_gather",
+               "scatter": "banded_scatter"}
+    view = {f"{role} (GEO)": {"fn": kernels[name]["fn"]} for role, name in sources.items()}
+    x64 = element_solve(view, model, {role: f"{role} (GEO)" for role in sources}, "GEO", host_s + refine_s + setup_s,
+                        dev, smi, mixed=True, check_model=lambda mesh_: model_of(mesh_, torch.float64, chunk_size=8192))
+    log(f"GEO launches of the solve: {({name: rec['launches'] for name, rec in view.items()})}")
+    return mesh, x64, model
+
+
+def deformation_gradients(mesh, x64, rule, dev):
+    """F = I + grad u ``[E * q, 3, 3]`` (f64) at the points of ``rule`` in every cell of a tet4 mesh."""
+    import torch
+
+    from fenris_tpu_torch.assembly.local import tabulate
+
+    tab = tabulate(mesh.element, rule)
+    dphi = torch.as_tensor(tab.dphi, device=dev)  # [q, n, 3]
+    cells = torch.as_tensor(mesh.cells, device=dev).long()
+    X = torch.as_tensor(mesh.points, device=dev)[cells]  # [E, n, 3]
+    U = x64.reshape(-1, 3)[cells]
+    J = torch.einsum("eni,qnj->eqij", X, dphi)
+    G = torch.einsum("eni,qnj,eqjk->eqik", U, dphi, torch.linalg.inv(J))
+    return (G + torch.eye(3, dtype=G.dtype, device=dev)).reshape(-1, 3, 3)
+
+
+def util_phase(geo, dev, smi):
+    """UTIL: rotation_svd, polar_decomposition, apd and extremal_eigenvalues in f64 and f32 on GEO's
+    deformation gradients, timed; RᵀR = I, det R = +1, F = RS with S symmetric, U and V proper rotations,
+    apd's rotation against the SVD's; then profiling.trace around one Hessian action of GEO's model."""
+    import tempfile
+
+    import torch
+
+    import fenris_tpu_torch.utils as tu
+    from fenris_tpu_torch import profiling
+    from fenris_tpu_torch.quadrature.total_order import tetrahedron
+
+    mesh, x64, model = geo
+    F64 = deformation_gradients(mesh, x64, tetrahedron(UTIL_RULE), dev)
+    limits = {torch.float64: {"rotation": 1e-12, "apd": 1e-6}, torch.float32: {"rotation": 1e-5, "apd": 1e-4}}
+    log(f"UTIL: {F64.shape[0]} deformation gradients of GEO ({mesh.num_cells} tets x {F64.shape[0] // mesh.num_cells} "
+        f"points), max |F - I| {float((F64 - torch.eye(3, dtype=F64.dtype, device=dev)).abs().max()):.4e}")
+    for dtype in (torch.float64, torch.float32):
+        F = F64.to(dtype)
+        C = F.transpose(1, 2) @ F
+        calls = {"rotation_svd": lambda: tu.rotation_svd(F), "polar_decomposition": lambda: tu.polar_decomposition(F),
+                 "apd": lambda: tu.apd(F), "extremal_eigenvalues": lambda: tu.extremal_eigenvalues(C)}
+        # each helper once for the checks (its warm-up), then once timed (a call takes 0.1-1.5 s)
+        outs = {name: fn() for name, fn in calls.items()}
+        ms = {name: event_ms(fn, reps=1, warmup=0) for name, fn in calls.items()}
+        U, s, V = (t.double() for t in outs["rotation_svd"])
+        R, S = (t.double() for t in outs["polar_decomposition"])
+        Ra = outs["apd"].double()
+        lo, hi = (t.double() for t in outs["extremal_eigenvalues"])
+        eye = torch.eye(3, dtype=torch.float64, device=dev)
+        Fd = F.double()
+        top = lambda t: float(t.abs().max())  # noqa: E731
+        errs = {
+            "|RᵀR - I|": top(R.transpose(1, 2) @ R - eye),
+            "|det R - 1|": top(torch.linalg.det(R) - 1.0),
+            "|det U - 1|, |det V - 1|": max(top(torch.linalg.det(U) - 1.0), top(torch.linalg.det(V) - 1.0)),
+            "|RS - F| / |F|": top(R @ S - Fd) / top(Fd),
+            "|S - Sᵀ| / |S|": top(S - S.transpose(1, 2)) / top(S),
+            "|U diag(s) Vᵀ - F| / |F|": top(U @ (s[:, :, None] * V.transpose(1, 2)) - Fd) / top(Fd),
+        }
+        apd_err = float((Ra - R).abs().max())
+        log(f"UTIL {str(dtype)[6:]}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) +
+            f", |apd - R_svd| {apd_err:.3e}; eigenvalues of FᵀF in [{float(lo.min()):.6f}, {float(hi.max()):.6f}]; "
+            "ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" ({smi})")
+        lim = limits[dtype]
+        check(all(v <= lim["rotation"] for v in errs.values()), f"UTIL {dtype}: a rotation check failed: {errs}")
+        check(apd_err <= lim["apd"], f"UTIL {dtype}: apd against the SVD rotation {apd_err:.3e} > {lim['apd']}")
+        check(bool((lo > 0).all()) and bool((lo <= hi).all()), f"UTIL {dtype}: FᵀF not positive definite")
+        del U, s, V, R, S, Ra, F, C, outs
+        free_memory()
+    u = x64.float()
+    v = torch.randn(u.shape, generator=torch.Generator(device=dev).manual_seed(61), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profiling.trace(tmp) as prof:
+            model.hessian_vector_product(u, v)
+            torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t0
+        files = list(Path(tmp).glob("*.pt.trace.json"))
+        nbytes = sum(f.stat().st_size for f in files)
+        kernels_in_file = [e for f in files for e in json.loads(f.read_text()).get("traceEvents", [])
+                           if e.get("cat") == "kernel"]
+    busy_us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+                  for e in prof.key_averages() if str(e.device_type).endswith("CUDA"))
+    log(f"UTIL profiling.trace around one Hessian action of GEO's model: {len(files)} trace file(s), {nbytes} bytes, "
+        f"{len(kernels_in_file)} kernels in it ({sum(e.get('dur', 0) for e in kernels_in_file) / 1e3:.3f} ms), "
+        f"device busy by key_averages {busy_us / 1e3:.3f} ms, {trace_s:.3f} s with the export ({smi})")
+    check(len(files) == 1 and nbytes > 0, "UTIL: profiling.trace wrote no trace file")
+    check(len(kernels_in_file) > 0 and busy_us > 0, "UTIL: profiling.trace recorded no device time")
+    del F64
+    free_memory()
+
+
+# -- PAR: the sharded classes, PAR_WORLD ranks on cuda:0 ----------------------------------------------
+
+
+def par_problems(dev):
+    """The PAR problems' builders, alike in the parent and in each rank: ``{part: builder}``."""
+    import torch
+
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
+    from fenris_tpu_torch.mesh.reorder import reorder_mesh
+
+    mesh149, _ = reorder_mesh(create_unit_box_uniform_hex_mesh_3d(RES_A), device=dev)
+    mesh63, _ = reorder_mesh(create_unit_box_uniform_hex_mesh_3d(RES_C3), device=dev)
+    return {
+        "B": lambda: assembled_model(None, torch.float32, dev, None, mesh=mesh149, banded=True, fused_kernels=True),
+        "B-solve": lambda: assembled_model(None, torch.float32, dev, None, mesh=mesh63, banded=True,
+                                           fused_kernels=True),
+        "E": lambda: assembled_model(None, torch.float32, dev, None, mesh=mesh63),
+        "S": lambda: flagship_model(FULL, torch.float32, dev, kernel=False),
+        "H-solve": lambda: flagship_model((RES_PAR_H,) * 3, torch.float64, dev),
+        "D": lambda: par_d_matrix(dev),
+    }
+
+
+def par_d_matrix(dev):
+    """P149's Laplace bands (f64 and f32), its free nodes and seeded inputs: ``(A64, A32, free, v, b)``."""
+    import torch
+
+    from fenris_tpu_torch.assembly.local import assemble_element_elliptic_matrices, tabulate
+    from fenris_tpu_torch.fem import FemSpace
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
+    from fenris_tpu_torch.operators import LaplaceOperator
+    from fenris_tpu_torch.quadrature import hexahedron_gauss
+    from fenris_tpu_torch.sparse.block_dia import BlockDiaMatrix, assemble_block_dia, block_dia_assembly_plan
+
+    mesh = create_unit_box_uniform_hex_mesh_3d(RES_P)
+    space = FemSpace.create(mesh, 1, torch.float64, dev)
+    plan = block_dia_assembly_plan(mesh.cells, mesh.num_vertices, 1, device=dev)
+    A64 = assemble_block_dia(plan, assemble_element_elliptic_matrices(
+        space.X_geo, None, LaplaceOperator(), None, tabulate(mesh.element, hexahedron_gauss(2)), chunk=65536),
+        num_chunks=4)
+    A32 = BlockDiaMatrix(A64.offsets, A64.bands.float(), A64.num_nodes, 1, None)
+    free = torch.ones(mesh.num_vertices, dtype=torch.bool, device=dev)
+    free[torch.as_tensor(mms_problem()[3](mesh), device=dev)] = False
+    g = torch.Generator(device=dev).manual_seed(71)
+    v = torch.randn(mesh.num_vertices, generator=g, device=dev, dtype=torch.float64)
+    b = torch.where(free, torch.randn(mesh.num_vertices, generator=g, device=dev, dtype=torch.float64), 0.0)
+    return A64, A32, free, v, b
+
+
+def par_inputs(model, seed):
+    """A displacement of 1% of a cell and a direction ~ N(0, 1) in the model's dtype."""
+    import torch
+
+    if hasattr(model, "space"):
+        u = displacement(model, seed)
+    else:
+        _, ug, _ = kernel_inputs(model.cells, model.device, seed)
+        u = torch.where(model.free_mask, model._ungrid(ug).to(model.dtype) * 0.5, 0.0)
+    g = torch.Generator(device=model.device).manual_seed(seed + 1)
+    return u, torch.randn(u.shape, generator=g, device=model.device).to(model.dtype)
+
+
+def par_newton(solve, model):
+    """The Newton solve of a PAR part: relative tolerance PAR_NEWTON_TOL and CG to 1e-8 in f64; in f32 (the
+    banded model on its kernels) C3's CG tolerance 1e-4 and PAR_B_NEWTON steps, as f32 cannot reach it."""
+    import torch
+
+    n = model.space.num_dofs if hasattr(model, "space") else model.num_dofs
+    f0 = float(torch.linalg.vector_norm(model.residual(torch.zeros(n, dtype=model.dtype, device=model.device))))
+    if model.dtype == torch.float32:
+        return solve(tolerance=PAR_NEWTON_TOL * f0, cg_rel_tolerance=1e-4, max_newton_iterations=PAR_B_NEWTON)
+    return solve(tolerance=PAR_NEWTON_TOL * f0, cg_rel_tolerance=1e-8)
+
+
+def par_dia_cg(A, b, free):
+    """Jacobi CG to 1e-6 on masked bands (the single-process reference of ShardedBlockDia.cg)."""
+    import torch
+
+    from fenris_tpu_torch.sparse.cg import conjugate_gradient
+    from fenris_tpu_torch.sparse.dia_kernel import block_dia_operator
+
+    op = block_dia_operator(A)
+    inv_diag = 1.0 / torch.where(free, A.bands[A.offsets.index(0)], 1.0)
+    return conjugate_gradient(lambda x: torch.where(free, op(torch.where(free, x, 0.0)), x), b,
+                              preconditioner=lambda x: inv_diag * x, rel_tolerance=1e-6, max_iter=20000,
+                              check_definiteness=False)
+
+
+def par_launches(kernels):
+    """Launches since the last reset, by wrapper (records that share a wrapper count once)."""
+    wrappers = {id(r["fn"]): r["fn"] for r in kernels.values()}
+    return {fn.__name__: fn.launches for fn in wrappers.values() if fn.launches}
+
+
+def par_references(dev, out):
+    """Every PAR reference on the single-process models, saved to ``out`` (CPU tensors); returns its set-up and
+    compute seconds."""
+    import torch
+
+    from fenris_tpu_torch.sparse.dia_kernel import block_dia_operator
+
+    t0 = t_lap = time.perf_counter()
+    P = par_problems(dev)
+    ref, status = {}, []
+
+    def lap(what):
+        nonlocal t_lap
+        torch.cuda.synchronize()
+        log(f"PAR reference {what}: {time.perf_counter() - t_lap:.3f} s")
+        t_lap = time.perf_counter()
+
+    lap("meshes (two RCMs)")
+    m = P["B"]()
+    u, v = par_inputs(m, 81)
+    ref["B.residual"], ref["B.hvp"] = m.residual(u).cpu(), m.hessian_vector_product(u, v).cpu()
+    del m, u, v
+    free_memory()
+    lap("B (model and two operators)")
+    m = P["B-solve"]()
+    res = par_newton(m.solve, m)
+    ref["B.solve"], status = res.x.cpu(), status + [res.status]
+    del m, res
+    lap(f"B solve ({status[-1]})")
+    m = P["E"]()
+    u, v = par_inputs(m, 82)
+    ref.update({"E.residual": m.residual(u).cpu(), "E.hvp": m.hessian_vector_product(u, v).cpu(),
+                "E.diag": m.hessian_diagonal(u).cpu(), "E.energy": m.energy(u).reshape(1).cpu()})
+    del m
+    lap("E")
+    m = P["S"]()
+    u, v = par_inputs(m, 83)
+    ref.update({"S.residual": m.residual(u).cpu(), "S.hvp": m.hessian_vector_product(u, v).cpu(),
+                "S.diag": m.hessian_diagonal(u).cpu()})
+    ref.update({"H" + key[1:]: t for key, t in list(ref.items()) if key.startswith("S.")})  # the same model
+    del m
+    lap("S")
+    m = P["H-solve"]()
+    res = par_newton(m.solve, m)
+    ref["H.solve"], status = res.x.cpu(), status + [res.status]
+    del m
+    lap("H solve")
+    A64, A32, free, v, b = P["D"]()
+    ref["D.matvec"] = block_dia_operator(A32)(v.float()).cpu()
+    res = par_dia_cg(A64, b, free)
+    ref["D.cg"], status = res.x.cpu(), status + [res.status]
+    del A64, A32
+    lap("D (assembly, product, f64 CG)")
+    torch.save({"ref": ref, "status": status}, out)
+    free_memory()
+    return time.perf_counter() - t0
+
+
+def par_rank(rank, world, store, out_dir):
+    """One PAR rank: join the gloo group, build every part's model and its sharded view on cuda:0, run the
+    operator applications (each timed over PAR_REPS, with the collectives' share) and solves under reset counts,
+    and save the outputs and a summary to ``out_dir/rank<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from fenris_tpu_torch.ops._build import load_library
+    from fenris_tpu_torch.parallel import ShardedElasticity, make_device_mesh
+    from fenris_tpu_torch.parallel.banded import ShardedBandedElasticity
+    from fenris_tpu_torch.parallel.block_dia import ShardedBlockDia
+    from fenris_tpu_torch.parallel.halo import StructuredHaloElasticity
+    from fenris_tpu_torch.parallel.structured import StructuredShardedElasticity
+
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        mesh = make_device_mesh()
+        dev = torch.device("cuda", torch.cuda.current_device()) if mesh.device_type == "cuda" else torch.device("cpu")
+        if dev.type == "cuda":
+            load_library()  # built by the parent: loaded from its cache
+        kernels = kernel_records()
+        P = par_problems(dev)
+        out, summary = {}, {"setup_s": {}, "failures": []}
+
+        def expect(ok, what):
+            """A rank records a failed check for the parent: raising here would leave the other rank waiting
+            in a collective."""
+            if not ok:
+                summary["failures"].append(f"rank {rank}: {what}")
+
+        def apply(part, sharded, ops):
+            """Each op once under reset counts (launches), then PAR_REPS times with the collectives timed."""
+            for name, fn in ops.items():
+                reset_counts(kernels)
+                out[f"{part}.{name}"] = fn()
+                torch.cuda.synchronize()
+                launches = par_launches(kernels)
+                comm = sharded._comm
+                comm.timed, comm.seconds, calls0 = True, 0.0, comm.calls
+                t0 = time.perf_counter()
+                for _ in range(PAR_REPS):
+                    fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                comm.timed = False
+                summary[f"{part}.{name}"] = {"ms": wall / PAR_REPS * 1e3, "share": comm.seconds / wall,
+                                             "collectives": (comm.calls - calls0) // PAR_REPS,
+                                             "launches": launches}
+
+        def timed_setup(part, build):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            obj = build()
+            torch.cuda.synchronize()
+            summary["setup_s"][part] = time.perf_counter() - t0
+            return obj
+
+        m = P["B"]()
+        sb = timed_setup("B", lambda: ShardedBandedElasticity(m, mesh))
+        u, v = par_inputs(m, 81)
+        apply("B", sb, {"residual": lambda: sb.residual(u), "hvp": lambda: sb.hessian_vector_product(u, v)})
+        for op, need in (("residual", {"banded_vector_sweep", "banded_scatter"}),
+                         ("hvp", {"banded_tangent_sweep", "banded_scatter"})):
+            got = summary[f"B.{op}"]["launches"]
+            expect(need <= set(got), f"PAR-B {op}: launched {got}, needs {sorted(need)}")
+        out = {k: t.cpu() for k, t in out.items()}
+        del m, sb, u, v
+        free_memory()
+        m = P["B-solve"]()
+        sb = ShardedBandedElasticity(m, mesh)
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        res = par_newton(sb.solve, m)
+        summary["B.solve"] = {"s": time.perf_counter() - t0, "newton": res.iterations, "status": res.status,
+                              "collectives": sb._comm.calls, "launches": par_launches(kernels)}
+        expect({"banded_tangent_sweep", "banded_vector_sweep", "banded_scatter", "banded_gather"}
+               <= set(summary["B.solve"]["launches"]),
+               f"PAR-B solve: launched {summary['B.solve']}")
+        out["B.solve"] = res.x.cpu()
+        del m, sb, res
+        m = P["E"]()
+        se = timed_setup("E", lambda: ShardedElasticity(m, mesh))
+        u, v = par_inputs(m, 82)
+        apply("E", se, {"residual": lambda: se.residual(u), "hvp": lambda: se.hessian_vector_product(u, v),
+                        "diag": lambda: se.hessian_diagonal(u), "energy": lambda: se.energy(u).reshape(1)})
+        del m, se
+        m = P["S"]()
+        ss = timed_setup("S", lambda: StructuredShardedElasticity(m, mesh))
+        u, v = par_inputs(m, 83)
+        apply("S", ss, {"residual": lambda: ss.residual(u), "hvp": lambda: ss.hessian_vector_product(u, v),
+                        "diag": lambda: ss.hessian_diagonal(u)})
+        sh = timed_setup("H", lambda: StructuredHaloElasticity(m, mesh))
+        ug, vg = sh.to_grid(u), sh.to_grid(v)
+        apply("H", sh, {"residual": lambda: sh.residual(ug), "hvp": lambda: sh.hessian_vector_product(ug, vg),
+                        "diag": lambda: sh.hessian_diagonal(ug)})
+        for name in ("residual", "hvp", "diag"):
+            out[f"H.{name}"] = sh.to_flat(out[f"H.{name}"])
+        del m, ss, sh, ug, vg
+        m = P["H-solve"]()
+        sh = StructuredHaloElasticity(m, mesh)
+        t0 = time.perf_counter()
+        res = par_newton(sh.solve, m)
+        summary["H.solve"] = {"s": time.perf_counter() - t0, "newton": res.iterations, "status": res.status,
+                              "collectives": sh._comm.calls}
+        out["H.solve"] = sh.to_flat(res.x)
+        del m, sh, res
+        A64, A32, free, v, b = P["D"]()
+        sd = timed_setup("D", lambda: ShardedBlockDia(A32, mesh))
+        vb = sd.to_sharded(v.float())
+        apply("D", sd, {"matvec": lambda: sd.matvec(vb)})
+        out["D.matvec"] = sd.to_flat(out["D.matvec"])
+        expect(summary["D.matvec"]["launches"].get("dia_sweep", 0) > 0, "PAR-D: launched no band sweep")
+        sd64 = ShardedBlockDia(A64, mesh)
+        t0 = time.perf_counter()
+        res = sd64.cg(sd64.to_sharded(b), free_blocks=sd64.to_sharded(free), rel_tolerance=1e-6, max_iter=20000,
+                      check_definiteness=False)
+        summary["D.cg"] = {"s": time.perf_counter() - t0, "cg": res.num_iterations, "status": res.status,
+                           "collectives": sd64._comm.calls}
+        out["D.cg"] = sd64.to_flat(res.x)
+        summary["wall_s"] = time.perf_counter() - t_start
+        torch.save({"out": {k: t.cpu() for k, t in out.items()}, "summary": summary}, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def par_phase(dev, smi):
+    """PAR: the references on the single-process models, then PAR_WORLD ranks on cuda:0 over gloo (one
+    spawn for every part), each output held against its reference and the ranks against each other."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_s = par_references(dev, Path(tmp) / "ref.pt")
+        log(f"PAR references on the single-process models: {ref_s:.3f} s")
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(par_rank, args=(PAR_WORLD, str(Path(tmp) / "store"), tmp), nprocs=PAR_WORLD,
+                                 join=False, start_method="spawn")
+        try:
+            deadline = time.perf_counter() + PAR_TIMEOUT_S
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() < deadline, f"PAR: the ranks did not end within {PAR_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        spawn_s = time.perf_counter() - t0
+        saved = torch.load(Path(tmp) / "ref.pt")
+        ref, ref_status = saved["ref"], saved["status"]
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(PAR_WORLD)]
+    summaries = [r["summary"] for r in ranks]
+    log(f"PAR: {PAR_WORLD} ranks on one card over gloo (CUDA tensors staged through the host: the times below are "
+        f"of that staging, not of scaling): {spawn_s:.3f} s from the spawn to the last rank's end, rank walls "
+        f"{[round(s['wall_s'], 3) for s in summaries]} s, set-up {[s['setup_s'] for s in summaries]} ({smi})")
+    failures = [f for s in summaries for f in s["failures"]]
+    worst = 0.0
+    for key in sorted(ref):
+        r = ref[key].double()
+        got = [rk["out"][key].double() for rk in ranks]
+        rel = float((got[0] - r).abs().max() / r.abs().max())
+        same = all(torch.equal(ranks[0]["out"][key], rk["out"][key]) for rk in ranks[1:])
+        stats = [s.get(key, {}) for s in summaries]
+        log(f"PAR-{key}: max |diff| / max |ref| {rel:.3e} (limit {PAR_RTOL:g}); ranks equal {same}; per rank " +
+            "; ".join(", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in st.items())
+                      for st in stats))
+        if not same:
+            failures.append(f"PAR-{key}: the ranks hold different replicated results")
+        if not (rel <= PAR_RTOL and bool(torch.isfinite(got[0]).all())):
+            failures.append(f"PAR-{key}: rel {rel:.3e} > {PAR_RTOL:g}")
+        worst = max(worst, rel)
+    # the f32 banded solve runs PAR_B_NEWTON steps (status 1, NEWTON_MAX_ITER) as its reference does
+    for key, status in (("B.solve", ref_status[0]), ("H.solve", 0), ("D.cg", 0)):
+        if not all(s[key]["status"] == status for s in summaries):
+            failures.append(f"PAR-{key}: status {[s[key]['status'] for s in summaries]}, expected {status}")
+    if not (ref_status[1:] == [0, 0] and ref_status[0] in (0, 1)):
+        failures.append(f"PAR: reference solve statuses {ref_status}")
+    check(not failures, "; ".join(failures))
+    log(f"PAR: every part within {PAR_RTOL:g} of the single-process models (worst {worst:.3e})")
+
+
 def kernel_records():
     """Every kernel record of the kernel line: its wrapper, path, source and the TPU kernel it replaces; the
     phases fill in launches, errors and times."""
@@ -3972,6 +4520,17 @@ def main() -> int:
     t0 = time.perf_counter()
     path_c2_mg(kernels, c2_cg_iters, dev, smi)
     log(f"phase C2-MG: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    geo = geo_phase(kernels, dev, smi)
+    log(f"phase GEO: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    util_phase(geo, dev, smi)
+    del geo
+    free_memory()
+    log(f"phase UTIL: {time.perf_counter() - t0:.3f} s")
+    t0 = time.perf_counter()
+    par_phase(dev, smi)
+    log(f"phase PAR: {time.perf_counter() - t0:.3f} s")
     log(f"total: {time.perf_counter() - t_start:.3f} s ({smi})")
 
     record_line = {

@@ -42,7 +42,10 @@ point location and I/O: ``space`` (inverse mapping, closest points, ``GridIndex`
 on tensors, ``assembly.quadrature_table`` and ``assembly.aggregate`` (mixed-element CSR),
 ``io`` (Gmsh MSH 4.1, VTU, checkpoints in the JAX package's layout), ``containers.NestedArray``,
 ``sparse.block_dia.block_dia_from_csr``/``sparse.block_ell.block_ell_from_csr``,
-``EllipticOperator.has_energy`` and the Gauss-Lobatto, prism and pyramid rules.  Entry points run
+``EllipticOperator.has_energy`` and the Gauss-Lobatto, prism and pyramid rules, and the last slice:
+``geometry`` (host numpy, with ``mesh.procedural.create_simple_stupid_sphere``), the rotation, polar and
+eigenvalue helpers of ``utils``, ``profiling`` and the sharded classes of ``parallel`` on
+``torch.distributed``.  Entry points run
 on the card unless the caller passes ``device="cpu"``.  It imports ``torch``
 and numpy only; the JAX package ``fenris_tpu`` is its reference.
 """

@@ -7,8 +7,9 @@ Counterpart of ``create_rectangular_uniform_quad_mesh_2d``,
 ``create_unit_box_uniform_hex_mesh_3d``, ``create_rectangular_uniform_tet_mesh``,
 ``create_unit_box_uniform_tet_mesh_3d``, ``voxelize_bounding_box_2d``,
 ``voxelize_sdf_2d``, ``approximate_quad_mesh_for_sdf_2d`` and
-``approximate_triangle_mesh_for_sdf_2d`` in ``fenris_tpu/mesh/procedural.py``
-(procedural.rs:46, :15, :22, :216, :30, :286, :37, :96, :140, :156, :178),
+``approximate_triangle_mesh_for_sdf_2d`` and ``create_simple_stupid_sphere``
+in ``fenris_tpu/mesh/procedural.py`` (procedural.rs:46, :15, :22, :216, :30,
+:286, :37, :96, :140, :156, :178, :405),
 with the same vertex and cell numbering, so vectors compare one to one.
 """
 
@@ -31,6 +32,7 @@ __all__ = [
     "voxelize_sdf_2d",
     "approximate_quad_mesh_for_sdf_2d",
     "approximate_triangle_mesh_for_sdf_2d",
+    "create_simple_stupid_sphere",
 ]
 
 
@@ -241,3 +243,22 @@ def approximate_triangle_mesh_for_sdf_2d(sdf, max_cell_size: float) -> Mesh:
     """The triangle variant of :func:`approximate_quad_mesh_for_sdf_2d` (procedural.rs:178)."""
     mesh = voxelize_sdf_2d(sdf, max_cell_size).split_into_triangles()
     return _project_outside_vertices(mesh.keep_cells(_inside_cells(mesh, sdf)), sdf)
+
+
+def create_simple_stupid_sphere(center, radius: float, num_sweeps: int):
+    """A sphere-approximating :class:`~..geometry.PolyMesh`: a cube of side ``2 radius`` clipped by
+    ``num_sweeps`` x ``num_sweeps`` latitudinal and longitudinal tangent half-spaces (procedural.rs:405)."""
+    from ..geometry import HalfSpace, PolyMesh
+
+    if num_sweeps <= 0:
+        raise ValueError("num_sweeps must be positive")
+    mesh = create_rectangular_uniform_hex_mesh(2.0 * radius, 1, 1, 1, 1)
+    pm = PolyMesh.from_hex_mesh(mesh).translate([-radius, -radius, -radius])
+    for i in range(num_sweeps):
+        for j in range(num_sweeps):
+            theta = np.pi * i / num_sweeps
+            phi = 2.0 * np.pi * j / num_sweeps
+            x = radius * np.array([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)])
+            # the tangent plane at x with outward normal x: keep the inside
+            pm = pm.intersect_half_space(HalfSpace.from_point_and_normal(x, x))
+    return pm.translate(np.asarray(center, dtype=np.float64))

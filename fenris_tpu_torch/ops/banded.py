@@ -72,6 +72,7 @@ class BandedPlan:
     n: int  # nodes per element
     num_elements: int  # real (unpadded) element count
     k_blocks: int  # number of owned node ranges
+    r_nodes: int  # nodes per owned range: block k owns the elements whose smallest node is in [k*r_nodes, (k+1)*r_nodes)
     rows: int  # padded rows per block (a multiple of rowt and of n)
     rowt: int  # row tile of the JAX kernels; sets the padding rule
     wa: int  # node window width in 128-node blocks (the bandwidth guard)
@@ -177,6 +178,7 @@ def make_banded_plan(
         n=int(n),
         num_elements=int(E),
         k_blocks=k_blocks,
+        r_nodes=int(r_nodes),
         rows=rows,
         rowt=rowt,
         wa=wa,

@@ -82,10 +82,18 @@ def newton_line_search(
     is ``NEWTON_LINE_SEARCH_FAILED``.  ``callback(k, ||F||)`` is called for
     the initial point (k = 0) and after every iteration.
     """
+    return _newton_line_search(residual, solve_jacobian, x0, tolerance, max_iterations, line_search, c,
+                               max_backtracks, callback, torch.dot, _norm)
+
+
+def _newton_line_search(residual, solve_jacobian, x0, tolerance, max_iterations, line_search, c, max_backtracks,
+                        callback, dot, norm) -> NewtonResult:
+    """The loop of :func:`newton_line_search` with its inner product ``dot(a, b)`` and norm ``norm(v) -> float``
+    given: the sharded-state classes of :mod:`..parallel` pass ones that reduce over every rank's part."""
     alphas = backtracking_alphas(max_backtracks)
     x = x0
     f = residual(x)
-    fn = _norm(f)
+    fn = norm(f)
     status = NEWTON_CONVERGED if fn <= tolerance else -1
     if callback is not None:
         callback(0, fn)
@@ -94,11 +102,11 @@ def newton_line_search(
         p = -solve_jacobian(x, f)
         found = True
         if line_search:
-            g0 = 0.5 * torch.dot(f, f)
+            g0 = 0.5 * dot(f, f)
             found = False
             for alpha in alphas:
                 f_try = residual(x + alpha * p)
-                if bool(0.5 * torch.dot(f_try, f_try) <= (1.0 - c * alpha) * g0):
+                if bool(0.5 * dot(f_try, f_try) <= (1.0 - c * alpha) * g0):
                     found = True
                     x, f = x + alpha * p, f_try
                     break
@@ -106,7 +114,7 @@ def newton_line_search(
             x = x + p
             f = residual(x)
         k += 1
-        fn = _norm(f)
+        fn = norm(f)
         if not found:
             status = NEWTON_LINE_SEARCH_FAILED
         elif fn <= tolerance:

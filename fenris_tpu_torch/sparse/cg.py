@@ -50,6 +50,10 @@ def _dot(a, b):
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
+def _norm(v):
+    return torch.linalg.vector_norm(v)
+
+
 def conjugate_gradient(
     operator,
     rhs: torch.Tensor,
@@ -66,38 +70,49 @@ def conjugate_gradient(
     ``CG_INDEFINITE_OPERATOR`` (keeping the previous iterate) and
     ``r·z < 0`` stops with ``CG_INDEFINITE_PRECONDITIONER``.
     """
+    return _pcg(operator, rhs, preconditioner, rel_tolerance, max_iter, check_definiteness, None, _dot, _norm)
+
+
+def _pcg(operator, rhs, preconditioner, rel_tolerance, max_iter, check_definiteness, x0, dot, norm) -> CgResult:
+    """The CG loop of :func:`conjugate_gradient` from ``x0`` (None: zero), with its inner products
+    ``dot(a, b)`` and norms ``norm(v)`` given: the sharded classes of :mod:`..parallel` pass ones that
+    reduce over every rank's part of the vectors."""
     A = _as_operator(operator)
     M = _as_operator(preconditioner) if preconditioner is not None else (lambda r: r)
     b = rhs
     if max_iter is None:
         max_iter = 10 * b.numel()
-    tol = rel_tolerance * torch.linalg.vector_norm(b)
+    tol = rel_tolerance * norm(b)
 
-    x = torch.zeros_like(b)
-    r = b  # b - A(0) for a linear operator
-    r_norm = torch.linalg.vector_norm(r)
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b  # b - A(0) for a linear operator
+    else:
+        x = x0
+        r = b - A(x0)
+    r_norm = norm(r)
     status = CG_CONVERGED if bool(r_norm <= tol) else -1
     if status < 0:
         z = M(r)
-        rz = _dot(r, z)
+        rz = dot(r, z)
         p = z
     k = 0
     while status < 0 and k < max_iter:
         Ap = A(p)
-        pAp = _dot(p, Ap)
+        pAp = dot(p, Ap)
         k += 1
-        if check_definiteness and bool(pAp <= 0.0) and bool(torch.linalg.vector_norm(p) > 0.0):
+        if check_definiteness and bool(pAp <= 0.0) and bool(norm(p) > 0.0):
             status = CG_INDEFINITE_OPERATOR  # keep the previous iterate
             break
         alpha = rz / pAp
         x = x + alpha * p
         r = r - alpha * Ap
-        r_norm = torch.linalg.vector_norm(r)
+        r_norm = norm(r)
         if bool(r_norm <= tol):
             status = CG_CONVERGED
             break
         z = M(r)
-        rz1 = _dot(r, z)
+        rz1 = dot(r, z)
         if check_definiteness and bool(rz1 < 0.0):
             status = CG_INDEFINITE_PRECONDITIONER
             break
