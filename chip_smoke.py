@@ -530,7 +530,7 @@ def ptxas_report(build_log):
             st = re.search(r"stiffness_pairs_kernelILi(\d)ELi(\d)ELi(\d)E", m.group(1))
             if st:
                 label = f"stiffness_pairs (d = {st.group(1)}, {st.group(2)} pairs, {st.group(3)} a thread)"
-            em = re.search(r"sweep_kernelILb(\d)ELb(\d)ELi(\d)ELi(\d+)ELi(\d+)ELi(\d)E", m.group(1))
+            em = re.search(r"(?:sweep|element)_kernelILb(\d)ELb(\d)ELi(\d)ELi(\d+)ELi(\d+)ELi(\d)E", m.group(1))
             if em:
                 banded, tangent, dd, mm, nn, mat = (int(x) for x in em.groups())
                 label = (f"em_sweep ({'banded' if banded else 'strided'} {'tangent' if tangent else 'vector'}, "
@@ -543,6 +543,35 @@ def ptxas_report(build_log):
     for name, txt in found.items():
         log(f"ptxas {name}: {txt}")
     return found
+
+
+def em_layout_report(found):
+    """For each element's sweeps at its canonical rule (banded and strided, tangent and vector, each material):
+    lanes an element, elements a tile, warps a block, registers and spill bytes (``found``, ptxas_report's)
+    and resident blocks an SM (``ops/em_sweep.launch_layout``); fails on a layout that fits no block."""
+    from fenris_tpu_torch.assembly.local import tabulate
+    from fenris_tpu_torch.reference_elements import element
+    from fenris_tpu_torch.ops import em_sweep as es
+    from fenris_tpu_torch.quadrature import canonical_stiffness
+    from fenris_tpu_torch.solid import MaterialEllipticOperator
+
+    for (d, _, _), name in es.ELEMENTS.items():
+        tab = tabulate(element(name), canonical_stiffness(name))
+        for material, cls in es.MATERIALS.items():
+            op = MaterialEllipticOperator(cls(), dim=d)
+            for banded in (True, False):
+                for tangent in (True, False):
+                    lay = es.launch_layout(op, tab, tangent, banded)
+                    label = (f"em_sweep ({'banded' if banded else 'strided'} {'tangent' if tangent else 'vector'}, "
+                             f"{name}, {material})")
+                    txt = found.get(label, "")
+                    regs = re.search(r"Used (\d+) registers", txt)
+                    spill = re.search(r"(\d+) bytes spill stores", txt)
+                    log(f"layout {label}: q={tab.num_points}, {lay['lanes']} lanes an element, {lay['elements']} "
+                        f"elements a tile, {lay['threads'] // 32} warps a block, "
+                        f"{regs.group(1) if regs else '?'} registers, {spill.group(1) if spill else '?'} bytes spilled, "
+                        f"{lay['shared_bytes']} shared bytes, {lay['blocks_per_sm']} blocks an SM")
+                    check(lay["blocks_per_sm"] >= 1, f"{label}: no block fits an SM")
 
 
 def reset_counts(kernels):
@@ -4411,6 +4440,7 @@ def main() -> int:
               f"{prefix}: ptxas reports spills or no entry: {entries}")
     em_entries, em_all = sum(n.startswith("em_sweep") for n in found), len(es.ELEMENTS) * len(es.MATERIALS) * 4
     check(em_entries == em_all, f"em_sweep: ptxas reports {em_entries} of {em_all} instantiations")
+    em_layout_report(found)
     t0 = time.perf_counter()
     card_tests()
     log(f"phase card tests: {time.perf_counter() - t0:.3f} s")

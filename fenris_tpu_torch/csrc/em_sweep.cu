@@ -33,73 +33,79 @@
 //   out[a][c][e] += wdet sum_d gp[a][d] P[c][d] = sum_k dphi[q][a][k] T[k][c],
 //           T[k][c] = wdet sum_d J^-1[k][d] P[c][d]   (P or dP).
 //
-// One body, sweep_kernel<BANDED, TANGENT, D, M, N, MAT>, serves all four
-// launchers, the eleven elements and the three materials (132
-// instantiations).  Blocks are one warp; L lanes share an element, a tile is
-// 32 / L elements:
-//   * hex8 (L = 8, the path the matrix-free solve at 10M dofs runs): lane l
-//     takes quadrature points l, l + 8, ..., computing gp[8][3] and its 24
-//     partial outputs, and the 8 lanes reduce them by a fixed reduce-scatter
-//     of __shfl_xor_sync (xor 4, 2, 1; 21 shuffles), after which lane l holds
-//     node l's 3 sums.  80 registers under the launch bound of 24 blocks an
-//     SM (18 blocks, 112 registers, for the strided sweeps, which spill at 80);
-//   * the others (L = 4 for tet4, tet10 and every 2D element, 8 for tet20,
-//     hex20, hex27): an n x D partial output a lane (60 floats at hex20, 81 at
-//     hex27) would spill, so each element's work is split twice.  Lanes take
-//     its points (l, l + L, ...), and each writes its point's T (D x D floats,
-//     rows of kNS) to shared memory, with no gp: both gradients come from the
-//     reference gradient H (D^2 sums over the n nodes).  Then lanes take its
-//     nodes (a = l, l + L, ...) and each sums its nodes' D outputs over all q
-//     points in point order, reading each point's T once: no lane holds n x D
-//     sums and no shuffle reduce is needed.  A table row is read as one
-//     float4 (3D) or float2 (2D) per node ([q][geo_dphi Dm | dphi n x kNS |
-//     w], rows an odd number of float4 apart: lanes at different points read
-//     distinct bank groups; lanes at different nodes consecutive vectors); u
-//     and v are staged [n][kNS].  Launch bounds of 12 blocks an SM (168
-//     registers: the 3D Neo-Hookean tangents spill at 128); shared memory
-//     holds the 20- and 27-node elements to 8-15 blocks anyway (tables and T
-//     grow with q: 22.7 KB a block at hex20).
-//   Both: a block works on tiles, staging X and u (and v), and each element's
-//   mu and lam, in shared memory with cp.async; the tables sit there re-laid
-//   per point; persistent blocks (as many as fit on the card) walk the tiles
-//   with a two-stage pipeline: the next tile's copies, and the node indices
-//   of the one after, are in flight while the current tile computes.  The
-//   Lame parameters: a banded launch given one pair by value uses it as
-//   kernel operands (LameValues); otherwise (a per-element array, element
-//   stride 1, a device value, stride 0, and every strided launch) each
-//   element's pair is read from device memory once, staged with its tile,
-//   and read from shared memory at each use (Lame).  The kernel holds both
-//   bodies and picks one per launch: staged reads cost hex8 ~5% and tet10's
-//   tangent ~7% against operands, and held in registers across a point the
-//   pair pushes hex8 past its 80;
+// Two kernels serve the four launchers, the eleven elements and the three
+// materials (132 instantiations): hex8's sweep_kernel<BANDED, TANGENT, 3, 8,
+// 8, MAT> and the general element_kernel<BANDED, TANGENT, D, M, N, MAT> of the
+// other ten.  Both: a block works on tiles of elements, staging X and u (and
+// v), and each element's mu and lam, in shared memory with cp.async; the
+// tables sit there re-laid per point; persistent blocks (as many as fit on the
+// card) walk the tiles with a two-stage pipeline: the next tile's copies, and
+// the node indices of the one after, are in flight while the current tile
+// computes.
+//   * hex8 (the path the matrix-free solve at 10M dofs runs): one-warp blocks,
+//     8 lanes an element; lane l takes quadrature points l, l + 8, ...,
+//     computing gp[8][3] and its 24 partial outputs, and the 8 lanes reduce
+//     them by a fixed reduce-scatter of __shfl_xor_sync (xor 4, 2, 1; 21
+//     shuffles), after which lane l holds node l's 3 sums.  80 registers
+//     under the launch bound of 24 blocks an SM (18 blocks, 112 registers,
+//     for the strided sweeps, which spill at 80).  Bound by f32 operations.
+//   * the general layout (General, kTiling): lanes an element set by the
+//     element's canonical rule and node count, blocks of 2-4 warps, a tile of
+//     32-64 elements.  One lane an element (tet4, tri3, tri6 and the quads,
+//     whose rules have 1-9 points): the lane runs its element's points one
+//     after another and adds each point's N x D outputs to its element's sums
+//     in registers (SumElement): no idle lanes at 1-point rules, no T in
+//     shared memory, and the table rows it reads are the same for the whole
+//     warp (broadcasts).  More lanes an element (tet10: 2 at 4 points; tet20,
+//     hex20, hex27: 4 at 14 and 27): rounds of L points, each lane one
+//     point's T into shared memory, then lanes take the element's nodes and
+//     add the round's points (SplitElement): no lane holds N x D sums, which
+//     would spill at 20 and 27 nodes.  A point's two gradients (u's and v's)
+//     come from one pass over the nodes, each node's table row read once.
+//     The staging: X as 16-byte copies of its element-minor rows; u and v word
+//     by word, consecutive lanes on consecutive words of a tile's (element,
+//     node) runs (the node indices passed between lanes by __shfl_sync: one
+//     index register a node), or one 8-byte copy a node in 2D; the tile's
+//     output rows overwrite its stage, then leave as float4 runs.
+//     What bounds it on the H100 (tools/em_sweep_ab.py's ablations, PERF.md):
+//     the tets and the 2D elements by the memory path (the gather of u and v
+//     through L1, X, the rows out: at T4-MG the staging alone takes ~70% of
+//     the tet4 tangent's time, at M10 ~55% of tet10's), hex20 and hex27 by f32
+//     arithmetic issue (staging ~20%).  Launch bounds: the resident blocks
+//     shared memory holds at the canonical rule, at most the most at which
+//     ptxas spills nothing (kTiling).
+//   * Layout B (TensorElements, kTiling's last column; compiled for no element):
+//     the two table contractions of the 3D elements, the reference gradients
+//     H = dphi^T u and the node sums dphi T, as mma.sync m16n8k8 TF32
+//     products with 3xTF32 splits (f32 accuracy), 8 elements a warp, the
+//     material on the CUDA cores.  On the H100 it ran slower than the general
+//     layout at hex20 and hex27 (166-226 registers, 2 blocks an SM), so both
+//     keep the general layout; it stays for tools/em_sweep_ab.py's A/B.
+// The Lame parameters: a banded launch given one pair by value uses it as
+// kernel operands (LameValues); otherwise (a per-element array, element
+// stride 1, a device value, stride 0, and every strided launch) each
+// element's pair is read from device memory once, staged with its tile, and
+// read from shared memory at each use (Lame, LameRows).  The kernels hold both
+// bodies and pick one per launch: staged reads cost hex8 ~5% against
+// operands, and held in registers across a point the pair pushes hex8 past
+// its 80.
 //   * banded mode (fenris_banded_sweep): u and v are read straight from the
 //     node vectors through the plan's row -> node table, so the gather's rows
-//     never go to device memory; padding elements' rows are zeros.  hex8:
-//     lane l copies node l of its element, and padding elements read nothing
-//     (their u and v are zero-filled, as the banded gather gives them); the
-//     others: consecutive threads copy consecutive words of the tile's
-//     (element, node, component) run, D threads a node (a copy instruction
-//     touches about a third of the lines lanes copying whole nodes would),
-//     and padding rows read node 0, whose values nothing uses.  X is the padded
-//     element-minor geometry [Dm][E_pad], read as contiguous runs of each
-//     row a tile; per-element parameters are padded the same way (a padding
-//     element reads its filler's).  The output, element-major rows
-//     [E_pad][n][D], is a tile's one contiguous run, written from shared
-//     memory with float4 stores;
+//     never go to device memory; padding elements' rows are zeros (hex8:
+//     padding elements read nothing and compute zero rows; the others read
+//     node 0, whose values nothing uses, and skip their arithmetic).  X is the
+//     padded element-minor geometry [Dm][E_pad]; per-element parameters are
+//     padded the same way (a padding element reads its filler's).  The
+//     output, element-major rows [E_pad][n][D], is a tile's one contiguous run;
 //   * strided mode (fenris_em_sweep): element-minor views with any strides
-//     (32-bit offsets) in and out, the same body;
+//     (32-bit offsets) in and out, the same bodies;
 //   * no atomics: every sum is taken in one fixed order, so two launches are
 //     bitwise equal, and an array of one repeated parameter value gives the
 //     launch with that value bitwise.  hex8 differs from the plain version
 //     only in the order of its sums, the others also in taking the gradients
 //     through H and the contraction through T: f32 roundoff either way.
-// What bounds it on the H100: f32 operations for the hex elements (hex8:
-// about 7.5k (tangent) or 5.4k (vector) an element; hex20 about 1,600 a point
-// at 27 points), bytes for the tets and the 2D elements (tet10: X 48, node
-// indices 40 and rows out 120 bytes an element, u and v once a node; the
-// copies gather 240 bytes an element of u and v from L2).  Register pressure
-// is the design risk: read `-Xptxas -v` in the library's log,
-// _build/libfenris_kernels_<hash>.log, for registers and spills.
+// Register pressure is the design risk: read `-Xptxas -v` in the library's
+// log, _build/libfenris_kernels_<hash>.log, for registers and spills.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler
 // -fPIC, once per element (-DFENRIS_EM_ELEMENT=0..10, all started together;
@@ -152,6 +158,7 @@ struct LameValues {
   __device__ __forceinline__ float mu() const { return m; }
   __device__ __forceinline__ float lam() const { return l; }
   __device__ __forceinline__ LameValues again() const { return *this; }
+  __device__ __forceinline__ LameValues element(int) const { return *this; }  // every element's
 };
 
 // -- materials ---------------------------------------------------------------------
@@ -422,22 +429,16 @@ struct Material<D, kLinear> {
 
 // -- layouts -----------------------------------------------------------------------
 
-// The tiling of a D-dimensional element of M geometry and N solution nodes.
-// hex8 keeps one quadrature point a lane and the reduce-scatter
-// (kNodeLanes); the others split an element's points, then its nodes, over
-// its lanes.
+// hex8's tiling (kNodeLanes; the other elements take General): one warp a
+// block, 8 lanes an element, lane l taking quadrature points l, l + 8, ...
+// and ending with node l's sums (reduce_scatter8).
 template <int D, int M, int N>
 struct Layout {
   static constexpr bool kNodeLanes = D == 3 && M == 8 && N == 8;
-  static constexpr int kLanes = (D == 2 || N == 4 || N == 10) ? 4 : 8;  // lanes an element
-  static constexpr int kThreads = 32;                                    // one warp a block
-  static constexpr int kElems = kThreads / kLanes;                       // elements a tile
-  // banded: the node words a thread stages a tile (hex8: its element's node l; the others: items
-  // t, t + 32, ... of the tile's (element, node, component) words)
-  static constexpr int kStaged = kNodeLanes ? 1 : (kElems * N * D + kThreads - 1) / kThreads;
-  // floats a node in the staged u, v and the table's dphi: one float4 (3D) or float2 (2D) read
-  static constexpr int kNS = kNodeLanes ? 3 : (D == 3 ? 4 : 2);
-  static constexpr int kTq = D * kNS;  // floats of a point's T (rows of kNS)
+  static constexpr int kLanes = 8;                 // lanes an element
+  static constexpr int kThreads = 32;              // one warp a block
+  static constexpr int kElems = kThreads / kLanes;  // elements a tile
+  static constexpr int kNS = 3;                    // floats a node in the staged u and v
   // an element's staged floats: X [M][D] (relative to node 0 after staging), u [N][kNS] at kU, v at
   // kV, then mu, lam, mu, lam (params(), Lame)
   static constexpr int kU = round4(D * M);
@@ -460,23 +461,20 @@ struct Layout {
   static_assert(kU % 4 == 0 && kV % 4 == 0 && kD % 4 == 0, "float4 reads need 16-byte offsets");
 };
 
-// Launch bounds' blocks an SM: hex8 24 (80 registers, no spills) for the
+// hex8's launch bounds' blocks an SM: 24 (80 registers, no spills) for the
 // banded sweeps, 18 (112) for the strided ones (the StVK tangent spills at 96,
-// all at 80); the other
-// elements 12 (168: the 3D Neo-Hookean tangents spill at 128), which shared
-// memory holds to 8-15 blocks at 20 and 27 nodes anyway.
+// all at 80).
 template <bool BANDED, int D, int M, int N>
 __host__ __device__ constexpr int sweep_min_blocks() {
-  return Layout<D, M, N>::kNodeLanes ? (BANDED ? 24 : 18) : 12;
+  return BANDED ? 24 : 18;
 }
 
-// Shared memory, each part 16-byte aligned: out [kElems][kOut], two element
-// buffers [2][kElems][elem], T [kElems][q][kTq] (not for hex8), tables [q][kTab].
+// hex8's shared memory, each part 16-byte aligned: out [kElems][kOut], two
+// element buffers [2][kElems][elem], tables [q][kTab].
 template <bool TANGENT, int D, int M, int N>
 __host__ __device__ constexpr size_t sweep_smem_floats(int q) {
   using Ly = Layout<D, M, N>;
-  return (size_t)Ly::kOutFloats + 2 * (size_t)Ly::kElems * Ly::template elem<TANGENT>() +
-         (Ly::kNodeLanes ? 0 : (size_t)Ly::kElems * q * Ly::kTq) + (size_t)q * Ly::kTab;
+  return (size_t)Ly::kOutFloats + 2 * (size_t)Ly::kElems * Ly::template elem<TANGENT>() + (size_t)q * Ly::kTab;
 }
 
 // Shared-memory reads of K floats as round4(K) / 4 float4 (p 16-byte aligned;
@@ -538,14 +536,15 @@ __device__ __forceinline__ void reduce_scatter8(const float f[8][3], int l, floa
   }
 }
 
-// The other elements: J^-1 (J from node-relative X [M][D] and the row's
-// geo_dphi [M][D]) and wdet at one point.
-template <int D, int M>
+// The other elements: J^-1 (J from node-relative X [M][D], word r at
+// X_rel[r * XS], and the row's geo_dphi [M][D]) and wdet at one point.
+template <int D, int M, int XS>
 __device__ __forceinline__ float inverse_jacobian(const float* gd_row, const float* X_rel, float w,
                                                   float Jinv[D][D]) {
-  float gd[round4(D * M)], X[round4(D * M)];
+  float gd[round4(D * M)], X[D * M];
   lds<D * M>(gd_row, gd);
-  lds<D * M>(X_rel, X);
+#pragma unroll
+  for (int r = D; r < D * M; ++r) X[r] = X_rel[r * XS];
   float J[D][D];
 #pragma unroll
   for (int i = 0; i < D; ++i)
@@ -625,6 +624,55 @@ __device__ __forceinline__ void ref_gradient(const float* dphi, const float* U, 
     }
 }
 
+// The tangent's two gradients in one pass over the nodes, each node's dphi
+// read once: G from U and dG from V, as ref_gradient computes each.
+template <int D, int N>
+__device__ __forceinline__ void ref_gradients(const float* dphi, const float* U, const float* V,
+                                              const float Jinv[D][D], float G[D][D], float dG[D][D]) {
+  constexpr int kNS = D == 3 ? 4 : 2;
+  float H[D][D], Hv[D][D];
+  {
+    const Vec<D> d = Vec<D>::load(dphi), f = Vec<D>::load(U), g = Vec<D>::load(V);
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        H[k][c] = d.v[k] * f.v[c];
+        Hv[k][c] = d.v[k] * g.v[c];
+      }
+  }
+  auto add = [&](int a) {
+    const Vec<D> d = Vec<D>::load(dphi + a * kNS), f = Vec<D>::load(U + a * kNS), g = Vec<D>::load(V + a * kNS);
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        H[k][c] += d.v[k] * f.v[c];
+        Hv[k][c] += d.v[k] * g.v[c];
+      }
+  };
+  if constexpr (N > 10) {
+#pragma unroll 4
+    for (int a = 1; a < N; ++a) add(a);
+  } else {
+#pragma unroll
+    for (int a = 1; a < N; ++a) add(a);
+  }
+#pragma unroll
+  for (int d = 0; d < D; ++d)
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      float acc = Jinv[0][d] * H[0][c], dacc = Jinv[0][d] * Hv[0][c];
+#pragma unroll
+      for (int k = 1; k < D; ++k) {
+        acc += Jinv[k][d] * H[k][c];
+        dacc += Jinv[k][d] * Hv[k][c];
+      }
+      G[d][c] = acc;
+      dG[d][c] = dacc;
+    }
+}
+
 // Asynchronous 4-byte copy global -> shared (cp.async, sm_80+); when valid
 // is false nothing is read and a zero is written.
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
@@ -632,8 +680,20 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
+// 8- and 16-byte copies (dst and src aligned to their width; 16 bytes bypass L1)
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 __device__ __forceinline__ void cp_async_wait_prior() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 
 // Element e's value of a launch parameter into shared memory at dst.
 __device__ __forceinline__ void stage_param(float* dst, const Param& p, int e, bool ok) {
@@ -644,62 +704,46 @@ __device__ __forceinline__ void stage_param(float* dst, const Param& p, int e, b
   }
 }
 
-// Banded mode: the node indices a thread stages in a tile (Layout::kStaged),
-// loaded a tile before the staging that needs them, and whether its element
-// g is real (not padding, not past E): iff offset < valid_rows (its row
-// offset in its owner block against block_rows[k]); the loads are in flight
-// together.
-template <int K>
-struct LaneNodes {
-  int node[K];
+// hex8, banded mode: the node index of lane l's node in its element g, loaded
+// a tile before the staging that needs it, and whether g is real (not
+// padding, not past E): iff offset < valid_rows (its row offset in its owner
+// block against block_rows[k]); the loads are in flight together.
+struct LaneNode {
+  int node;
   int offset, valid_rows;
   __device__ bool real() const { return offset < valid_rows; }
 };
 
-template <int D, int M, int N>
-__device__ __forceinline__ LaneNodes<Layout<D, M, N>::kStaged> lane_nodes(
-    int tile, int ntiles, int E, int t, int g, int l, const int32_t* __restrict__ nodes,
-    const int32_t* __restrict__ block_rows, int elements_per_block) {
-  using Ly = Layout<D, M, N>;
-  LaneNodes<Ly::kStaged> r;
-  r.offset = 1;
-  r.valid_rows = 0;
-#pragma unroll
-  for (int j = 0; j < Ly::kStaged; ++j) r.node[j] = 0;
+__device__ __forceinline__ LaneNode lane_node(int tile, int ntiles, int E, int g, int l,
+                                              const int32_t* __restrict__ nodes,
+                                              const int32_t* __restrict__ block_rows, int elements_per_block) {
+  using Ly = Layout<3, 8, 8>;
+  LaneNode r = {0, 1, 0};
   if (tile >= ntiles) return r;
   const int e = tile * Ly::kElems + g;
   if (e < E) {
     const int k = e / elements_per_block;
-    r.offset = (e - k * elements_per_block) * N;
+    r.offset = (e - k * elements_per_block) * 8;
     r.valid_rows = __ldg(block_rows + k);
-    if (Ly::kNodeLanes) r.node[0] = __ldg(nodes + e * N + l);
-  }
-  if (!Ly::kNodeLanes) {  // the tile's rows are one contiguous run of the row -> node table
-#pragma unroll
-    for (int j = 0; j < Ly::kStaged; ++j) {
-      const int i = t + j * Ly::kThreads, row = tile * Ly::kElems * N + i / D;
-      if (i < Ly::kElems * N * D && row < E * N) r.node[j] = __ldg(nodes + row);
-    }
+    r.node = __ldg(nodes + e * 8 + l);
   }
   return r;
 }
 
-// Start the cp.asyncs of one tile's X and u (and v), and (STAGED) each
-// element's mu and lam, into buf.  X (and, strided, the fields) as (component row,
-// element) pairs, element fastest: coalesced on element-minor arrays.
-// Banded, hex8: lane l copies node l of element g, and padding elements are
-// zero-filled without a read (the tangent computes their zero rows); the
-// others: thread t copies words t, t + 32, ... of the tile's (element, node,
-// component) words, so consecutive threads copy one node's D words, and
-// padding rows read node 0 (their elements' arithmetic is skipped).  Elements
-// past E are zero-filled without a read.  READ_U: whether u is staged (not
-// for the linear tangent).
-template <bool BANDED, bool TANGENT, bool READ_U, bool STAGED, int D, int M, int N>
+// hex8: start the cp.asyncs of one tile's X and u (and v), and (STAGED) each
+// element's mu and lam, into buf.  X (and, strided, the fields) as (component
+// row, element) pairs, element fastest: coalesced on element-minor arrays.
+// Banded: lane l copies node l of element g, and padding elements are
+// zero-filled without a read (the tangent computes their zero rows).
+// Elements past E are zero-filled without a read.  READ_U: whether u is
+// staged (not for the linear tangent).
+template <bool BANDED, bool TANGENT, bool READ_U, bool STAGED>
 __device__ __forceinline__ void stage_tile(float* buf, int tile, int E, const float* __restrict__ X,
                                            const float* __restrict__ u, const float* __restrict__ v,
-                                           const Strides32& st, const Param& mu, const Param& lam,
-                                           const LaneNodes<Layout<D, M, N>::kStaged>& ln, int t, int g, int l) {
-  using Ly = Layout<D, M, N>;
+                                           const Strides32& st, const Param& mu, const Param& lam, const LaneNode& ln,
+                                           int t, int g, int l) {
+  using Ly = Layout<3, 8, 8>;
+  constexpr int D = 3, M = 8, N = 8;
   constexpr int kElem = Ly::template elem<TANGENT>(), kE = Ly::kElems, kT = Ly::kThreads;
   const int e0 = tile * kE;
   for (int i = t; i < D * M * kE; i += kT) {
@@ -723,27 +767,14 @@ __device__ __forceinline__ void stage_tile(float* buf, int tile, int E, const fl
       stage_param(dst + k + 1, lam, e0 + t, ok);
     }
   }
-  if (BANDED && Ly::kNodeLanes) {
+  if (BANDED) {
     const bool ok = ln.real();
-    const int64_t n3 = (int64_t)ln.node[0] * 3;  // node 0 on padding rows: in range, and not read
+    const int64_t n3 = (int64_t)ln.node * 3;  // node 0 on padding rows: in range, and not read
     float* dst = buf + g * kElem + l * Ly::kNS;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       if (READ_U) cp_async4(dst + Ly::kU + c, u + n3 + c, ok);
       if (TANGENT) cp_async4(dst + Ly::kV + c, v + n3 + c, ok);
-    }
-  } else if (BANDED) {
-#pragma unroll
-    for (int j = 0; j < Ly::kStaged; ++j) {
-      const int i = t + j * kT;
-      if (i < kE * N * D) {
-        const int el = i / (D * N), w = i - el * D * N, a = w / D, c = w - a * D;
-        const bool ok = e0 + el < E;
-        const int64_t src = (int64_t)ln.node[j] * D + c;
-        float* dst = buf + el * kElem + a * Ly::kNS + c;
-        if (READ_U) cp_async4(dst + Ly::kU, u + src, ok);
-        if (TANGENT) cp_async4(dst + Ly::kV, v + src, ok);
-      }
     }
   } else {
     for (int i = t; i < D * N * kE; i += kT) {
@@ -818,121 +849,38 @@ __device__ __forceinline__ void hex8_element(const float* el, const float* s_tab
   for (int c = 0; c < 3; ++c) o[l * 3 + c] = acc[c];
 }
 
-// The other elements: the tile's element g, lanes taking its points (T to
-// sT [q][kTq]), then its nodes (outputs to o[a * D + c]).
-template <bool TANGENT, int D, int M, int N, int MAT, class P>
-__device__ __forceinline__ void split_element(const float* el, const float* s_tab, float* sT, int q, int l,
-                                              bool work, P p, float* o) {
-  using Ly = Layout<D, M, N>;
-  constexpr int L = Ly::kLanes, kNS = Ly::kNS, kTq = Ly::kTq;
-  constexpr bool kReadU = !TANGENT || Material<D, MAT>::kTangentReadsU;
-  if (work) {
-#pragma unroll 1
-    for (int iq = l; iq < q; iq += L) {
-      const float* tq = s_tab + iq * Ly::kTab;
-      float Jinv[D][D], G[D][D], S[D][D];
-      const float wdet = inverse_jacobian<D, M>(tq, el, tq[Ly::kW], Jinv);
-      Material<D, MAT> mat;
-      if (kReadU) {
-        ref_gradient<D, N>(tq + Ly::kD, el + Ly::kU, Jinv, G);
-        mat.at(G, p);
-      }
-      if (TANGENT) {
-        ref_gradient<D, N>(tq + Ly::kD, el + Ly::kV, Jinv, G);
-        mat.tangent(G, p.again(), S);
-      } else {
-        mat.stress(p, S);
-      }
-      // T[k][c] = wdet sum_d J^-1[k][d] P[c][d], a row of kNS floats a k (one float4 a row in 3D, the
-      // two rows as one float4 in 2D)
-      float t[kTq];
-#pragma unroll
-      for (int k = 0; k < D; ++k)
-#pragma unroll
-        for (int c = 0; c < kNS; ++c) {
-          float acc = 0.0f;
-          if (c < D) {
-            acc = Jinv[k][0] * S[c][0];
-#pragma unroll
-            for (int d = 1; d < D; ++d) acc += Jinv[k][d] * S[c][d];
-            acc *= wdet;
-          }
-          t[k * kNS + c] = acc;
-        }
-      float4* T4 = reinterpret_cast<float4*>(sT + iq * kTq);
-#pragma unroll
-      for (int i = 0; i < kTq / 4; ++i) T4[i] = make_float4(t[4 * i], t[4 * i + 1], t[4 * i + 2], t[4 * i + 3]);
-    }
-  }
-  __syncwarp();  // the element's T, written by its L lanes, is read by all of them
-  // lane l's nodes a = l + j L: each point's T is read once for all of them
-  constexpr int K = (N + L - 1) / L;
-  float acc[K][D] = {};
-  if (work) {
-    const float* dl = s_tab + Ly::kD + kNS * l;
-#pragma unroll 1
-    for (int iq = 0; iq < q; ++iq) {
-      float t[kTq];
-      lds<kTq>(sT + iq * kTq, t);
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        if (l + j * L < N) {
-          const Vec<D> d = Vec<D>::load(dl + iq * Ly::kTab + kNS * j * L);
-#pragma unroll
-          for (int c = 0; c < D; ++c) {
-            float s = d.v[0] * t[c];
-#pragma unroll
-            for (int k = 1; k < D; ++k) s += d.v[k] * t[k * kNS + c];
-            acc[j][c] += s;
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int a = l + j * L;
-    if (a < N) {
-#pragma unroll
-      for (int c = 0; c < D; ++c) o[a * D + c] = acc[j][c];
-    }
-  }
-}
-
-// The kernel's body (sweep_kernel): persistent blocks walk tiles of kElems
+// hex8's body (sweep_kernel): persistent blocks walk tiles of kElems
 // elements (tile, tile + gridDim.x, ...); the cp.asyncs of the next tile and
 // the node indices of the one after run while the current tile computes.
 // STAGED: each element's mu and lam come staged with its tile, else the
 // launch's one pair is used by value.
-template <bool BANDED, bool TANGENT, int D, int M, int N, int MAT, bool STAGED>
+template <bool BANDED, bool TANGENT, int MAT, bool STAGED>
 __device__ __forceinline__ void sweep_tiles(const float* __restrict__ X, const float* __restrict__ u,
                                             const float* __restrict__ v, const int32_t* __restrict__ nodes,
                                             const int32_t* __restrict__ block_rows, int elements_per_block,
                                             float* __restrict__ out, const Strides32& st, int E,
                                             const float* __restrict__ tables, int q, const Param& mu,
                                             const Param& lam) {
+  constexpr int D = 3, M = 8, N = 8;
   using Ly = Layout<D, M, N>;
   constexpr int kElem = Ly::template elem<TANGENT>(), kE = Ly::kElems, kT = Ly::kThreads, L = Ly::kLanes;
   constexpr bool kReadU = !TANGENT || Material<D, MAT>::kTangentReadsU;
   extern __shared__ __align__(16) float smem[];
   float* s_out = smem;
   float* s_buf = s_out + Ly::kOutFloats;
-  float* s_T = s_buf + 2 * kE * kElem;
-  float* s_tab = s_T + (Ly::kNodeLanes ? 0 : kE * q * Ly::kTq);
+  float* s_tab = s_buf + 2 * kE * kElem;
   const int t = threadIdx.x, g = t / L, l = t % L;
   const int ntiles = (E + kE - 1) / kE, step = gridDim.x;
   int tile = blockIdx.x;
 
   // real: element g of the tile being staged is not padding (always, strided); padding
   // elements get zero rows without their arithmetic
-  LaneNodes<Ly::kStaged> ln = {};
-  ln.offset = 0;
-  ln.valid_rows = 1;
-  if (BANDED) ln = lane_nodes<D, M, N>(tile, ntiles, E, t, g, l, nodes, block_rows, elements_per_block);
-  stage_tile<BANDED, TANGENT, kReadU, STAGED, D, M, N>(s_buf, tile, E, X, u, v, st, mu, lam, ln, t, g, l);
+  LaneNode ln = {0, 0, 1};
+  if (BANDED) ln = lane_node(tile, ntiles, E, g, l, nodes, block_rows, elements_per_block);
+  stage_tile<BANDED, TANGENT, kReadU, STAGED>(s_buf, tile, E, X, u, v, st, mu, lam, ln, t, g, l);
   bool real = ln.real();
   cp_async_commit();
-  if (BANDED) ln = lane_nodes<D, M, N>(tile + step, ntiles, E, t, g, l, nodes, block_rows, elements_per_block);
+  if (BANDED) ln = lane_node(tile + step, ntiles, E, g, l, nodes, block_rows, elements_per_block);
   // tables [q][geo_dphi DM | 0 ... | dphi N x kNS | w | 0 ...] from geo_dphi [q][M][D], dphi [q][N][D], w [q]
   for (int i = t; i < q * Ly::kTab; i += kT) {
     const int iq = i / Ly::kTab, j = i - iq * Ly::kTab;
@@ -951,11 +899,11 @@ __device__ __forceinline__ void sweep_tiles(const float* __restrict__ X, const f
   for (int b = 0; tile < ntiles; tile += step, b ^= 1) {
     const int next = tile + step;
     if (next < ntiles)
-      stage_tile<BANDED, TANGENT, kReadU, STAGED, D, M, N>(s_buf + (b ^ 1) * kE * kElem, next, E, X, u, v, st,
-                                                           mu, lam, ln, t, g, l);
+      stage_tile<BANDED, TANGENT, kReadU, STAGED>(s_buf + (b ^ 1) * kE * kElem, next, E, X, u, v, st, mu, lam, ln,
+                                                  t, g, l);
     const bool real_next = ln.real();
     cp_async_commit();
-    if (BANDED) ln = lane_nodes<D, M, N>(next + step, ntiles, E, t, g, l, nodes, block_rows, elements_per_block);
+    if (BANDED) ln = lane_node(next + step, ntiles, E, g, l, nodes, block_rows, elements_per_block);
     cp_async_wait_prior();  // this thread's copies of the current tile have landed
     __syncthreads();
     const int e0 = tile * kE, nel = min(kE, E - e0);
@@ -974,12 +922,7 @@ __device__ __forceinline__ void sweep_tiles(const float* __restrict__ X, const f
       }
     }
     __syncwarp();
-    if constexpr (Ly::kNodeLanes) {
-      hex8_element<TANGENT, MAT>(el, s_tab, q, l, g < nel && (TANGENT || real), p, s_out + g * Ly::kOut);
-    } else {
-      split_element<TANGENT, D, M, N, MAT>(el, s_tab, s_T + g * q * Ly::kTq, q, l, g < nel && real, p,
-                                            s_out + g * Ly::kOut);
-    }
+    hex8_element<TANGENT, MAT>(el, s_tab, q, l, g < nel && (TANGENT || real), p, s_out + g * Ly::kOut);
     __syncthreads();
 
     if (BANDED) {  // the tile's rows are one contiguous run of nel * kOut floats
@@ -987,9 +930,6 @@ __device__ __forceinline__ void sweep_tiles(const float* __restrict__ X, const f
       const float4* src = reinterpret_cast<const float4*>(s_out);
       float4* dst = reinterpret_cast<float4*>(out + (int64_t)e0 * Ly::kOut);
       for (int i = t; i < n4; i += kT) dst[i] = src[i];
-      if constexpr (Ly::kOut % 4 != 0) {
-        for (int i = 4 * n4 + t; i < nf; i += kT) out[(int64_t)e0 * Ly::kOut + i] = s_out[i];
-      }
     } else {
       for (int i = t; i < Ly::kOut * kE; i += kT) {
         const int row = i / kE, el_i = i - row * kE;
@@ -1020,18 +960,762 @@ __global__ void __launch_bounds__(Layout<D, M, N>::kThreads, sweep_min_blocks<BA
                  const int32_t* __restrict__ block_rows, int elements_per_block,
                  float* __restrict__ out, const Strides32 st, int E,
                  const float* __restrict__ tables, int q, const Param mu, const Param lam) {
+  static_assert(Layout<D, M, N>::kNodeLanes, "hex8's kernel");
   if (BANDED && mu.p == nullptr && lam.p == nullptr) {
-    sweep_tiles<BANDED, TANGENT, D, M, N, MAT, false>(X, u, v, nodes, block_rows, elements_per_block, out, st, E,
-                                                      tables, q, mu, lam);
+    sweep_tiles<BANDED, TANGENT, MAT, false>(X, u, v, nodes, block_rows, elements_per_block, out, st, E, tables, q,
+                                             mu, lam);
   } else {
-    sweep_tiles<BANDED, TANGENT, D, M, N, MAT, true>(X, u, v, nodes, block_rows, elements_per_block, out, st, E,
-                                                     tables, q, mu, lam);
+    sweep_tiles<BANDED, TANGENT, MAT, true>(X, u, v, nodes, block_rows, elements_per_block, out, st, E, tables, q,
+                                            mu, lam);
+  }
+}
+
+// -- the general layout: every element but hex8 ------------------------------------
+
+// By element, in the FENRIS_EM_ELEMENT order (hex8's row is not read: it has
+// its own layout): lanes an element (one: SumElement; more: SplitElement),
+// warps a block, the points of its canonical stiffness rule, the most
+// resident blocks an SM the launch bound may ask for in the tangent and in the
+// vector sweeps (General::kMinBlocks: what shared memory holds at those
+// points, at most this: the bound caps a thread's registers at 64K over the
+// threads of that many blocks, and these are the most at which ptxas spills
+// nothing), and whether the 3D contractions run on tensor cores (Layout B,
+// TensorElements).  Lanes and warps are the fastest of the variants
+// tools/em_sweep_ab.py timed on an H100 (PERF.md).
+constexpr int kTiling[11][6] = {
+    {1, 2, 1, 4, 8, 0},    // tet4
+    {2, 4, 4, 3, 3, 0},    // tet10
+    {4, 4, 14, 3, 3, 0},   // tet20
+    {8, 1, 8, 24, 24, 0},  // hex8
+    {4, 4, 27, 3, 3, 0},   // hex20
+    {4, 4, 27, 3, 4, 0},   // hex27
+    {1, 2, 4, 10, 12, 0},  // quad4
+    {1, 2, 9, 6, 8, 0},    // quad8
+    {1, 2, 9, 6, 8, 0},    // quad9
+    {1, 2, 1, 10, 12, 0},  // tri3
+    {1, 2, 3, 8, 8, 0},    // tri6
+};
+
+__host__ __device__ constexpr int element_id(int d, int m, int n) {
+  return d == 3 ? (m == 4 ? (n == 4 ? 0 : n == 10 ? 1 : 2) : (n == 8 ? 3 : n == 20 ? 4 : 5))
+                : (m == 4 ? (n == 4 ? 6 : n == 8 ? 7 : 8) : (n == 3 ? 9 : 10));
+}
+
+// x (a multiple of w) made an odd number of w-float vectors: records this far
+// apart fall in distinct banks for lanes reading one vector each
+__host__ __device__ constexpr int odd_units(int x, int w) { return (x / w) % 2 ? x : x + w; }
+
+// The tables of an element, one row a point: geo_dphi [M][D], dphi [N][kNS]
+// at kD (one float4 (3D) or float2 (2D) a node), w at kW; rows kTab floats
+// (an odd number of float4) apart: lanes at different points read distinct
+// bank groups.
+template <int D, int M, int N>
+struct Tables {
+  static constexpr int kNS = D == 3 ? 4 : 2;
+  static constexpr int kD = round4(D * M), kW = kD + kNS * N, kTab = odd4(round4(kW + 1));
+};
+
+// The general layout of a D-dimensional element of M geometry and N solution
+// nodes: kLanes lanes an element, a tile of kElems elements a block.  A stage
+// (one tile's inputs) holds X as rows [D M][kElems] (element fastest: 16-byte
+// copies from the contiguous banded X, and lanes of consecutive elements read
+// consecutive words), the parameter rows [4][kElems] (mu, lam, mu, lam) at kP,
+// then each element's fields at kR, kRec floats apart: u [N][kNS] (READ_U)
+// and v [N][kNS] at kV (TANGENT).  The tile's output rows [kElems][N D]
+// overwrite its stage once it is read.  kSplit: point T through shared memory
+// (kTSlots floats an element: two rounds of kLanes points), else no T in
+// shared memory.
+template <bool TANGENT, bool READ_U, int D, int M, int N>
+struct General : Tables<D, M, N> {
+  using Tb = Tables<D, M, N>;
+  static constexpr bool kTangent = TANGENT, kReadU = READ_U;
+  static constexpr int kLanes = kTiling[element_id(D, M, N)][0];
+  static constexpr int kThreads = 32 * kTiling[element_id(D, M, N)][1];
+  static constexpr int kElems = kThreads / kLanes;
+  static constexpr bool kSplit = kLanes > 1;
+  // Layout B (TensorElements): the table contractions on tensor cores, 8 elements a warp
+  static constexpr bool kTensor = kTiling[element_id(D, M, N)][5] == 1;
+  static constexpr int kHE = 73;  // an element's H or T of a chunk of 8 points, [24][3], in a warp's buffer
+  static constexpr int kHFields = (READ_U ? 1 : 0) + (TANGENT ? 1 : 0);
+  static constexpr int kWarpH = kTensor ? kHFields * 8 * kHE : 0;
+  static_assert(!kTensor || (D == 3 && kLanes == 4), "Layout B: 3D, a warp's 8 elements 4 lanes each");
+  static constexpr int kTq = D * Tb::kNS;  // a point's T [D][kNS]
+  static constexpr int kOut = D * N;
+  static constexpr int kV = READ_U ? N * Tb::kNS : 0;
+  static constexpr int kRec = odd_units(kV + (TANGENT ? N * Tb::kNS : 0), Tb::kNS);
+  static constexpr int kP = D * M * kElems, kR = kP + 4 * kElems;
+  static constexpr int kStage = round4(kR + kElems * kRec);
+  static constexpr int kTSlots = kSplit && !kTensor ? odd_units(2 * kLanes * kTq, 4) : 0;
+  // node indices a thread stages (banded): items t, t + kThreads, ... of the tile's (element, node) pairs
+  static constexpr int kNodeItems = (kElems * N + kThreads - 1) / kThreads;
+  __host__ __device__ static constexpr size_t smem_floats(int q) {
+    return 2 * (size_t)kStage + (size_t)kElems * kTSlots + (size_t)(kThreads / 32) * kWarpH + (size_t)q * Tb::kTab;
+  }
+  // an SM's 228 KB of shared memory, 1 KB of it reserved a block
+  static constexpr int kFit = (int)(233472 / (smem_floats(kTiling[element_id(D, M, N)][2]) * sizeof(float) + 1024));
+  static constexpr int kCap = kTiling[element_id(D, M, N)][TANGENT ? 3 : 4];
+  static constexpr int kMinBlocks = kFit < kCap ? kFit : kCap;
+  static_assert(kElems % 4 == 0 && kElems * kLanes == kThreads, "a tile's X rows are 16-byte runs");
+  static_assert(kElems * kOut <= kStage, "a tile's rows take its stage");
+};
+
+template <bool TANGENT, int D, int M, int N, int MAT>
+using GeneralOf = General<TANGENT, !TANGENT || Material<D, MAT>::kTangentReadsU, D, M, N>;
+
+// An element's staged mu and lam (Lame's two copies), rows S floats apart.
+template <int S>
+struct LameRows {
+  const float* p;
+  __device__ __forceinline__ float mu() const { return p[0]; }
+  __device__ __forceinline__ float lam() const { return p[S]; }
+  __device__ __forceinline__ LameRows again() const { return {p + 2 * S}; }
+  __device__ __forceinline__ LameRows element(int d) const { return {p + d}; }  // the element d columns on
+};
+
+// Banded mode: the node indices a thread stages in a tile (kNodeItems),
+// loaded a tile before the staging that needs them, and whether the thread's
+// element is real (LaneNode).
+template <int K>
+struct TileNodes {
+  int node[K];
+  int offset, valid_rows;
+  __device__ bool real() const { return offset < valid_rows; }
+};
+
+template <class G, int N>
+__device__ __forceinline__ TileNodes<G::kNodeItems> tile_nodes(int tile, int ntiles, int E, int t, int g,
+                                                               const int32_t* __restrict__ nodes,
+                                                               const int32_t* __restrict__ block_rows,
+                                                               int elements_per_block) {
+  TileNodes<G::kNodeItems> r;
+  r.offset = 1;
+  r.valid_rows = 0;
+#pragma unroll
+  for (int j = 0; j < G::kNodeItems; ++j) r.node[j] = 0;
+  if (tile >= ntiles) return r;
+  const int e = tile * G::kElems + g;
+  if (e < E) {
+    const int k = e / elements_per_block;
+    r.offset = (e - k * elements_per_block) * N;
+    r.valid_rows = __ldg(block_rows + k);
+  }
+#pragma unroll
+  for (int j = 0; j < G::kNodeItems; ++j) {  // the tile's rows are one contiguous run of the row -> node table
+    const int i = t + j * G::kThreads, row = tile * G::kElems * N + i;
+    if (i < G::kElems * N && row < E * N) r.node[j] = __ldg(nodes + row);
+  }
+  return r;
+}
+
+// Start the cp.asyncs of one tile's X, fields and (STAGED) parameters into the
+// stage buf.  X: wide (banded, E % 4 == 0, X 16-byte aligned) as 16-byte runs
+// of 4 elements of a row, else word by word (element fastest).  Banded
+// fields: thread t holds the node of the tile's (element, node) pairs t, t +
+// kThreads, ... (tile_nodes).  3D: a warp copies its 32 pairs' 3-word runs
+// word by word, consecutive lanes on consecutive words (an instruction
+// touches the lines of about 11 nodes; one lane a node, it would touch 32
+// nodes' lines 3 times); 2D: a lane a node, one 8-byte copy when wide (u and
+// v 8-byte aligned; copied word by word, the 2D sweeps spilled); padding rows read node
+// 0, whose values nothing uses.  Strided fields: (node component, element) pairs, element
+// fastest.  Elements past E are zero-filled without a read.
+template <bool BANDED, bool STAGED, class G, int D, int M, int N>
+__device__ __forceinline__ void stage_general(float* buf, int tile, int E, const float* __restrict__ X,
+                                              const float* __restrict__ u, const float* __restrict__ v,
+                                              const Strides32& st, const Param& mu, const Param& lam,
+                                              const TileNodes<G::kNodeItems>& tn, int t, bool wide) {
+  constexpr int kE = G::kElems, kT = G::kThreads, kNS = G::kNS;
+  const int e0 = tile * kE;
+  if (BANDED && wide) {
+    constexpr int kRuns = kE / 4;
+    for (int i = t; i < D * M * kRuns; i += kT) {
+      const int row = i / kRuns, el = 4 * (i - row * kRuns);
+      const bool ok = e0 + el < E;  // E % 4 == 0: a run is all in or all out
+      cp_async16(buf + row * kE + el, X + (int64_t)row * E + (ok ? e0 + el : 0), ok);
+    }
+  } else {
+    for (int i = t; i < D * M * kE; i += kT) {
+      const int row = i / kE, el = i - row * kE;
+      const bool ok = e0 + el < E;
+      const int e = ok ? e0 + el : 0, m = row / D, c = row - m * D;
+      cp_async4(buf + row * kE + el,
+                BANDED ? X + (int64_t)row * E + e : X + m * st.x[0] + c * st.x[1] + e * st.x[2], ok);
+    }
+  }
+  if (STAGED && t < kE) {
+    float* dst = buf + G::kP + t;
+    const bool ok = e0 + t < E;
+#pragma unroll
+    for (int k = 0; k < 4; k += 2) {
+      stage_param(dst + k * kE, mu, e0 + t, ok);
+      stage_param(dst + (k + 1) * kE, lam, e0 + t, ok);
+    }
+  }
+  float* rec = buf + G::kR;
+  if (BANDED) {
+    const int lane = t & 31, warp0 = t - lane;
+#pragma unroll
+    for (int j = 0; j < G::kNodeItems; ++j) {
+      const int i0 = j * kT + warp0;  // the warp's 32 pairs i0, ..., i0 + 31, one a lane (tn.node[j])
+      if (D == 2) {  // a lane a node
+        const int i = i0 + lane;
+        if (i < kE * N) {
+          const int el = i / N, a = i - el * N;
+          const bool ok = e0 + el < E;
+          const int64_t src = (int64_t)tn.node[j] * D;
+          float* dst = rec + el * G::kRec + a * kNS;
+          if (wide) {
+            if (G::kReadU) cp_async8(dst, u + src, ok);
+            if (G::kTangent) cp_async8(dst + G::kV, v + src, ok);
+          } else {
+#pragma unroll
+            for (int c = 0; c < D; ++c) {
+              if (G::kReadU) cp_async4(dst + c, u + src + c, ok);
+              if (G::kTangent) cp_async4(dst + G::kV + c, v + src + c, ok);
+            }
+          }
+        }
+      } else {  // word by word, consecutive lanes on consecutive words of the pairs' D-word runs
+#pragma unroll
+        for (int w = 0; w < D; ++w) {
+          const int word = w * 32 + lane, slot = word / D, c = word - slot * D;
+          const int node = __shfl_sync(0xffffffffu, tn.node[j], slot);
+          const int i = i0 + slot;
+          if (i < kE * N) {
+            const int el = i / N, a = i - el * N;
+            const bool ok = e0 + el < E;
+            const int64_t src = (int64_t)node * D + c;
+            float* dst = rec + el * G::kRec + a * kNS + c;
+            if (G::kReadU) cp_async4(dst, u + src, ok);
+            if (G::kTangent) cp_async4(dst + G::kV, v + src, ok);
+          }
+        }
+      }
+    }
+  } else {
+    for (int i = t; i < D * N * kE; i += kT) {
+      const int row = i / kE, el = i - row * kE;
+      const bool ok = e0 + el < E;
+      const int e = ok ? e0 + el : 0, a = row / D, c = row - a * D;
+      float* dst = rec + el * G::kRec + a * kNS + c;
+      if (G::kReadU) cp_async4(dst, u + a * st.u[0] + c * st.u[1] + e * st.u[2], ok);
+      if (G::kTangent) cp_async4(dst + G::kV, v + a * st.v[0] + c * st.v[1] + e * st.v[2], ok);
+    }
+  }
+}
+
+// T[k][c] = wdet sum_d J^-1[k][d] P[c][d] at the point of table row tq, in
+// rows of kNS floats (the padding floats zero): P the stress of u, or its
+// tangent along v.  X_rel: the element's node-relative X, words XS apart; U,
+// V: its fields [N][kNS].  FUSED: the tangent's two gradients in one pass
+// over the nodes (ref_gradients: 7% off hex20's tangent; one lane an element
+// holds its N x D sums beside them and ptxas spills, so SumElement passes
+// false).
+template <bool TANGENT, int D, int M, int N, int MAT, int XS, bool FUSED, class P>
+__device__ __forceinline__ void point_T(const float* tq, const float* X_rel, const float* U, const float* V, P p,
+                                        float t[]) {
+  using Tb = Tables<D, M, N>;
+  constexpr int kNS = Tb::kNS;
+  constexpr bool kReadU = !TANGENT || Material<D, MAT>::kTangentReadsU;
+  float Jinv[D][D], G[D][D], S[D][D];
+  const float wdet = inverse_jacobian<D, M, XS>(tq, X_rel, tq[Tb::kW], Jinv);
+  Material<D, MAT> mat;
+  if (TANGENT && kReadU && FUSED) {
+    float dG[D][D];
+    ref_gradients<D, N>(tq + Tb::kD, U, V, Jinv, G, dG);
+    mat.at(G, p);
+    mat.tangent(dG, p.again(), S);
+  } else if (TANGENT && kReadU) {
+    ref_gradient<D, N>(tq + Tb::kD, U, Jinv, G);
+    mat.at(G, p);
+    ref_gradient<D, N>(tq + Tb::kD, V, Jinv, G);
+    mat.tangent(G, p.again(), S);
+  } else if (TANGENT) {
+    ref_gradient<D, N>(tq + Tb::kD, V, Jinv, G);
+    mat.tangent(G, p.again(), S);
+  } else {  // the weight after the sum: the sum cancels to O(strain) at small strains
+    ref_gradient<D, N>(tq + Tb::kD, U, Jinv, G);
+    mat.at(G, p);
+    mat.stress(p, S);
+  }
+#pragma unroll
+  for (int k = 0; k < D; ++k)
+#pragma unroll
+    for (int c = 0; c < kNS; ++c) {
+      float acc = 0.0f;
+      if (c < D) {
+        acc = Jinv[k][0] * S[c][0];
+#pragma unroll
+        for (int d = 1; d < D; ++d) acc += Jinv[k][d] * S[c][d];
+        acc *= wdet;
+      }
+      t[k * kNS + c] = acc;
+    }
+}
+
+// One lane an element: the lane takes its element's points one by one and
+// adds each point's N x D outputs (sum_k dphi[q][a][k] T[k][c]) to its
+// element's sums in registers; no T goes through shared memory.
+template <bool TANGENT, int D, int M, int N, int MAT, int XS>
+struct SumElement {
+  using Tb = Tables<D, M, N>;
+  float acc[N * D];
+  template <class P>
+  __device__ __forceinline__ void compute(const float* X_rel, const float* U, const float* V, const float* s_tab,
+                                          int q, bool work, P p) {
+    constexpr int kNS = Tb::kNS;
+#pragma unroll
+    for (int j = 0; j < N * D; ++j) acc[j] = 0.0f;
+    if (!work) return;
+#pragma unroll 1
+    for (int iq = 0; iq < q; ++iq) {
+      const float* tq = s_tab + iq * Tb::kTab;
+      float t[D * kNS];
+      point_T<TANGENT, D, M, N, MAT, XS, false>(tq, X_rel, U, V, p, t);
+#pragma unroll
+      for (int a = 0; a < N; ++a) {
+        const Vec<D> d = Vec<D>::load(tq + Tb::kD + a * kNS);
+#pragma unroll
+        for (int c = 0; c < D; ++c) {
+          float s = d.v[0] * t[c];
+#pragma unroll
+          for (int k = 1; k < D; ++k) s += d.v[k] * t[k * kNS + c];
+          acc[a * D + c] += s;
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void write(float* o) const {
+#pragma unroll
+    for (int j = 0; j < N * D; ++j) o[j] = acc[j];
+  }
+};
+
+// More lanes an element: rounds of L points; in each the element's L lanes compute one
+// point's T each into shared memory (sT: two rounds' slots, so one
+// __syncwarp a round), then take its nodes (a = l, l + L, ...) and add the
+// round's points to their D sums, reading each point's T once: no lane holds
+// N x D sums and no shuffle reduce is needed.
+template <bool TANGENT, int D, int M, int N, int MAT, int L, int XS>
+struct SplitElement {
+  using Tb = Tables<D, M, N>;
+  static constexpr int K = (N + L - 1) / L, kTq = D * Tb::kNS;
+  float acc[K][D];
+  int l;
+  template <class P>
+  __device__ __forceinline__ void compute(const float* X_rel, const float* U, const float* V, const float* s_tab,
+                                          float* sT, int q, int lane, bool work, P p) {
+    constexpr int kNS = Tb::kNS;
+    l = lane;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+#pragma unroll
+      for (int c = 0; c < D; ++c) acc[j][c] = 0.0f;
+    const int rounds = (q + L - 1) / L;
+#pragma unroll 1
+    for (int r = 0; r < rounds; ++r) {
+      float* Tr = sT + (r & 1) * L * kTq;
+      const int iq = r * L + l;
+      if (work && iq < q) {
+        float t[kTq];
+        point_T<TANGENT, D, M, N, MAT, XS, true>(s_tab + iq * Tb::kTab, X_rel, U, V, p, t);
+        float4* T4 = reinterpret_cast<float4*>(Tr + l * kTq);
+#pragma unroll
+        for (int i = 0; i < kTq / 4; ++i) T4[i] = make_float4(t[4 * i], t[4 * i + 1], t[4 * i + 2], t[4 * i + 3]);
+      }
+      __syncwarp();  // the round's T, written by the element's L lanes, is read by all of them
+      if (work) {
+        const int np = min(L, q - r * L);
+        const float* dl = s_tab + r * L * Tb::kTab + Tb::kD + kNS * l;
+#pragma unroll
+        for (int pi = 0; pi < L; ++pi) {
+          if (pi < np) {
+            float t[kTq];
+            lds<kTq>(Tr + pi * kTq, t);
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+              if (l + j * L < N) {
+                const Vec<D> d = Vec<D>::load(dl + pi * Tb::kTab + kNS * j * L);
+#pragma unroll
+                for (int c = 0; c < D; ++c) {
+                  float s = d.v[0] * t[c];
+#pragma unroll
+                  for (int k = 1; k < D; ++k) s += d.v[k] * t[k * kNS + c];
+                  acc[j][c] += s;
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void write(float* o) const {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int a = l + j * L;
+      if (a < N) {
+#pragma unroll
+        for (int c = 0; c < D; ++c) o[a * D + c] = acc[j][c];
+      }
+    }
+  }
+};
+
+// -- Layout B: the table contractions on tensor cores -------------------------------
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as hi + lo, both TF32 (10 mantissa bits, rounded to nearest): hi =
+// tf32(x), lo = tf32(x - hi); x - hi is exact, and hi + lo is x within
+// about 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a b on one m16n8k8 tile, TF32 inputs, f32 sums: a row-major 16 x 8
+// (a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4)), b
+// 8 x 8 (b[0] (t, g), b[1] (t + 4, g)), d 16 x 8 (d[0] (g, 2t), d[1] (g,
+// 2t + 1), d[2] (g + 8, 2t), d[3] (g + 8, 2t + 1)); g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: d += a_lo b_hi + a_hi b_lo + a_hi b_hi, in that order (the small
+// terms first); a_lo b_lo (about 2^-22 of the product) is dropped.
+__device__ __forceinline__ void mma_3xtf32(float d[4], const uint32_t ah[4], const uint32_t al[4],
+                                           const uint32_t bh[2], const uint32_t bl[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// Layout B (3D): a warp's 8 elements at once, the points in chunks of 8 (24
+// columns (point, k)), two products a chunk on tensor cores (3xTF32), the
+// material between them on the CUDA cores, one lane an (element, point):
+//   H^T[(c, e)][(q, k)] = sum_a U[e][a][c] dphi[q][a][k]   (u, and v for the
+//       tangent: rows (c, e) 24 of 32, K the nodes, 24 columns), into the
+//       warp's buffer [field][e][kHE] as [e][(q, k)][c];
+//   the material: T[q][k][c] from H, over H's first field;
+//   out^T[(c, e)][a] += sum_{(q, k)} T[e][(q, k)][c] dphi[q][a][k]   (K the
+//       chunk's 24 columns), in registers across chunks.
+// The table is B in both (its staged rows, split at each fragment load);
+// padding (nodes past N, points past q, c = 3) reads zeros.  Elements that are
+// not real get T = 0, so zero rows.
+template <bool TANGENT, int M, int N, int MAT, int XS>
+struct TensorElements {
+  static constexpr int D = 3;
+  using Tb = Tables<D, M, N>;
+  static constexpr bool kReadU = !TANGENT || Material<D, MAT>::kTangentReadsU;
+  static constexpr int kFields = (kReadU ? 1 : 0) + (TANGENT ? 1 : 0);
+  static constexpr int kHE = 73;
+  static constexpr int kK = (N + 7) / 8;  // node k-steps (product 1), node n-tiles (product 2)
+  float out[2][kK][4];
+
+  // dphi[q][a][k] of the table (0 past q points or N nodes), col = 3 q + k
+  static __device__ __forceinline__ float dphi(const float* s_tab, int q, int col, int a) {
+    const int iq = col / 3, k = col - 3 * iq;
+    return iq < q && a < N ? s_tab[iq * Tb::kTab + Tb::kD + a * Tb::kNS + k] : 0.0f;
+  }
+
+  template <class P>
+  __device__ __forceinline__ void compute(const float* buf, const float* recs, int rec_stride, int v_off,
+                                          const float* s_tab, float* sH, int q, int e0, int lane, bool work,
+                                          P p) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < kK; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) out[i][j][r] = 0.0f;
+    const float* rec_g = recs + (e0 + g) * rec_stride;  // element g's fields (A rows (c, g))
+    const int chunks = (q + 7) / 8;
+#pragma unroll 1
+    for (int ch = 0; ch < chunks; ++ch) {
+      const int col0 = 24 * ch;
+      // product 1: H^T of each field
+#pragma unroll
+      for (int f = 0; f < kFields; ++f) {
+        const float* U = rec_g + (kReadU && f == 0 ? 0 : v_off);
+        float h[2][3][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < kK; ++ks) {
+          const int a0 = 8 * ks + t, a1 = a0 + 4;
+          uint32_t ah[2][4], al[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int c0 = 2 * mt, c1 = 2 * mt + 1;
+            split_tf32(a0 < N ? U[a0 * Tb::kNS + c0] : 0.0f, ah[mt][0], al[mt][0]);
+            split_tf32(a0 < N && c1 < 3 ? U[a0 * Tb::kNS + c1] : 0.0f, ah[mt][1], al[mt][1]);
+            split_tf32(a1 < N ? U[a1 * Tb::kNS + c0] : 0.0f, ah[mt][2], al[mt][2]);
+            split_tf32(a1 < N && c1 < 3 ? U[a1 * Tb::kNS + c1] : 0.0f, ah[mt][3], al[mt][3]);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 3; ++nt) {
+            uint32_t bh[2], bl[2];
+            const int col = col0 + 8 * nt + g;
+            split_tf32(dphi(s_tab, q, col, a0), bh[0], bl[0]);
+            split_tf32(dphi(s_tab, q, col, a1), bh[1], bl[1]);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) mma_3xtf32(h[mt][nt], ah[mt], al[mt], bh, bl);
+          }
+        }
+        float* H = sH + f * 8 * kHE;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 3; ++nt) {
+            const int col = 8 * nt + 2 * t;
+            H[g * kHE + col * 3 + 2 * mt] = h[mt][nt][0];
+            H[g * kHE + (col + 1) * 3 + 2 * mt] = h[mt][nt][1];
+            if (mt == 0) {
+              H[g * kHE + col * 3 + 1] = h[mt][nt][2];
+              H[g * kHE + (col + 1) * 3 + 1] = h[mt][nt][3];
+            }
+          }
+      }
+      __syncwarp();
+      // the material: lane takes (element, point) items lane and lane + 32 of the chunk's 64
+#pragma unroll
+      for (int it = 0; it < 2; ++it) {
+        const int item = lane + 32 * it, e = item & 7, ql = item >> 3, iq = 8 * ch + ql;
+        const bool real = __shfl_sync(0xffffffffu, work, 4 * e);  // element e's lanes are 4 e, ..., 4 e + 3
+        float tq[9] = {};
+        if (real && iq < q) {
+          const float* row = s_tab + iq * Tb::kTab;
+          float Jinv[D][D], G[D][D], dG[D][D], S[D][D], Hf[D][D];
+          const float wdet = inverse_jacobian<D, M, XS>(row, buf + e0 + e, row[Tb::kW], Jinv);
+          const P pe = p.element(e - g);  // element e's parameters (p: the lane's own element g's)
+          Material<D, MAT> mat;
+          auto gradient_of = [&](const float* Hs, float Gout[D][D]) {
+#pragma unroll
+            for (int k = 0; k < D; ++k)
+#pragma unroll
+              for (int c = 0; c < D; ++c) Hf[k][c] = Hs[e * kHE + (3 * ql + k) * 3 + c];
+#pragma unroll
+            for (int d = 0; d < D; ++d)
+#pragma unroll
+              for (int c = 0; c < D; ++c) {
+                float acc = Jinv[0][d] * Hf[0][c];
+#pragma unroll
+                for (int k = 1; k < D; ++k) acc += Jinv[k][d] * Hf[k][c];
+                Gout[d][c] = acc;
+              }
+          };
+          if (kReadU) {
+            gradient_of(sH, G);
+            mat.at(G, pe);
+          }
+          if (TANGENT) {
+            gradient_of(sH + (kReadU ? 8 * kHE : 0), dG);
+            mat.tangent(dG, pe.again(), S);
+          } else {
+            mat.stress(pe, S);
+          }
+#pragma unroll
+          for (int k = 0; k < D; ++k)
+#pragma unroll
+            for (int c = 0; c < D; ++c) {
+              float acc = Jinv[k][0] * S[c][0];
+#pragma unroll
+              for (int d = 1; d < D; ++d) acc += Jinv[k][d] * S[c][d];
+              tq[k * 3 + c] = acc * wdet;
+            }
+        }
+        __syncwarp();  // every lane has read H before T overwrites its first field
+#pragma unroll
+        for (int j = 0; j < 9; ++j) sH[e * kHE + 9 * ql + j] = tq[j];
+      }
+      __syncwarp();
+      // product 2: out^T += T^T dphi over the chunk's 24 columns
+#pragma unroll
+      for (int ks = 0; ks < 3; ++ks) {
+        const int k0 = 8 * ks + t, k1 = k0 + 4;
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int c0 = 2 * mt, c1 = 2 * mt + 1;
+          split_tf32(sH[g * kHE + k0 * 3 + c0], ah[mt][0], al[mt][0]);
+          split_tf32(c1 < 3 ? sH[g * kHE + k0 * 3 + c1] : 0.0f, ah[mt][1], al[mt][1]);
+          split_tf32(sH[g * kHE + k1 * 3 + c0], ah[mt][2], al[mt][2]);
+          split_tf32(c1 < 3 ? sH[g * kHE + k1 * 3 + c1] : 0.0f, ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kK; ++nt) {
+          uint32_t bh[2], bl[2];
+          const int a = 8 * nt + g;
+          split_tf32(dphi(s_tab, q, col0 + k0, a), bh[0], bl[0]);
+          split_tf32(dphi(s_tab, q, col0 + k1, a), bh[1], bl[1]);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) mma_3xtf32(out[mt][nt], ah[mt], al[mt], bh, bl);
+        }
+      }
+      __syncwarp();  // T is read before the next chunk's H overwrites it
+    }
+  }
+
+  // the warp's elements' rows [e][a][c] into o (rows kOut = 3 N floats apart)
+  __device__ __forceinline__ void write(float* o, int e0, int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kK; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int c = 2 * mt + (r >> 1), a = 8 * nt + 2 * t + (r & 1);
+          if (c < 3 && a < N) o[(e0 + g) * 3 * N + a * 3 + c] = out[mt][nt][r];
+        }
+  }
+};
+
+// The general body (element_kernel): persistent blocks walk tiles of kElems
+// elements; a tile's copies land in one stage while the tile before computes
+// from the other, and the node indices of the tile after are loaded with
+// them.  Per tile: wait for its copies and barrier; start the next tile's;
+// compute; barrier; write the rows into the stage; barrier; copy them out.
+template <bool BANDED, bool TANGENT, int D, int M, int N, int MAT, bool STAGED>
+__device__ __forceinline__ void general_tiles(const float* __restrict__ X, const float* __restrict__ u,
+                                              const float* __restrict__ v, const int32_t* __restrict__ nodes,
+                                              const int32_t* __restrict__ block_rows, int elements_per_block,
+                                              float* __restrict__ out, const Strides32& st, int E,
+                                              const float* __restrict__ tables, int q, const Param& mu,
+                                              const Param& lam, bool wide) {
+  using G = GeneralOf<TANGENT, D, M, N, MAT>;
+  constexpr int kE = G::kElems, kT = G::kThreads, L = G::kLanes;
+  extern __shared__ __align__(16) float smem[];
+  float* s_buf = smem;
+  float* s_T = s_buf + 2 * G::kStage;  // SplitElement's T, or TensorElements' H and T
+  float* s_tab = s_T + kE * G::kTSlots + (kT / 32) * G::kWarpH;
+  const int t = threadIdx.x, g = t / L, l = t % L;
+  const int ntiles = (E + kE - 1) / kE, step = gridDim.x;
+  int tile = blockIdx.x;
+
+  // real: the thread's element of the tile being staged is not padding (always, strided);
+  // padding elements get zero rows without their arithmetic
+  TileNodes<G::kNodeItems> tn = {};
+  tn.offset = 0;
+  tn.valid_rows = 1;
+  if (BANDED) tn = tile_nodes<G, N>(tile, ntiles, E, t, g, nodes, block_rows, elements_per_block);
+  stage_general<BANDED, STAGED, G, D, M, N>(s_buf, tile, E, X, u, v, st, mu, lam, tn, t, wide);
+  bool real = tn.real();
+  cp_async_commit();
+  if (BANDED) tn = tile_nodes<G, N>(tile + step, ntiles, E, t, g, nodes, block_rows, elements_per_block);
+  // tables [q][geo_dphi DM | 0 ... | dphi N x kNS | w | 0 ...] from geo_dphi [q][M][D], dphi [q][N][D], w [q]
+  for (int i = t; i < q * G::kTab; i += kT) {
+    const int iq = i / G::kTab, j = i - iq * G::kTab;
+    float x = 0.0f;
+    if (j < D * M) {
+      x = __ldg(tables + iq * D * M + j);
+    } else if (j >= G::kD && j < G::kW) {
+      const int a = (j - G::kD) / G::kNS, k = j - G::kD - a * G::kNS;
+      if (k < D) x = __ldg(tables + q * D * M + (iq * N + a) * D + k);
+    } else if (j == G::kW) {
+      x = __ldg(tables + q * D * (M + N) + iq);
+    }
+    s_tab[i] = x;
+  }
+
+  for (int b = 0; tile < ntiles; tile += step, b ^= 1) {
+    cp_async_wait_all();  // this thread's copies of the tile have landed
+    __syncthreads();      // everyone's; and the last tile's rows are out of the other stage
+    const int next = tile + step;
+    bool real_next = false;
+    if (next < ntiles) {
+      stage_general<BANDED, STAGED, G, D, M, N>(s_buf + (b ^ 1) * G::kStage, next, E, X, u, v, st, mu, lam, tn,
+                                                t, wide);
+      real_next = tn.real();
+      cp_async_commit();
+      if (BANDED) tn = tile_nodes<G, N>(next + step, ntiles, E, t, g, nodes, block_rows, elements_per_block);
+    }
+    float* buf = s_buf + b * G::kStage;
+    const int e0 = tile * kE, nel = min(kE, E - e0);
+    // the element's coordinates relative to node 0, in its column (node 0 itself is not read)
+    for (int i = 1 + l; i < M; i += L) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) buf[(i * D + c) * kE + g] -= buf[c * kE + g];
+    }
+    if (L > 1) __syncwarp();
+    std::conditional_t<STAGED, LameRows<kE>, LameValues> p;
+    if constexpr (STAGED) {
+      p = {buf + G::kP + g};
+    } else {
+      p = {mu.value, lam.value};
+    }
+    const bool work = g < nel && real;
+    const float* rec = buf + G::kR + g * G::kRec;
+    if constexpr (G::kTensor) {
+      TensorElements<TANGENT, M, N, MAT, kE> el;
+      const int warp = t >> 5, lane = t & 31;
+      el.compute(buf, buf + G::kR, G::kRec, G::kV, s_tab, s_T + warp * G::kWarpH, q, warp * 8, lane, work, p);
+      __syncthreads();
+      el.write(buf, warp * 8, lane);
+    } else if constexpr (G::kSplit) {
+      SplitElement<TANGENT, D, M, N, MAT, L, kE> el;
+      el.compute(buf + g, rec, rec + G::kV, s_tab, s_T + g * G::kTSlots, q, l, work, p);
+      __syncthreads();  // the stage is read: the tile's rows take it
+      el.write(buf + g * G::kOut);
+    } else {
+      SumElement<TANGENT, D, M, N, MAT, kE> el;
+      el.compute(buf + g, rec, rec + G::kV, s_tab, q, work, p);
+      __syncthreads();
+      el.write(buf + g * G::kOut);
+    }
+    __syncthreads();
+
+    if (BANDED) {  // the tile's rows are one contiguous run of nel * kOut floats
+      const int nf = nel * G::kOut, n4 = nf / 4;
+      const float4* src = reinterpret_cast<const float4*>(buf);
+      float4* dst = reinterpret_cast<float4*>(out + (int64_t)e0 * G::kOut);
+      for (int i = t; i < n4; i += kT) dst[i] = src[i];
+      if constexpr (G::kOut % 4 != 0) {
+        for (int i = 4 * n4 + t; i < nf; i += kT) out[(int64_t)e0 * G::kOut + i] = buf[i];
+      }
+    } else {
+      for (int i = t; i < G::kOut * kE; i += kT) {
+        const int row = i / kE, el_i = i - row * kE;
+        if (el_i < nel) {
+          const int a = row / D, c = row - a * D;
+          out[a * st.o[0] + c * st.o[1] + (e0 + el_i) * st.o[2]] = buf[el_i * G::kOut + row];
+        }
+      }
+    }
+    real = real_next;
+  }
+}
+
+// The general kernel: arguments as sweep_kernel's; wide: X and the node
+// vectors take the wide copies (stage_general).
+template <bool BANDED, bool TANGENT, int D, int M, int N, int MAT>
+__global__ void __launch_bounds__(GeneralOf<TANGENT, D, M, N, MAT>::kThreads,
+                                  GeneralOf<TANGENT, D, M, N, MAT>::kMinBlocks)
+    element_kernel(const float* __restrict__ X, const float* __restrict__ u, const float* __restrict__ v,
+                   const int32_t* __restrict__ nodes, const int32_t* __restrict__ block_rows,
+                   int elements_per_block, float* __restrict__ out, const Strides32 st, int E,
+                   const float* __restrict__ tables, int q, const Param mu, const Param lam, int wide) {
+  if (BANDED && mu.p == nullptr && lam.p == nullptr) {
+    general_tiles<BANDED, TANGENT, D, M, N, MAT, false>(X, u, v, nodes, block_rows, elements_per_block, out, st, E,
+                                                        tables, q, mu, lam, wide != 0);
+  } else {
+    general_tiles<BANDED, TANGENT, D, M, N, MAT, true>(X, u, v, nodes, block_rows, elements_per_block, out, st, E,
+                                                       tables, q, mu, lam, wide != 0);
   }
 }
 
 }  // namespace
 
-// The launch arguments shared by the two entry points.
+// The launch arguments shared by the entry points.  layout: when not NULL,
+// nothing is launched and the launch's geometry is written there instead
+// (fenris_em_layout).
 struct SweepArgs {
   const float *X, *u, *v;
   const int32_t *nodes, *block_rows;
@@ -1043,28 +1727,58 @@ struct SweepArgs {
   int q;
   Param mu, lam;
   cudaStream_t stream;
+  int* layout;
 };
 
 namespace {
 
 // One persistent block per resident slot: min(tiles, blocks an SM x SMs).
-template <bool BANDED, bool TANGENT, int D, int M, int N, int MAT>
-int launch_sweep(const SweepArgs& a) {
-  using Ly = Layout<D, M, N>;
-  auto kernel = sweep_kernel<BANDED, TANGENT, D, M, N, MAT>;
-  const size_t smem = sweep_smem_floats<TANGENT, D, M, N>(a.q) * sizeof(float);
-  if (smem > 48 * 1024) {  // beyond the default: ask for it (fails past the card's 227 KB)
+// Returns 0 and the grid in *blocks, or the error of raising the kernel's
+// shared memory past the default 48 KB (fails past the card's 227 KB); with
+// a.layout, writes there lanes an element, elements a tile, threads a block,
+// shared bytes a block and resident blocks an SM.
+template <class Kernel>
+int persistent_grid(const SweepArgs& a, Kernel kernel, int lanes, int elems, int threads, size_t smem,
+                    unsigned int* blocks) {
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   int dev = 0, sms = 1, per_sm = 1;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, Ly::kThreads, smem);
-  const long long tiles = (a.E + Ly::kElems - 1) / Ly::kElems;
-  const unsigned int blocks = (unsigned int)std::max(1LL, std::min(tiles, (long long)std::max(per_sm, 1) * sms));
-  kernel<<<blocks, Ly::kThreads, smem, a.stream>>>(a.X, a.u, a.v, a.nodes, a.block_rows, a.elements_per_block,
-                                                   a.out, a.st, a.E, a.tables, a.q, a.mu, a.lam);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (a.layout != nullptr) {
+    const int geometry[5] = {lanes, elems, threads, (int)smem, per_sm};
+    std::copy(geometry, geometry + 5, a.layout);
+  }
+  const long long tiles = (a.E + elems - 1) / elems;
+  *blocks = (unsigned int)std::max(1LL, std::min(tiles, (long long)std::max(per_sm, 1) * sms));
+  return 0;
+}
+
+template <bool BANDED, bool TANGENT, int D, int M, int N, int MAT>
+int launch_sweep(const SweepArgs& a) {
+  unsigned int blocks = 0;
+  if constexpr (D == 3 && M == 8 && N == 8) {  // hex8's own layout
+    using Ly = Layout<D, M, N>;
+    auto kernel = sweep_kernel<BANDED, TANGENT, D, M, N, MAT>;
+    const size_t smem = sweep_smem_floats<TANGENT, D, M, N>(a.q) * sizeof(float);
+    const int err = persistent_grid(a, kernel, Ly::kLanes, Ly::kElems, Ly::kThreads, smem, &blocks);
+    if (err != 0 || a.layout != nullptr) return err;
+    kernel<<<blocks, Ly::kThreads, smem, a.stream>>>(a.X, a.u, a.v, a.nodes, a.block_rows, a.elements_per_block,
+                                                     a.out, a.st, a.E, a.tables, a.q, a.mu, a.lam);
+  } else {
+    using G = GeneralOf<TANGENT, D, M, N, MAT>;
+    auto kernel = element_kernel<BANDED, TANGENT, D, M, N, MAT>;
+    const size_t smem = G::smem_floats(a.q) * sizeof(float);
+    const int err = persistent_grid(a, kernel, G::kLanes, G::kElems, G::kThreads, smem, &blocks);
+    if (err != 0 || a.layout != nullptr) return err;
+    const bool wide = a.E % 4 == 0 && (uintptr_t)a.X % 16 == 0 && (uintptr_t)a.u % 8 == 0 &&
+                      (uintptr_t)a.v % 8 == 0;
+    kernel<<<blocks, G::kThreads, smem, a.stream>>>(a.X, a.u, a.v, a.nodes, a.block_rows, a.elements_per_block,
+                                                    a.out, a.st, a.E, a.tables, a.q, a.mu, a.lam, (int)wide);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1226,7 +1940,7 @@ extern "C" int fenris_em_sweep(const void* X, const void* u, const void* v, void
                                int lam_stride, float lam, void* stream) {
   if (E == 0) return 0;
   SweepArgs a = {(const float*)X, (const float*)u, (const float*)v, nullptr, nullptr, 1, (float*)out, {},
-                 (int)E, (const float*)tables, q, {}, {}, (cudaStream_t)stream};
+                 (int)E, (const float*)tables, q, {}, {}, (cudaStream_t)stream, nullptr};
   if (E * d * n >= (1LL << 31) || !strides32(strides, d, m, n, E, &a.st) ||
       !lame_params(mu_p, mu_stride, mu, lam_p, lam_stride, lam, &a))
     return (int)cudaErrorInvalidValue;
@@ -1247,10 +1961,22 @@ extern "C" int fenris_banded_sweep(const void* X, const void* u, const void* v, 
   if (E == 0) return 0;
   SweepArgs a = {(const float*)X, (const float*)u, (const float*)v, (const int32_t*)nodes,
                  (const int32_t*)block_rows, elements_per_block, (float*)out, {}, (int)E,
-                 (const float*)tables, q, {}, {}, (cudaStream_t)stream};
+                 (const float*)tables, q, {}, {}, (cudaStream_t)stream, nullptr};
   if (E * d * n >= (1LL << 31) || !lame_params(mu_p, mu_stride, mu, lam_p, lam_stride, lam, &a))
     return (int)cudaErrorInvalidValue;
   return launch(a, true, d, m, n, material);
+}
+
+// fenris_em_layout: the geometry of the banded (banded != 0) or strided,
+// tangent (tangent != 0) or vector sweep of (d, m, n, material) on q points,
+// without launching: out[5] = lanes an element, elements a tile, threads a
+// block, shared bytes a block and resident blocks an SM on the current
+// device.  Returns as the launchers.
+extern "C" int fenris_em_layout(int banded, int tangent, int q, int d, int m, int n, int material, int* out) {
+  static const float placeholder = 0.0f;  // a non-NULL v selects the tangent sweep
+  SweepArgs a = {nullptr, nullptr, tangent ? &placeholder : nullptr, nullptr, nullptr, 1, nullptr, {}, 1,
+                 nullptr, q, {}, {}, nullptr, out};
+  return launch(a, banded != 0, d, m, n, material);
 }
 
 #endif

@@ -71,6 +71,8 @@ _SIGNATURES = {
     # material, mu and lam as in fenris_em_sweep, stream
     "fenris_banded_sweep": ((_P, _P, _P, _P, _P, _P, _L, _I, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _I, _F, _P),
                             _I),
+    # banded, tangent, q, d, m, n, material, out (int32 [5]): the launch geometry, nothing launched
+    "fenris_em_layout": ((_I, _I, _I, _I, _I, _I, _I, _P), _I),
     "fenris_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

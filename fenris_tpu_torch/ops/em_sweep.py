@@ -33,8 +33,9 @@ on a CPU tensor it runs the plain version
 two element-minor wrappers take views with any strides, so the
 element-major rows of the banded gather (``rows.permute(1, 2, 0)``) need no
 transposing copy; their output has the strides of ``u_em``.  All four
-wrappers run one kernel body.  Launches are counted in
-``<wrapper>.launches``.
+wrappers run the same two kernels, hex8's and the general one of the other
+ten elements (:func:`launch_layout` gives its launch geometry).  Launches
+are counted in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ __all__ = [
     "device_tables",
     "em_vector_sweep",
     "em_vector_tangent_sweep",
+    "launch_layout",
     "refusal",
     "supports",
 ]
@@ -129,6 +131,19 @@ def device_tables(tab: Tabulation, device) -> torch.Tensor:
     """
     flat = np.concatenate([np.ravel(tab.geo_dphi), np.ravel(tab.dphi), np.ravel(tab.weights)])
     return torch.as_tensor(flat.astype(np.float32), device=device)
+
+
+def launch_layout(op, tab: Tabulation, tangent: bool, banded: bool = True) -> dict:
+    """The kernels' launch geometry on the current card for ``op``'s material on ``tab``'s element and rule:
+    ``lanes`` an element, ``elements`` a tile, ``threads`` a block, ``shared_bytes`` a block and
+    ``blocks_per_sm`` resident (``fenris_em_layout``; nothing is launched)."""
+    lib = load_library()
+    out = (ctypes.c_int * 5)()
+    m, n = tab.geo_dphi.shape[1], tab.dphi.shape[1]
+    material = list(MATERIALS.values()).index(type(op.material))
+    check(lib, lib.fenris_em_layout(int(banded), int(tangent), tab.num_points, op.dim, m, n, material, out),
+          "em_layout")
+    return dict(zip(("lanes", "elements", "threads", "shared_bytes", "blocks_per_sm"), out))
 
 
 def _check(t: torch.Tensor, name: str, shape, device) -> None:

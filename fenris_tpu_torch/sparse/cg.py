@@ -57,6 +57,7 @@ def _norm(v):
 def conjugate_gradient(
     operator,
     rhs: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
     preconditioner=None,
     rel_tolerance: float = 1e-8,
     max_iter: Optional[int] = None,
@@ -65,12 +66,13 @@ def conjugate_gradient(
     """Solve ``A x = b`` for SPD ``A`` with (optionally preconditioned) CG.
 
     ``operator``/``preconditioner`` are callables ``v -> Av`` or 2-D tensors;
-    the iteration starts from ``x = 0``.
+    the iteration starts from ``x0`` (``None``: zero), its residual
+    ``b - A x0`` computed once.
     With ``check_definiteness``, a step with ``p·Ap <= 0`` stops with
     ``CG_INDEFINITE_OPERATOR`` (keeping the previous iterate) and
     ``r·z < 0`` stops with ``CG_INDEFINITE_PRECONDITIONER``.
     """
-    return _pcg(operator, rhs, preconditioner, rel_tolerance, max_iter, check_definiteness, None, _dot, _norm)
+    return _pcg(operator, rhs, preconditioner, rel_tolerance, max_iter, check_definiteness, x0, _dot, _norm)
 
 
 def _pcg(operator, rhs, preconditioner, rel_tolerance, max_iter, check_definiteness, x0, dot, norm) -> CgResult:

@@ -454,7 +454,7 @@ def test_em_kernels_match_plain_on_card(cuda_device):
 
 
 # every element and material of the sweeps: a box with two owner blocks of 1,024 nodes (RCM-reordered), and
-# 77 elements of a res-3 box (a ragged last tile for every element's tile of 4 or 8 elements)
+# 77 elements of a res-3 box (a ragged last tile for every element's tile: hex8's 4, the others' 32 or 64)
 TWO_BLOCK_RES = {"tet4": 8, "tet10": 4, "tet20": 3, "hex8": 11, "hex20": 6, "hex27": 5}
 SWEEP_MATERIALS = {"neo_hookean": NeoHookeanMaterial, "stvk": StVKMaterial, "linear": LinearElasticMaterial}
 
@@ -488,7 +488,7 @@ def _check_em_sweeps(name, material, mesh_fn, two_block_res, device):
     """The four element-sweep wrappers of one element and material against their plain versions with
     bitwise repeats: the fused banded sweeps (padding rows zero) and the strided sweeps on the gathered
     element-major rows, on the two-block mesh and on 77 elements of a res-3 mesh (a ragged last tile for
-    every tile of 4 or 8 elements)."""
+    every tile of 4, 32 or 64 elements)."""
     for res, count in ((two_block_res, None), (3, 77)):
         mesh, _ = reorder_mesh(mesh_fn(name, res))
         op, params = MaterialEllipticOperator(SWEEP_MATERIALS[material](), dim=mesh.dim), LameParameters(MU, LAM)
@@ -532,13 +532,68 @@ def test_em_sweeps_on_2d_elements_on_card(name, material, cuda_device):
     _check_em_sweeps(name, material, square_mesh, TWO_BLOCK_RES_2D[name], cuda_device)
 
 
+# the elements of the general layouts (every element but hex8)
+GENERAL_ELEMENTS = [name for name in (*TWO_BLOCK_RES, *TWO_BLOCK_RES_2D) if name != "hex8"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["hex8", "tet10", "quad9"])
+@pytest.mark.parametrize("count", ["one", "tile-1", "tile+1", "two blocks"])
+@pytest.mark.parametrize("name", GENERAL_ELEMENTS)
+def test_em_sweeps_at_tile_edges_on_card(name, count, cuda_device):
+    """Element counts around the launch's tile (``launch_layout``): 1, a tile less one and more one element, on
+    plans with one row an element (rowt 1: no padding, E_pad not a multiple of 4, so X and the fields take the
+    4-byte copies); and the two-block mesh of ``_check_em_sweeps`` with rowt 1, whose smaller owner block ends
+    in padding rows.  The four wrappers of each material against their plain versions, bitwise repeats,
+    padding rows zero, each wrapper's launch count up by 2."""
+    d = 2 if name in TWO_BLOCK_RES_2D else 3
+    mesh_fn = square_mesh if d == 2 else element_mesh
+    res = (TWO_BLOCK_RES_2D if d == 2 else TWO_BLOCK_RES)[name] if count == "two blocks" else 3
+    mesh, _ = reorder_mesh(mesh_fn(name, res))
+    tab = tabulate(element(name), canonical_stiffness(name))
+    tile = tes.launch_layout(MaterialEllipticOperator(NeoHookeanMaterial(), dim=d), tab, True)["elements"]
+    E = {"one": 1, "tile-1": tile - 1, "tile+1": tile + 1, "two blocks": mesh.num_cells}[count]
+    cells = np.concatenate([mesh.cells] * -(-E // mesh.num_cells))[:E]
+    g = rng(res + 7)
+    m, N = tab.geo_dphi.shape[1], mesh.num_vertices
+    pts = mesh.points + g.uniform(-0.05, 0.05, mesh.points.shape) / res
+    r_nodes = 1024 if count == "two blocks" else -(-N // 1024) * 1024  # else one owner block
+    tp = tb.make_banded_plan(cells, N, s=d, r_nodes=r_nodes, rowt=1, device=cuda_device)
+    assert count != "two blocks" or (tp.k_blocks == 2 and tp.padded_elements > tp.num_elements)
+    assert count == "two blocks" or tp.padded_elements == E
+    X = torch.as_tensor(tp.pad_elements(pts[cells[:, :m]]), dtype=torch.float32, device=cuda_device)
+    X = X.permute(1, 2, 0).contiguous()
+    u, v = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+            for a in (g.uniform(-0.01, 0.01, (N, d)) / res, g.standard_normal((N, d))))
+    ue, ve = (tb.banded_gather_plain(tp, a).permute(1, 2, 0) for a in (u, v))
+    cases = (
+        (tes.banded_vector_sweep, tes.banded_vector_sweep_plain, (tp, X, u)),
+        (tes.banded_tangent_sweep, tes.banded_tangent_sweep_plain, (tp, X, u, v)),
+        (tes.em_vector_sweep, TLE.assemble_element_elliptic_vectors_em, (X, ue)),
+        (tes.em_vector_tangent_sweep, TLE.assemble_element_elliptic_tangent_vectors_em, (X, ue, ve)),
+    )
+    padding = torch.as_tensor(tp.valid_elements(), device=cuda_device) == 0
+    for material, cls in SWEEP_MATERIALS.items():
+        op, params = MaterialEllipticOperator(cls(), dim=d), LameParameters(MU, LAM)
+        launches = [case[0].launches for case in cases]
+        for kernel, plain, args in cases:
+            got, again = kernel(*args, op, params, tab), kernel(*args, op, params, tab)
+            ref = plain(*args, op, params, tab)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (kernel.__name__, material)
+            assert rel_err(ref, got) < KERNEL_RTOL, (kernel.__name__, material)
+            if kernel.__name__.startswith("banded"):
+                assert not bool(got[padding].any()), (kernel.__name__, material)
+        assert [case[0].launches for case in cases] == [k + 2 for k in launches]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hex8", "tet10", "quad9", *(n for n in GENERAL_ELEMENTS if n not in ("tet10", "quad9"))])
 def test_em_sweeps_per_element_params_on_card(name, cuda_device):
     """Per-element ``[E]`` Lamé parameters (a two-material solid, each value varied by up to 10%) in the
     four wrappers against their plain versions, bitwise repeatable; an ``[E]`` array of one repeated value,
     and a 0-d CUDA tensor (read by the kernel, no host sync), give the scalar launch bitwise."""
-    mesh_fn, res = (square_mesh, TWO_BLOCK_RES_2D[name]) if name == "quad9" else (element_mesh, TWO_BLOCK_RES[name])
+    mesh_fn, res = ((square_mesh, TWO_BLOCK_RES_2D[name]) if name in TWO_BLOCK_RES_2D
+                    else (element_mesh, TWO_BLOCK_RES[name]))
     mesh, _ = reorder_mesh(mesh_fn(name, res))
     op = MaterialEllipticOperator(NeoHookeanMaterial(), dim=mesh.dim)
     tab, tp, X, u, v = _em_sweep_layout(name, mesh, mesh.cells, res, cuda_device, 1)

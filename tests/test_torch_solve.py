@@ -45,6 +45,26 @@ def test_cg_matches_jax(precondition):
     assert np.linalg.norm(A @ to_numpy(tres.x) - b) <= 1e-9 * np.linalg.norm(b)
 
 
+def test_cg_from_x0_matches_jax():
+    """CG from a nonzero starting iterate: the same iteration count and solution (f64, 1e-12) as JAX's
+    ``x0``.  Condition 1e2 and tolerance 1e-12: at condition 1e3 f64 CG's count moves with the summation
+    order of ``A v`` (from one start, numpy, JAX and torch take 55, 56 and 54 iterations)."""
+    A = _spd(cond=1e2)
+    g = rng(3)
+    b, x0 = g.standard_normal(A.shape[0]), g.standard_normal(A.shape[0])
+    jres = jcg.conjugate_gradient(lambda v: jnp.asarray(A) @ v, jnp.asarray(b), x0=jnp.asarray(x0),
+                                  rel_tolerance=1e-12)
+    tres = tcg.conjugate_gradient(torch.as_tensor(A), torch.as_tensor(b), x0=torch.as_tensor(x0),
+                                  rel_tolerance=1e-12)
+    assert tres.status == int(jres.status) == tcg.CG_CONVERGED
+    assert tres.num_iterations == int(jres.num_iterations)
+    assert rel_err(np.asarray(jres.x), tres.x) < 1e-12
+    # the start is used: one step from x0 differs from one step from zero
+    one = [tcg.conjugate_gradient(torch.as_tensor(A), torch.as_tensor(b), x0=start, max_iter=1).x
+           for start in (None, torch.as_tensor(x0))]
+    assert rel_err(to_numpy(one[0]), one[1]) > 1e-3
+
+
 def test_cg_max_iter_matches_jax():
     A = _spd()
     b = rng(2).standard_normal(A.shape[0])
