@@ -74,13 +74,11 @@
 //     arithmetic issue (staging ~20%).  Launch bounds: the resident blocks
 //     shared memory holds at the canonical rule, at most the most at which
 //     ptxas spills nothing (kTiling).
-//   * Layout B (TensorElements, kTiling's last column; compiled for no element):
-//     the two table contractions of the 3D elements, the reference gradients
-//     H = dphi^T u and the node sums dphi T, as mma.sync m16n8k8 TF32
-//     products with 3xTF32 splits (f32 accuracy), 8 elements a warp, the
-//     material on the CUDA cores.  On the H100 it ran slower than the general
-//     layout at hex20 and hex27 (166-226 registers, 2 blocks an SM), so both
-//     keep the general layout; it stays for tools/em_sweep_ab.py's A/B.
+//     Tensor cores do not pay here: the two table contractions of the 3D
+//     elements (H = dphi^T u, the node sums dphi T) as mma.sync m16n8k8 TF32
+//     products with 3xTF32 splits, 8 elements a warp, ran slower than this
+//     layout at hex20 and hex27 on the H100 (166-226 registers, 2 blocks an
+//     SM; PERF.md), so no element takes them.
 // The Lame parameters: a banded launch given one pair by value uses it as
 // kernel operands (LameValues); otherwise (a per-element array, element
 // stride 1, a device value, stride 0, and every strided launch) each
@@ -158,7 +156,6 @@ struct LameValues {
   __device__ __forceinline__ float mu() const { return m; }
   __device__ __forceinline__ float lam() const { return l; }
   __device__ __forceinline__ LameValues again() const { return *this; }
-  __device__ __forceinline__ LameValues element(int) const { return *this; }  // every element's
 };
 
 // -- materials ---------------------------------------------------------------------
@@ -979,21 +976,23 @@ __global__ void __launch_bounds__(Layout<D, M, N>::kThreads, sweep_min_blocks<BA
 // vector sweeps (General::kMinBlocks: what shared memory holds at those
 // points, at most this: the bound caps a thread's registers at 64K over the
 // threads of that many blocks, and these are the most at which ptxas spills
-// nothing), and whether the 3D contractions run on tensor cores (Layout B,
-// TensorElements).  Lanes and warps are the fastest of the variants
-// tools/em_sweep_ab.py timed on an H100 (PERF.md).
-constexpr int kTiling[11][6] = {
-    {1, 2, 1, 4, 8, 0},    // tet4
-    {2, 4, 4, 3, 3, 0},    // tet10
-    {4, 4, 14, 3, 3, 0},   // tet20
-    {8, 1, 8, 24, 24, 0},  // hex8
-    {4, 4, 27, 3, 3, 0},   // hex20
-    {4, 4, 27, 3, 4, 0},   // hex27
-    {1, 2, 4, 10, 12, 0},  // quad4
-    {1, 2, 9, 6, 8, 0},    // quad8
-    {1, 2, 9, 6, 8, 0},    // quad9
-    {1, 2, 1, 10, 12, 0},  // tri3
-    {1, 2, 3, 8, 8, 0},    // tri6
+// nothing).  Lanes and warps are the fastest of the variants
+// tools/em_sweep_ab.py timed on an H100 (PERF.md).  The points column is
+// quadrature.canonical_stiffness's count (tests/test_torch_em.py holds the two
+// equal); a launch at another rule runs, at the residency its shared memory
+// allows.
+constexpr int kTiling[11][5] = {
+    {1, 2, 1, 4, 8},    // tet4
+    {2, 4, 4, 3, 3},    // tet10
+    {4, 4, 14, 3, 3},   // tet20
+    {8, 1, 8, 24, 24},  // hex8
+    {4, 4, 27, 3, 3},   // hex20
+    {4, 4, 27, 3, 4},   // hex27
+    {1, 2, 4, 10, 12},  // quad4
+    {1, 2, 9, 6, 8},    // quad8
+    {1, 2, 9, 6, 8},    // quad9
+    {1, 2, 1, 10, 12},  // tri3
+    {1, 2, 3, 8, 8},    // tri6
 };
 
 __host__ __device__ constexpr int element_id(int d, int m, int n) {
@@ -1033,23 +1032,17 @@ struct General : Tables<D, M, N> {
   static constexpr int kThreads = 32 * kTiling[element_id(D, M, N)][1];
   static constexpr int kElems = kThreads / kLanes;
   static constexpr bool kSplit = kLanes > 1;
-  // Layout B (TensorElements): the table contractions on tensor cores, 8 elements a warp
-  static constexpr bool kTensor = kTiling[element_id(D, M, N)][5] == 1;
-  static constexpr int kHE = 73;  // an element's H or T of a chunk of 8 points, [24][3], in a warp's buffer
-  static constexpr int kHFields = (READ_U ? 1 : 0) + (TANGENT ? 1 : 0);
-  static constexpr int kWarpH = kTensor ? kHFields * 8 * kHE : 0;
-  static_assert(!kTensor || (D == 3 && kLanes == 4), "Layout B: 3D, a warp's 8 elements 4 lanes each");
   static constexpr int kTq = D * Tb::kNS;  // a point's T [D][kNS]
   static constexpr int kOut = D * N;
   static constexpr int kV = READ_U ? N * Tb::kNS : 0;
   static constexpr int kRec = odd_units(kV + (TANGENT ? N * Tb::kNS : 0), Tb::kNS);
   static constexpr int kP = D * M * kElems, kR = kP + 4 * kElems;
   static constexpr int kStage = round4(kR + kElems * kRec);
-  static constexpr int kTSlots = kSplit && !kTensor ? odd_units(2 * kLanes * kTq, 4) : 0;
+  static constexpr int kTSlots = kSplit ? odd_units(2 * kLanes * kTq, 4) : 0;
   // node indices a thread stages (banded): items t, t + kThreads, ... of the tile's (element, node) pairs
   static constexpr int kNodeItems = (kElems * N + kThreads - 1) / kThreads;
   __host__ __device__ static constexpr size_t smem_floats(int q) {
-    return 2 * (size_t)kStage + (size_t)kElems * kTSlots + (size_t)(kThreads / 32) * kWarpH + (size_t)q * Tb::kTab;
+    return 2 * (size_t)kStage + (size_t)kElems * kTSlots + (size_t)q * Tb::kTab;
   }
   // an SM's 228 KB of shared memory, 1 KB of it reserved a block
   static constexpr int kFit = (int)(233472 / (smem_floats(kTiling[element_id(D, M, N)][2]) * sizeof(float) + 1024));
@@ -1069,7 +1062,6 @@ struct LameRows {
   __device__ __forceinline__ float mu() const { return p[0]; }
   __device__ __forceinline__ float lam() const { return p[S]; }
   __device__ __forceinline__ LameRows again() const { return {p + 2 * S}; }
-  __device__ __forceinline__ LameRows element(int d) const { return {p + d}; }  // the element d columns on
 };
 
 // Banded mode: the node indices a thread stages in a tile (kNodeItems),
@@ -1361,223 +1353,6 @@ struct SplitElement {
   }
 };
 
-// -- Layout B: the table contractions on tensor cores -------------------------------
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x as hi + lo, both TF32 (10 mantissa bits, rounded to nearest): hi =
-// tf32(x), lo = tf32(x - hi); x - hi is exact, and hi + lo is x within
-// about 2^-22 |x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// d += a b on one m16n8k8 tile, TF32 inputs, f32 sums: a row-major 16 x 8
-// (a[0] (g, t), a[1] (g + 8, t), a[2] (g, t + 4), a[3] (g + 8, t + 4)), b
-// 8 x 8 (b[0] (t, g), b[1] (t + 4, g)), d 16 x 8 (d[0] (g, 2t), d[1] (g,
-// 2t + 1), d[2] (g + 8, 2t), d[3] (g + 8, 2t + 1)); g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32: d += a_lo b_hi + a_hi b_lo + a_hi b_hi, in that order (the small
-// terms first); a_lo b_lo (about 2^-22 of the product) is dropped.
-__device__ __forceinline__ void mma_3xtf32(float d[4], const uint32_t ah[4], const uint32_t al[4],
-                                           const uint32_t bh[2], const uint32_t bl[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
-// Layout B (3D): a warp's 8 elements at once, the points in chunks of 8 (24
-// columns (point, k)), two products a chunk on tensor cores (3xTF32), the
-// material between them on the CUDA cores, one lane an (element, point):
-//   H^T[(c, e)][(q, k)] = sum_a U[e][a][c] dphi[q][a][k]   (u, and v for the
-//       tangent: rows (c, e) 24 of 32, K the nodes, 24 columns), into the
-//       warp's buffer [field][e][kHE] as [e][(q, k)][c];
-//   the material: T[q][k][c] from H, over H's first field;
-//   out^T[(c, e)][a] += sum_{(q, k)} T[e][(q, k)][c] dphi[q][a][k]   (K the
-//       chunk's 24 columns), in registers across chunks.
-// The table is B in both (its staged rows, split at each fragment load);
-// padding (nodes past N, points past q, c = 3) reads zeros.  Elements that are
-// not real get T = 0, so zero rows.
-template <bool TANGENT, int M, int N, int MAT, int XS>
-struct TensorElements {
-  static constexpr int D = 3;
-  using Tb = Tables<D, M, N>;
-  static constexpr bool kReadU = !TANGENT || Material<D, MAT>::kTangentReadsU;
-  static constexpr int kFields = (kReadU ? 1 : 0) + (TANGENT ? 1 : 0);
-  static constexpr int kHE = 73;
-  static constexpr int kK = (N + 7) / 8;  // node k-steps (product 1), node n-tiles (product 2)
-  float out[2][kK][4];
-
-  // dphi[q][a][k] of the table (0 past q points or N nodes), col = 3 q + k
-  static __device__ __forceinline__ float dphi(const float* s_tab, int q, int col, int a) {
-    const int iq = col / 3, k = col - 3 * iq;
-    return iq < q && a < N ? s_tab[iq * Tb::kTab + Tb::kD + a * Tb::kNS + k] : 0.0f;
-  }
-
-  template <class P>
-  __device__ __forceinline__ void compute(const float* buf, const float* recs, int rec_stride, int v_off,
-                                          const float* s_tab, float* sH, int q, int e0, int lane, bool work,
-                                          P p) {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < kK; ++j)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) out[i][j][r] = 0.0f;
-    const float* rec_g = recs + (e0 + g) * rec_stride;  // element g's fields (A rows (c, g))
-    const int chunks = (q + 7) / 8;
-#pragma unroll 1
-    for (int ch = 0; ch < chunks; ++ch) {
-      const int col0 = 24 * ch;
-      // product 1: H^T of each field
-#pragma unroll
-      for (int f = 0; f < kFields; ++f) {
-        const float* U = rec_g + (kReadU && f == 0 ? 0 : v_off);
-        float h[2][3][4] = {};
-#pragma unroll
-        for (int ks = 0; ks < kK; ++ks) {
-          const int a0 = 8 * ks + t, a1 = a0 + 4;
-          uint32_t ah[2][4], al[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const int c0 = 2 * mt, c1 = 2 * mt + 1;
-            split_tf32(a0 < N ? U[a0 * Tb::kNS + c0] : 0.0f, ah[mt][0], al[mt][0]);
-            split_tf32(a0 < N && c1 < 3 ? U[a0 * Tb::kNS + c1] : 0.0f, ah[mt][1], al[mt][1]);
-            split_tf32(a1 < N ? U[a1 * Tb::kNS + c0] : 0.0f, ah[mt][2], al[mt][2]);
-            split_tf32(a1 < N && c1 < 3 ? U[a1 * Tb::kNS + c1] : 0.0f, ah[mt][3], al[mt][3]);
-          }
-#pragma unroll
-          for (int nt = 0; nt < 3; ++nt) {
-            uint32_t bh[2], bl[2];
-            const int col = col0 + 8 * nt + g;
-            split_tf32(dphi(s_tab, q, col, a0), bh[0], bl[0]);
-            split_tf32(dphi(s_tab, q, col, a1), bh[1], bl[1]);
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) mma_3xtf32(h[mt][nt], ah[mt], al[mt], bh, bl);
-          }
-        }
-        float* H = sH + f * 8 * kHE;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 3; ++nt) {
-            const int col = 8 * nt + 2 * t;
-            H[g * kHE + col * 3 + 2 * mt] = h[mt][nt][0];
-            H[g * kHE + (col + 1) * 3 + 2 * mt] = h[mt][nt][1];
-            if (mt == 0) {
-              H[g * kHE + col * 3 + 1] = h[mt][nt][2];
-              H[g * kHE + (col + 1) * 3 + 1] = h[mt][nt][3];
-            }
-          }
-      }
-      __syncwarp();
-      // the material: lane takes (element, point) items lane and lane + 32 of the chunk's 64
-#pragma unroll
-      for (int it = 0; it < 2; ++it) {
-        const int item = lane + 32 * it, e = item & 7, ql = item >> 3, iq = 8 * ch + ql;
-        const bool real = __shfl_sync(0xffffffffu, work, 4 * e);  // element e's lanes are 4 e, ..., 4 e + 3
-        float tq[9] = {};
-        if (real && iq < q) {
-          const float* row = s_tab + iq * Tb::kTab;
-          float Jinv[D][D], G[D][D], dG[D][D], S[D][D], Hf[D][D];
-          const float wdet = inverse_jacobian<D, M, XS>(row, buf + e0 + e, row[Tb::kW], Jinv);
-          const P pe = p.element(e - g);  // element e's parameters (p: the lane's own element g's)
-          Material<D, MAT> mat;
-          auto gradient_of = [&](const float* Hs, float Gout[D][D]) {
-#pragma unroll
-            for (int k = 0; k < D; ++k)
-#pragma unroll
-              for (int c = 0; c < D; ++c) Hf[k][c] = Hs[e * kHE + (3 * ql + k) * 3 + c];
-#pragma unroll
-            for (int d = 0; d < D; ++d)
-#pragma unroll
-              for (int c = 0; c < D; ++c) {
-                float acc = Jinv[0][d] * Hf[0][c];
-#pragma unroll
-                for (int k = 1; k < D; ++k) acc += Jinv[k][d] * Hf[k][c];
-                Gout[d][c] = acc;
-              }
-          };
-          if (kReadU) {
-            gradient_of(sH, G);
-            mat.at(G, pe);
-          }
-          if (TANGENT) {
-            gradient_of(sH + (kReadU ? 8 * kHE : 0), dG);
-            mat.tangent(dG, pe.again(), S);
-          } else {
-            mat.stress(pe, S);
-          }
-#pragma unroll
-          for (int k = 0; k < D; ++k)
-#pragma unroll
-            for (int c = 0; c < D; ++c) {
-              float acc = Jinv[k][0] * S[c][0];
-#pragma unroll
-              for (int d = 1; d < D; ++d) acc += Jinv[k][d] * S[c][d];
-              tq[k * 3 + c] = acc * wdet;
-            }
-        }
-        __syncwarp();  // every lane has read H before T overwrites its first field
-#pragma unroll
-        for (int j = 0; j < 9; ++j) sH[e * kHE + 9 * ql + j] = tq[j];
-      }
-      __syncwarp();
-      // product 2: out^T += T^T dphi over the chunk's 24 columns
-#pragma unroll
-      for (int ks = 0; ks < 3; ++ks) {
-        const int k0 = 8 * ks + t, k1 = k0 + 4;
-        uint32_t ah[2][4], al[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int c0 = 2 * mt, c1 = 2 * mt + 1;
-          split_tf32(sH[g * kHE + k0 * 3 + c0], ah[mt][0], al[mt][0]);
-          split_tf32(c1 < 3 ? sH[g * kHE + k0 * 3 + c1] : 0.0f, ah[mt][1], al[mt][1]);
-          split_tf32(sH[g * kHE + k1 * 3 + c0], ah[mt][2], al[mt][2]);
-          split_tf32(c1 < 3 ? sH[g * kHE + k1 * 3 + c1] : 0.0f, ah[mt][3], al[mt][3]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < kK; ++nt) {
-          uint32_t bh[2], bl[2];
-          const int a = 8 * nt + g;
-          split_tf32(dphi(s_tab, q, col0 + k0, a), bh[0], bl[0]);
-          split_tf32(dphi(s_tab, q, col0 + k1, a), bh[1], bl[1]);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_3xtf32(out[mt][nt], ah[mt], al[mt], bh, bl);
-        }
-      }
-      __syncwarp();  // T is read before the next chunk's H overwrites it
-    }
-  }
-
-  // the warp's elements' rows [e][a][c] into o (rows kOut = 3 N floats apart)
-  __device__ __forceinline__ void write(float* o, int e0, int lane) const {
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kK; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int c = 2 * mt + (r >> 1), a = 8 * nt + 2 * t + (r & 1);
-          if (c < 3 && a < N) o[(e0 + g) * 3 * N + a * 3 + c] = out[mt][nt][r];
-        }
-  }
-};
-
 // The general body (element_kernel): persistent blocks walk tiles of kElems
 // elements; a tile's copies land in one stage while the tile before computes
 // from the other, and the node indices of the tile after are loaded with
@@ -1594,8 +1369,8 @@ __device__ __forceinline__ void general_tiles(const float* __restrict__ X, const
   constexpr int kE = G::kElems, kT = G::kThreads, L = G::kLanes;
   extern __shared__ __align__(16) float smem[];
   float* s_buf = smem;
-  float* s_T = s_buf + 2 * G::kStage;  // SplitElement's T, or TensorElements' H and T
-  float* s_tab = s_T + kE * G::kTSlots + (kT / 32) * G::kWarpH;
+  float* s_T = s_buf + 2 * G::kStage;  // SplitElement's T
+  float* s_tab = s_T + kE * G::kTSlots;
   const int t = threadIdx.x, g = t / L, l = t % L;
   const int ntiles = (E + kE - 1) / kE, step = gridDim.x;
   int tile = blockIdx.x;
@@ -1653,13 +1428,7 @@ __device__ __forceinline__ void general_tiles(const float* __restrict__ X, const
     }
     const bool work = g < nel && real;
     const float* rec = buf + G::kR + g * G::kRec;
-    if constexpr (G::kTensor) {
-      TensorElements<TANGENT, M, N, MAT, kE> el;
-      const int warp = t >> 5, lane = t & 31;
-      el.compute(buf, buf + G::kR, G::kRec, G::kV, s_tab, s_T + warp * G::kWarpH, q, warp * 8, lane, work, p);
-      __syncthreads();
-      el.write(buf, warp * 8, lane);
-    } else if constexpr (G::kSplit) {
+    if constexpr (G::kSplit) {
       SplitElement<TANGENT, D, M, N, MAT, L, kE> el;
       el.compute(buf + g, rec, rec + G::kV, s_tab, s_T + g * G::kTSlots, q, l, work, p);
       __syncthreads();  // the stage is read: the tile's rows take it

@@ -7,6 +7,9 @@ sweeps are held against JAX's banded gather (its XLA fallback on the CPU)
 followed by the vector or tangent sweep.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -250,48 +253,20 @@ def test_banded_tangent_sweep_takes_plain_version_on_cpu_and_refuses_other_devic
         tes.banded_tangent_sweep(tp, *meta, top, params, ttab)
 
 
-def _tf32(x):
-    """``cvt.rna.tf32.f32``: f32 rounded to 10 mantissa bits, to nearest, ties away from zero."""
-    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+def _tiling_rows():
+    """``kTiling`` of ``csrc/em_sweep.cu``: element name -> (lanes, warps, points, tangent cap, vector cap)."""
+    src = (Path(tes.__file__).resolve().parent.parent / "csrc" / "em_sweep.cu").read_text()
+    table = re.search(r"constexpr int kTiling\[11\]\[5\] = \{(.*?)\n\};", src, re.S).group(1)
+    rows = re.findall(r"\{(\d+), (\d+), (\d+), (\d+), (\d+)\},\s*// (\w+)", table)
+    return {name: tuple(int(x) for x in row) for *row, name in rows}
 
 
-def _mma_product(A, B, split):
-    """``A [M, K] @ B [K, N]`` as Layout B of ``csrc/em_sweep.cu`` takes it on tensor cores: k-steps of 8, each
-    one m16n8k8 product a term summed in f32 onto the running sum (each product of two TF32 values exact in
-    f32), the terms a_lo b_hi, a_hi b_lo, a_hi b_hi in that order (``split``, 3xTF32) or a_hi b_hi alone."""
-    A, B = np.asarray(A, np.float32), np.asarray(B, np.float32)
-    Ah, Bh = _tf32(A), _tf32(B)
-    Al, Bl = _tf32(A - Ah), _tf32(B - Bh)
-    terms = [(Al, Bh), (Ah, Bl), (Ah, Bh)] if split else [(Ah, Bh)]
-    d = np.zeros((A.shape[0], B.shape[1]), np.float32)
-    for k0 in range(0, A.shape[1], 8):
-        for a, b in terms:
-            step = np.zeros_like(d)
-            for k in range(k0, min(k0 + 8, A.shape[1])):
-                step += a[:, k, None] * b[None, k, :]
-            d += step
-    return d
-
-
-@pytest.mark.parametrize("name", ["hex20", "hex27"])
-def test_layout_b_3xtf32_contraction_keeps_f32_digits(name):
-    """Layout B's table contraction H^T[(c, e)][(q, k)] = sum_a u[e][a][c] dphi[q][a][k] on the element's
-    canonical tables, u from a seed, emulated: with the 3xTF32 split it holds the f64 product and the plain f32
-    product to 2e-6 (the kernels' 1e-5 against their plain versions); one TF32 product alone misses that by
-    orders of magnitude, so the split is needed."""
-    from fenris_tpu_torch.reference_elements import element
-
-    tab = tabulate(element(name), canonical_stiffness(name))
-    q, n = tab.dphi.shape[0], tab.dphi.shape[1]
-    table = np.asarray(tab.dphi, np.float32).transpose(1, 0, 2).reshape(n, 3 * q)  # [a][(q, k)]
-    u = rng(5).standard_normal((8, n, 3)).astype(np.float32)
-    U = u.transpose(2, 0, 1).reshape(24, n)  # rows (c, e)
-    exact = U.astype(np.float64) @ table.astype(np.float64)
-    scale = np.abs(exact).max()
-    plain = (U @ table).astype(np.float64)
-    split = _mma_product(U, table, True).astype(np.float64)
-    single = _mma_product(U, table, False).astype(np.float64)
-    assert np.abs(split - exact).max() / scale <= 2e-6
-    assert np.abs(split - plain).max() / scale <= 2e-6
-    assert np.abs(single - exact).max() / scale > 2e-5
+@pytest.mark.parametrize("name", ["tet4", "tet10", "tet20", "hex20", "hex27", "quad4", "quad8", "quad9", "tri3", "tri6"])
+def test_kernel_tiling_points_are_the_canonical_rules(name):
+    """The general sweep's launch bound is sized by shared memory at ``kTiling``'s point count, which must be the
+    canonical stiffness rule's, the rule every caller of the fused sweeps tabulates."""
+    rows = _tiling_rows()
+    assert len(rows) == 11
+    lanes, warps, points, _, _ = rows[name]
+    assert points == canonical_stiffness(name).num_points
+    assert (32 * warps) % lanes == 0 and (32 * warps // lanes) % 4 == 0  # a tile's X rows are 16-byte runs
