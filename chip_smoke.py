@@ -35,9 +35,11 @@ versions) and drives the port's paths at full size:
   (bench.py:137-270) at full width: hex20 on the 64^3 box (262,144 cells,
   1,085,825 nodes) and tet10 on the BCC res-40 box (768,000 cells,
   1,043,441 nodes), linear elasticity and Laplace; the kernel (hex20 with
-  its points in chunks) against its plain version, timed in turns beside
-  its bound with M elements/s, and again at bench.py's own sizes (hex20
-  28^3, tet10 BCC 18);
+  its table of 16 elements a block) against its plain version, timed in
+  turns beside its bound with M elements/s, and again at bench.py's own
+  sizes (hex20 28^3, tet10 BCC 18); then row 3's other 3D elements at full
+  width, both operators: tet4 on the BCC res-40 box (768,000 cells), tet20
+  on the BCC res-32 box (393,216) and hex27 on the 48^3 box (110,592);
 * a CG-count diagnostic at res 80: the first Newton step's CG iterations
   on seven operators (assembled f32 with the band-sweep kernel and with
   the plain band matvec, the fused matrix-free kernel and its plain
@@ -203,9 +205,11 @@ gather's and scatter's records also carry ``card_ms`` and
 ``library_card_ms``: the calls captured in a CUDA graph, cycling through
 copies of the inputs that hold 3x the L2 between two uses of one copy.  ``ptxas`` lines (registers, shared memory, spills) of the
 stencil, gather (s = 1, 2, 3, any s), scatter (s = 1, 2, any s) and
-stiffness kernels and all 132 element-sweep instantiations
-(11 elements x 3 materials x 4 modes) are printed, and a spill in any of
-them, or a missing instantiation, fails the run.  The card's
+stiffness kernels (each element's three forms: matrix, its isotropic terms
+and scalar, with each form's launch layout, and any rule's matrix and scalar forms; tet20's scalar form is
+its reference sums) and all 132 element-sweep
+instantiations (11 elements x 3 materials x 4 modes) are printed, and a
+spill in any of them, or a missing instantiation, fails the run.  The card's
 ``nvidia-smi`` name and power limit are printed on a line of their own;
 the second-to-last line of standard
 output is the per-kernel JSON record, the last line the device record.
@@ -248,6 +252,9 @@ RES_C3 = 63
 RES_B20 = 64  # convert_mesh(create_unit_box_uniform_hex_mesh_3d(64), "hex20"): 262,144 cells
 RES_B10 = 40  # convert_mesh(create_unit_box_uniform_tet_mesh_3d(40), "tet10"): 768,000 cells
 RES_BENCH = {"hex20": 28, "tet10": 18}
+# row 3's other 3D elements (T4: B10's mesh before conversion; T20: 5.7 GB of linear output; H27:
+# tools/em_sweep_ab.py's M27 mesh): cell -> (element, resolution)
+STIFFNESS_3D_CELLS = {"T4": ("tet4", 40), "T20": ("tet20", 32), "H27": ("hex27", 48)}
 RES_DIAG = 80  # the CG-count diagnostic: 512,000 cells, 1,594,323 dofs
 # Poisson on hex8: the reference's MMS resolutions (tests/test_convergence.py:85-90), and P149, the
 # scalar problem on path A's mesh (3,375,000 dofs at s = 1).  f32 CG tolerances: an f32 solution's
@@ -414,13 +421,20 @@ def stiffness_ops(E, m, n, q, s, sym, d):
     upper ones of a symmetric operator's diagonal pair): per point t = (w|det| G) C^ij, P n d (2d - 1),
     and t . G summed over points and d, 2 q d - 1 an entry; or, as the kernel does,
     M_ab = sum_q w|det| G_a G_b^T once per node pair a <= b, d^2 (2q - 1), and C^ij : M, 2 d^2 - 1 an
-    entry."""
+    entry.  On a simplex at s = 1 also the reference sums (J once; K = |det| J^-1 C J^-T, d^2 (2d - 1) and
+    u (2d - 1) + u for its u = d (d + 1) / 2 upper entries; K against the rule's sums, 2u - 1 an entry), as
+    the kernel does on tet20."""
     pairs = s * (s + 1) // 2 if sym else s * s
     entries = (s * (s - 1) // 2 * n * n + s * n * (n + 1) // 2) if sym else s * s * n * n
     geometry = q * (d * d * (2 * m - 3) + STIFFNESS_INV_OPS[d] + 1 + n * d * (2 * d - 1) + n * d) + (m - 1) * d
     per_point = q * pairs * n * d * (2 * d - 1) + entries * (2 * q * d - 1)
     node_pairs = n * (n + 1) // 2 * d * d * (2 * q - 1) + entries * (2 * d * d - 1)
-    return E * (geometry + min(per_point, node_pairs))
+    best = geometry + min(per_point, node_pairs)
+    if m == d + 1 and s == 1:
+        u = d * (d + 1) // 2
+        simplex = (m - 1) * d + d * d * (2 * m - 3) + STIFFNESS_INV_OPS[d] + d * d * (2 * d - 1) + 2 * d * u
+        best = min(best, simplex + entries * (2 * u - 1))
+    return E * best
 
 
 # J^-1 and det by cofactors: 3D 9 cofactors (27), det 5, its reciprocal 1, 9 products; 2D det 3, its
@@ -514,6 +528,52 @@ PTXAS_LABELS = {"nh_marchILb1E": "neo_hookean_hvp (nh_march<true>)",
                    for k, top in (("gather", 3), ("scatter", 2)) for s in range(top + 1)}}
 
 
+def stiffness_label(mangled):
+    """The label of a stiffness kernel's mangled name (``pairs_kernel<element, scalar, isotropic, any rule>``:
+    "stiffness_pairs (hex20, scalar form)", "stiffness_pairs (hex20, scalar form, any rule)";
+    ``sums_kernel<element>``: "stiffness_pairs (tet20, sums form)"), or None."""
+    import fenris_tpu_torch.ops.stiffness_pairs as sp
+
+    tiled = re.search(r"12pairs_kernelILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", mangled)
+    if tiled:
+        form = "scalar" if tiled[2] == "1" else "isotropic matrix" if tiled[3] == "1" else "matrix"
+        rule = ", any rule" if tiled[4] == "1" else ""
+        return f"stiffness_pairs ({list(sp._TILING)[int(tiled[1])]}, {form} form{rule})"
+    sums = re.search(r"11sums_kernelILi(\d+)E", mangled)
+    if sums:
+        return f"stiffness_pairs ({list(sp._TILING)[int(sums[1])]}, sums form)"
+    return None
+
+
+def stiffness_layout_report(found):
+    """Each element's two stiffness launches (``ops/stiffness_pairs._TILING``) with the registers and spills of
+    their instantiations (``found``, ptxas_report's: the canonical rule's three forms and any rule's two, or
+    where a scalar row's tile side is 0 the matrix forms and the reference-sums form); fails unless every
+    instantiation the table asks for was built, and on a layout that fits no block."""
+    import fenris_tpu_torch.ops.stiffness_pairs as sp
+    from fenris_tpu_torch.quadrature import canonical_stiffness
+
+    expect = 0
+    for name, ((d, m, n), *forms) in sp._TILING.items():
+        scalar = (("sums", "", forms[1]),) if forms[1][2] == 0 else (("scalar", "", forms[1]),
+                                                                      ("scalar", ", any rule", forms[1]))
+        for form, rule, (elems, warps, tile, bound) in (
+                ("matrix", "", forms[0]), ("isotropic matrix", "", forms[0]), ("matrix", ", any rule", forms[0]),
+                *scalar):
+            label = f"stiffness_pairs ({name}, {form} form{rule})"
+            check(label in found, f"{label}: not built")
+            expect += 1
+            txt = found[label]
+            smem = sp._smem_bytes(m, n, canonical_stiffness(name).num_points, d, form in ("scalar", "sums"))
+            blocks = min(sp._SM_SMEM // (smem + 1024), 2048 // (32 * warps), 32)
+            log(f"layout {label}: {elems} elements a block, {warps} warps, tile {tile} x {tile}, launch bound "
+                f"{1 if rule else bound} blocks an SM, {smem} shared bytes at the canonical rule, {blocks} blocks an SM by shared "
+                f"memory and threads; {txt}")
+            check(blocks >= 1, f"{label}: no block fits an SM")
+    built = sum(k.startswith("stiffness_pairs (") for k in found)
+    check(built == expect, f"stiffness_pairs: ptxas reports {built} instantiations, the table asks for {expect}")
+
+
 def ptxas_report(build_log):
     """Registers, shared memory and spill bytes of the stencil, gather, sweep and stiffness kernels,
     from the loaded library's ``-Xptxas -v`` log; returns ``{label: ptxas text}``."""
@@ -527,9 +587,9 @@ def ptxas_report(build_log):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             label = next((v for k, v in PTXAS_LABELS.items() if k in m.group(1)), None)
-            st = re.search(r"stiffness_pairs_kernelILi(\d)ELi(\d)ELi(\d)E", m.group(1))
+            st = stiffness_label(m.group(1))
             if st:
-                label = f"stiffness_pairs (d = {st.group(1)}, {st.group(2)} pairs, {st.group(3)} a thread)"
+                label = st
             em = re.search(r"(?:sweep|element)_kernelILb(\d)ELb(\d)ELi(\d)ELi(\d+)ELi(\d+)ELi(\d)E", m.group(1))
             if em:
                 banded, tangent, dd, mm, nn, mat = (int(x) for x in em.groups())
@@ -2727,7 +2787,7 @@ def stiffness_launch(sp, X, op, params, tab):
 
     tables, C, meta = sp._constants(op, params, tab)
     tables_d = torch.as_tensor(tables, dtype=torch.float32, device=X.device)
-    cf = np.ascontiguousarray(C, dtype=np.float32)
+    cf = sp.host_constants(C, meta)
     E, lib = X.shape[0], load_library()
     padded = -(-E // 32) * 32
     out = torch.empty(meta["s"] ** 2 * meta["n"] ** 2 * padded, device=X.device)
@@ -2801,35 +2861,48 @@ def stiffness_phases(kernels, dev, smi):
         bound_txt = set_bound(rec, (X.numel() + s * s * 64 * E) * 4, stiffness_ops(E, m, 8, q, s, op.symmetric, 3))
         log(f"time stiffness_pairs {name} res={RES_B}: {txt}; {E / (ms * 1e-3) / 1e6:.1f} M elements/s; "
             f"{bound_txt}, {rec['bound_ms'] / ms * 100:.1f}% of it ({smi})")
+        rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None)
+        kernels["stiffness_pairs" if name == "linear" else "stiffness_pairs (hex8 laplace, B)"].update(rec)
         if name == "linear":
-            k.update(rec, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None)
             stiffness_row_padding(sp, X, op, params, tab, smi)
         free_memory()
-    log(f"stiffness_pairs shared memory a block: {sp._smem_bytes(m, 8, q, 3)} bytes (hex8)")
+        log(f"stiffness_pairs {name} launch (hex8): {sp.launch_layout(op, params, tab)}")
 
-    # entry B: the public element-stiffness entry point with kernel="auto"
-    op, params = cases["linear"]
-    reset_counts(kernels)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    A = assemble_element_elliptic_matrices_pairs(X, None, op, params, tab, kernel="auto")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    k["launches"] = k["fn"].launches
-    log(f"entry B: assemble_element_elliptic_matrices_pairs(kernel='auto') res={RES_B}: {tuple(A.shape)} in "
-        f"{wall * 1e3:.3f} ms, stiffness_pairs launches={k['launches']} ({smi})")
-    check(tuple(A.shape) == (9, 64, E) and bool(torch.isfinite(A).all()), "entry B: wrong or non-finite output")
-    check(k["launches"] > 0, "entry B: the stiffness kernel was not launched")
-    del A, X
+    # entry B: the public element-stiffness entry point with kernel="auto", each operator
+    for name, (op, params) in cases.items():
+        rec = kernels["stiffness_pairs" if name == "linear" else "stiffness_pairs (hex8 laplace, B)"]
+        s = op.solution_dim
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A = assemble_element_elliptic_matrices_pairs(X, None, op, params, tab, kernel="auto")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec["launches"] = rec["fn"].launches
+        log(f"entry B: assemble_element_elliptic_matrices_pairs(kernel='auto') {name} res={RES_B}: {tuple(A.shape)} "
+            f"in {wall * 1e3:.3f} ms, stiffness_pairs launches={rec['launches']} ({smi})")
+        check(tuple(A.shape) == (s * s, 64, E) and bool(torch.isfinite(A).all()),
+              f"entry B {name}: wrong or non-finite output")
+        check(rec["launches"] > 0, f"entry B {name}: the stiffness kernel was not launched")
+        del A
+        free_memory()
+    del X
     free_memory()
 
 
+def stiffness_record(cell, name, kind):
+    """The kernel line's record of the stiffness kernel on a 3D cell: B20's and B10's linear records keep
+    their names."""
+    return f"stiffness_pairs ({name}, {cell})" if kind == "linear" else f"stiffness_pairs ({name} {kind}, {cell})"
+
+
 def stiffness_element_phases(kernels, dev, smi):
-    """Entry B20/B10: the stiffness kernel on hex20 (points in chunks) and tet10 at full width, linear
-    elasticity and Laplace: against its plain version (rel <= KERNEL_RTOL, bitwise repeats), timed in
-    turns with it, bound and M elements/s; the public entry point with kernel="auto" under reset counts;
-    then the kernel and its plain version at bench.py's own sizes.  Returns B20's and B10's meshes by element
-    name (P40-tet10 and the element-sweep phases reuse them)."""
+    """Entry B20/B10: the stiffness kernel on hex20 and tet10 at full width, linear elasticity and Laplace:
+    against its plain version (rel <= KERNEL_RTOL, bitwise repeats), timed in turns with it, bound and M
+    elements/s, each operator's record; the public entry point with kernel="auto" under reset counts, each
+    operator (its launches go to the record); then the kernel and its plain version at bench.py's own sizes.
+    Then T4, T20 and H27 (STIFFNESS_3D_CELLS) the same, without a bench size.  Returns B20's and B10's meshes
+    by element name (P40-tet10 and the element-sweep phases reuse them)."""
     import torch
 
     import fenris_tpu_torch.ops.stiffness_pairs as sp
@@ -2844,21 +2917,23 @@ def stiffness_element_phases(kernels, dev, smi):
         "laplace": (LaplaceOperator(), None),
     }
     meshes = {}
-    for name, res, cell, key in (("hex20", RES_B20, "B20", "stiffness_pairs (hex20, B20)"),
-                                 ("tet10", RES_B10, "B10", "stiffness_pairs (tet10, B10)")):
+    cells = {"B20": ("hex20", RES_B20), "B10": ("tet10", RES_B10), **STIFFNESS_3D_CELLS}
+    for cell, (name, res) in cells.items():
         t0 = time.perf_counter()
-        mesh = meshes[cell] = element_box(name, res)
+        mesh = element_box(name, res)
+        if cell in ("B20", "B10"):
+            meshes[cell] = mesh
         mesh_s = time.perf_counter() - t0
         tab = tabulate(mesh.element, canonical_stiffness(name))
         q, m, _ = tab.geo_dphi.shape
         n = tab.dphi.shape[1]
-        k = kernels[key]
         X = FemSpace.create(mesh, 3, torch.float32, dev).X_geo
         E = X.shape[0]
-        log(f"entry {cell}: {name} res {res}: {E} cells, {mesh.num_vertices} nodes, mesh {mesh_s:.3f} s; kernel "
-            f"points a chunk {sp._chunk_points(m, n, q, 3)} of {q}, shared memory a block {sp._smem_bytes(m, n, q, 3)} "
-            f"bytes")
+        log(f"entry {cell}: {name} res {res}: {E} cells, {mesh.num_vertices} nodes, mesh {mesh_s:.3f} s; launches "
+            + "; ".join(f"{kind} {sp.launch_layout(op, params, tab)}" for kind, (op, params) in cases.items()))
+        del mesh
         for kind, (op, params) in cases.items():
+            k = kernels[stiffness_record(cell, name, kind)]
             s = op.solution_dim
             got = sp.stiffness_pairs(X, op, params, tab)
             again = sp.stiffness_pairs(X, op, params, tab)
@@ -2869,30 +2944,33 @@ def stiffness_element_phases(kernels, dev, smi):
             free_memory()
             ms, plain_ms, txt = in_turns(lambda: sp.stiffness_pairs(X, op, params, tab),
                                          lambda: sp.stiffness_pairs_plain(X, op, params, tab), reps=5, plain_reps=2)
-            rec = {}
-            bound_txt = set_bound(rec, (X.numel() + s * s * n * n * E) * 4, stiffness_ops(E, m, n, q, s, op.symmetric, 3))
+            bound_txt = set_bound(k, (X.numel() + s * s * n * n * E) * 4, stiffness_ops(E, m, n, q, s, op.symmetric, 3))
+            k.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None)
             log(f"time stiffness_pairs {name} {kind} {cell}: {txt}; {E / (ms * 1e-3) / 1e6:.2f} M elements/s; "
-                f"{bound_txt}, {rec['bound_ms'] / ms * 100:.1f}% of it ({smi})")
-            if kind == "linear":
-                k.update(rec, max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None)
+                f"{bound_txt}, {k['bound_ms'] / ms * 100:.1f}% of it ({smi})")
             free_memory()
 
-        op, params = cases["linear"]
-        reset_counts(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        A = assemble_element_elliptic_matrices_pairs(X, None, op, params, tab, kernel="auto")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        k["launches"] = k["fn"].launches
-        log(f"entry {cell}: assemble_element_elliptic_matrices_pairs(kernel='auto') {name}: {tuple(A.shape)} in "
-            f"{wall * 1e3:.3f} ms, stiffness_pairs launches={k['launches']} ({smi})")
-        check(tuple(A.shape) == (9, n * n, E) and bool(torch.isfinite(A).all()), f"entry {cell}: wrong or non-finite output")
-        check(k["launches"] > 0, f"entry {cell}: the stiffness kernel was not launched")
-        del A, X
+            reset_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            A = assemble_element_elliptic_matrices_pairs(X, None, op, params, tab, kernel="auto")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k["launches"] = k["fn"].launches
+            log(f"entry {cell}: assemble_element_elliptic_matrices_pairs(kernel='auto') {name} {kind}: "
+                f"{tuple(A.shape)} in {wall * 1e3:.3f} ms, stiffness_pairs launches={k['launches']} ({smi})")
+            check(tuple(A.shape) == (s * s, n * n, E) and bool(torch.isfinite(A).all()),
+                  f"entry {cell} {kind}: wrong or non-finite output")
+            check(k["launches"] > 0, f"entry {cell} {kind}: the stiffness kernel was not launched")
+            del A
+            free_memory()
+        del X
         free_memory()
+        if name not in RES_BENCH:
+            continue
 
         # bench.py's own size of this element
+        op, params = cases["linear"]
         mesh = element_box(name, RES_BENCH[name])
         Xb = FemSpace.create(mesh, 3, torch.float32, dev).X_geo
         Eb = Xb.shape[0]
@@ -2953,10 +3031,10 @@ def poisson_routes():
 
 def stiffness_2d_phases(kernels, found, dev, smi):
     """B2: the stiffness kernel at d = 2 on the unit square at full width (B2_MESHES), Laplace (s = 1)
-    and 2D linear elasticity (s = 2): ptxas lines of the d = 2 instantiations (a spill fails the run),
-    each element's table in one chunk, kernel against plain (rel <= KERNEL_RTOL, bitwise repeats), times in
-    turns beside the bound with M elements/s, and the public entry point with kernel="auto" under reset
-    counts (its launches go to the record)."""
+    and 2D linear elasticity (s = 2): ptxas lines of the d = 2 instantiations (five forms an element; a spill
+    fails the run), each element's launch layout, kernel against plain (rel <= KERNEL_RTOL, bitwise repeats),
+    times in turns beside the bound with M elements/s, and the public entry point with kernel="auto" under
+    reset counts (its launches go to the record)."""
     import torch
 
     import fenris_tpu_torch.ops.stiffness_pairs as sp
@@ -2966,11 +3044,10 @@ def stiffness_2d_phases(kernels, found, dev, smi):
     from fenris_tpu_torch.quadrature import canonical_stiffness
     from fenris_tpu_torch.solid import LameParameters, LinearElasticMaterial, MaterialEllipticOperator
 
-    d2 = {n: t for n, t in found.items() if n.startswith("stiffness_pairs (d = 2,")}
+    d2 = {n: t for n, t in found.items() if n.split(" (")[-1].split(",")[0] in B2_MESHES}
     for name, txt in d2.items():
         log(f"B2 ptxas {name}: {txt}")
-    check(any(", 1 pairs," in n for n in d2) and any(", 3 pairs," in n for n in d2),
-          f"B2: ptxas reports no d = 2 instantiation for 1 or 3 pairs: {list(d2)}")
+    check(len(d2) == 5 * len(B2_MESHES), f"B2: ptxas reports {len(d2)} of the 2D elements' 25 instantiations: {list(d2)}")
     check(all("0 bytes spill stores, 0 bytes spill loads" in t for t in d2.values()), f"B2: spills in {d2}")
     cases = {
         "linear": (MaterialEllipticOperator(LinearElasticMaterial(), dim=2), LameParameters(mu=MU, lam=LAM)),
@@ -2985,10 +3062,8 @@ def stiffness_2d_phases(kernels, found, dev, smi):
         n = tab.dphi.shape[1]
         X = FemSpace.create(mesh, 1, torch.float32, dev).X_geo
         E = X.shape[0]
-        qc = sp._chunk_points(m, n, q, 2)
         log(f"entry B2: {name} res {res}: {E} cells, {mesh.num_vertices} nodes, mesh {mesh_s:.3f} s; {q} points, "
-            f"points a chunk {qc}, shared memory a block {sp._smem_bytes(m, n, q, 2)} bytes")
-        check(qc == q, f"B2 {name}: the gradient table must fit one block (points a chunk {qc} of {q})")
+            f"launches " + "; ".join(f"{kind} {sp.launch_layout(op, params, tab)}" for kind, (op, params) in cases.items()))
         for kind, (op, params) in cases.items():
             s = op.solution_dim
             k = kernels[f"stiffness_pairs ({name} {kind}, B2)"]
@@ -4277,15 +4352,16 @@ def kernel_records():
             fn=sp.stiffness_pairs, path="B", source=SOURCES["stiffness_pairs"],
             replaces="fenris_tpu/ops/stiffness_kernel.py:162",
         ),
-        # BASELINE's headline elements: hex20 (points in chunks) and tet10, linear elasticity
-        "stiffness_pairs (hex20, B20)": dict(
-            fn=sp.stiffness_pairs, path="B20", source=SOURCES["stiffness_pairs"],
+        "stiffness_pairs (hex8 laplace, B)": dict(
+            fn=sp.stiffness_pairs, path="B", source=SOURCES["stiffness_pairs"],
             replaces="fenris_tpu/ops/stiffness_kernel.py:162",
         ),
-        "stiffness_pairs (tet10, B10)": dict(
-            fn=sp.stiffness_pairs, path="B10", source=SOURCES["stiffness_pairs"],
-            replaces="fenris_tpu/ops/stiffness_kernel.py:162",
-        ),
+        # BASELINE's headline elements, hex20 and tet10, and row 3's other 3D elements, each operator
+        **{stiffness_record(cell, name, kind): dict(
+            fn=sp.stiffness_pairs, path=cell, source=SOURCES["stiffness_pairs"],
+            replaces="fenris_tpu/ops/stiffness_kernel.py:162")
+           for cell, (name, _) in {"B20": ("hex20", 0), "B10": ("tet10", 0), **STIFFNESS_3D_CELLS}.items()
+           for kind in ("linear", "laplace")},
         "banded_gather": dict(
             fn=bd.banded_gather, path="C", source=SOURCES["banded"], replaces="fenris_tpu/ops/banded.py:285",
         ),
@@ -4441,6 +4517,7 @@ def main() -> int:
     em_entries, em_all = sum(n.startswith("em_sweep") for n in found), len(es.ELEMENTS) * len(es.MATERIALS) * 4
     check(em_entries == em_all, f"em_sweep: ptxas reports {em_entries} of {em_all} instantiations")
     em_layout_report(found)
+    stiffness_layout_report(found)
     t0 = time.perf_counter()
     card_tests()
     log(f"phase card tests: {time.perf_counter() - t0:.3f} s")

@@ -230,11 +230,13 @@ def _direct_pairs_emulation(X, op, params, tab):
     """float64 emulation of ``csrc/stiffness_pairs.cu`` on the inputs its wrapper hands it.
 
     Per quadrature point J, J^-1, w|det| and the physical gradients
-    ``G_q = dphi_q J^-1``; per node pair ``M_ab = Σ_q w|det| G_q[a] G_q[b]ᵀ``;
-    per computed pair p (row-major, upper only for symmetric operators) the
-    block entries ``C^p : M_ab``, i.e. ``Σ_q (w|det| G_q) C^p G_qᵀ``; the
-    mirror block (j, i) of a symmetric operator is the node transpose of
-    (i, j).
+    ``G_q = dphi_q J^-1``; for one symmetric positive definite contraction
+    pair (Laplace) the scalar form, ``H_q = sqrt(w|det|) G_q L`` with
+    ``C = L Lᵀ`` and the entries ``Σ_q H_q[a] · H_q[b]``; else per node pair
+    ``M_ab = Σ_q w|det| G_q[a] G_q[b]ᵀ`` and per computed pair p (row-major,
+    upper only for symmetric operators) the block entries ``C^p : M_ab``,
+    i.e. ``Σ_q (w|det| G_q) C^p G_qᵀ``; the mirror block (j, i) of a
+    symmetric operator is the node transpose of (i, j).
     """
     tables, C, meta = tsk._constants(op, params, tab)
     m, n, q, d, s, sym = (meta[k] for k in ("m", "n", "q", "d", "s", "sym"))
@@ -245,7 +247,11 @@ def _direct_pairs_emulation(X, op, params, tab):
     X = torch.as_tensor(X, dtype=torch.float64)
     J = torch.einsum("qml,emk->eqkl", gd, X)
     G = torch.einsum("qbl,eqlk->eqbk", dphi, torch.linalg.inv(J))
-    wG = G * (w * torch.linalg.det(J).abs())[..., None, None]
+    wdet = w * torch.linalg.det(J).abs()
+    if tsk._scalar_form(C):
+        H = G @ torch.as_tensor(tsk._cholesky(C[0])) * wdet.sqrt()[..., None, None]
+        return torch.einsum("eqak,eqbk->abe", H, H).reshape(1, n * n, -1)
+    wG = G * wdet[..., None, None]
     M = torch.einsum("eqak,eqbl->abkle", wG, G)
     pairs = [(i, j) for i in range(s) for j in range(s) if not sym or i <= j]
     assert C.shape == (len(pairs), d, d)
@@ -282,7 +288,8 @@ def test_stiffness_kernel_gate():
         solution_dim, symmetric, constant_contraction = 4, True, True  # 10 upper pairs
 
     assert not tsk._fits(FourComponents(), ttab)
-    assert tsk._smem_bytes(8, 8, 8, 3) == 4 * (8 * 8 * 32 * 4 + 8 * 3 * 32 + 8 * 16 * 3 + 8)
+    # hex8's table at 8 points, 32 elements a block, a point's 24 floats an element padded to 25, and the coordinates
+    assert tsk._smem_bytes(8, 8, 8, 3) == 4 * (8 * 25 * 32 + 8 * 3 * 32)
     assert not tsk.supports_stiffness_kernel(lin, _params("linear")[1], ttab, torch.zeros((4, 8, 3)))
 
 

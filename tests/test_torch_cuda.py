@@ -30,7 +30,7 @@ from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d
 from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_tet_mesh_3d as tet_box
 from fenris_tpu_torch.mesh.reorder import reorder_mesh
 from fenris_tpu_torch.operators import LaplaceOperator
-from fenris_tpu_torch.quadrature import canonical_stiffness
+from fenris_tpu_torch.quadrature import Rule, canonical_stiffness, total_order
 from fenris_tpu_torch.reference_elements import HEX8, element
 from fenris_tpu_torch.solid import LameParameters, LinearElasticMaterial, MaterialEllipticOperator
 from fenris_tpu_torch.solid import NeoHookeanMaterial, StVKMaterial
@@ -191,6 +191,171 @@ def test_stiffness_kernel_ragged_tiles_on_card(kind, num_elements, cuda_device):
             assert torch.equal(blocks[j, i], blocks[i, j].transpose(0, 1))
 
 
+STIFFNESS_ELEMENTS = ["tet4", "tet10", "tet20", "hex8", "hex20", "hex27", "quad4", "quad8", "quad9", "tri3", "tri6"]
+
+
+def stiffness_inputs(name, kind, count, seed=11):
+    """``(X [E, m, d] f32 on the card, op, params, tab, E)`` of a perturbed box or square of the element,
+    repeated to ``count``: 1, a tile (``launch_layout``'s elements a block) less or more one element, or
+    three tiles and five elements."""
+    d = 2 if name in ("quad4", "quad8", "quad9", "tri3", "tri6") else 3
+    if kind == "laplace":
+        op, params = LaplaceOperator(), None
+    else:
+        op, params = MaterialEllipticOperator(LinearElasticMaterial(), dim=d), LameParameters(MU, LAM)
+    tab = tabulate(element(name), canonical_stiffness(name))
+    tile = tsk.launch_layout(op, params, tab)["elements"]
+    E = {"one": 1, "tile-1": tile - 1, "tile+1": tile + 1, "ragged": 3 * tile + 5}[count]
+    mesh = square_mesh(name, 4) if d == 2 else element_mesh(name, 2)
+    m = mesh.element.geometry.num_nodes
+    pts = mesh.points + rng(seed).uniform(-0.03, 0.03, mesh.points.shape)
+    X = np.concatenate([pts[mesh.cells[:, :m]]] * -(-E // mesh.num_cells))[:E]
+    return torch.as_tensor(X, dtype=torch.float32, device="cuda"), op, params, tab, E
+
+
+def check_stiffness_launch(X, op, params, tab, E):
+    """Two launches against the plain version: within KERNEL_RTOL, bitwise equal, two launches counted, and for a
+    symmetric operator mirror blocks exact node transposes, a scalar block exactly symmetric."""
+    assert tsk.supports_stiffness_kernel(op, params, tab, X)
+    before = tsk.stiffness_pairs.launches
+    got = tsk.stiffness_pairs(X, op, params, tab)
+    again = tsk.stiffness_pairs(X, op, params, tab)
+    torch.cuda.synchronize()
+    assert tsk.stiffness_pairs.launches == before + 2
+    s, n = op.solution_dim, tab.dphi.shape[1]
+    assert got.shape == (s * s, n * n, E)
+    assert rel_err(tsk.stiffness_pairs_plain(X, op, params, tab), got) < KERNEL_RTOL
+    assert torch.equal(got, again)
+    if not op.symmetric:
+        return
+    blocks = got.reshape(s, s, n, n, E)
+    for i in range(s):
+        for j in range(i + 1, s):
+            assert torch.equal(blocks[j, i], blocks[i, j].transpose(0, 1))
+    if tsk.launch_layout(op, params, tab)["form"] in ("scalar", "sums"):
+        assert torch.equal(blocks[0, 0], blocks[0, 0].transpose(0, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", ["one", "tile-1", "tile+1", "ragged"])
+@pytest.mark.parametrize("kind", ["linear", "laplace"])
+@pytest.mark.parametrize("name", STIFFNESS_ELEMENTS)
+def test_stiffness_kernel_at_tile_edges_on_card(name, kind, count, cuda_device):
+    """Every element of both dimensions, linear elasticity (the matrix form's isotropic terms) and
+    Laplace (the scalar form; tet20's reference sums), at element counts around the launch's tile: 1, a tile less and more one
+    element, and three tiles and five elements (``check_stiffness_launch``)."""
+    check_stiffness_launch(*stiffness_inputs(name, kind, count))
+
+
+class _Anisotropic(LaplaceOperator):
+    """s = 1 with a constant contraction that is symmetric but not positive definite, or not symmetric: the
+    kernel's matrix form at one contraction pair."""
+
+    def __init__(self, symmetric):
+        self.symmetric = symmetric
+        C = np.array([[1.0, 0.3, -0.2], [0.1, -0.5, 0.4], [0.2, 0.0, 2.0]])
+        self.C = 0.5 * (C + C.T) if symmetric else C
+
+    def contraction(self, G, params):
+        d = G.shape[-2]
+        D = torch.as_tensor(self.C[:d, :d], dtype=G.dtype, device=G.device)[:, None, :, None]
+        return D.expand(tuple(G.shape[:-2]) + tuple(D.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("name", ["tet10", "hex8", "hex20", "quad9"])
+def test_stiffness_kernel_matrix_form_at_one_pair_on_card(name, symmetric, cuda_device):
+    """An s = 1 contraction without a Cholesky factor takes the matrix form, three tiles and five elements."""
+    X, _, _, tab, E = stiffness_inputs(name, "laplace", "ragged")
+    op = _Anisotropic(symmetric)
+    assert tsk.launch_layout(op, None, tab)["form"] == "matrix"
+    check_stiffness_launch(X, op, None, tab, E)
+
+
+class _Constant(LaplaceOperator):
+    """A constant contraction ``D [d, s, d, s]`` (symmetric operators: ``D[k, i, m, j] = D[m, j, k, i]``)."""
+
+    def __init__(self, D, symmetric):
+        self.D, self.solution_dim, self.symmetric = D, D.shape[1], symmetric
+
+    def contraction(self, G, params):
+        D = torch.as_tensor(self.D, dtype=G.dtype, device=G.device)
+        return D.expand(tuple(G.shape[:-2]) + tuple(D.shape))
+
+
+def _general_contraction(d, symmetric, seed=3):
+    """An anisotropic s = d contraction: symmetric positive definite as a [d², d²] matrix, or neither."""
+    A = rng(seed).standard_normal((d * d, d * d))
+    D = A @ A.T + d * d * np.eye(d * d) if symmetric else A + 2 * np.eye(d * d)
+    return _Constant(D.reshape(d, d, d, d), symmetric)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, symmetric", [("tet10", True), ("hex8", True), ("hex20", True), ("quad9", False),
+                                             ("tri6", False)])
+def test_stiffness_kernel_general_contraction_on_card(name, symmetric, cuda_device):
+    """The matrix form at P > 1 with every term: an anisotropic symmetric s = 3 contraction (six pairs and
+    their mirrors) and a non-symmetric s = 2 one (four pairs), three tiles and five elements."""
+    X, _, _, tab, E = stiffness_inputs(name, "linear", "ragged")
+    op = _general_contraction(X.shape[2], symmetric)
+    assert tsk.launch_layout(op, None, tab)["form"] == "matrix"
+    check_stiffness_launch(X, op, None, tab, E)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tet10", "hex20", "quad8"])
+def test_stiffness_kernel_isotropic_terms_match_general_form_on_card(name, cuda_device):
+    """Linear elasticity's isotropic launch against the same contraction given as a non-symmetric operator,
+    which takes the general matrix form with every term: the upper blocks are bitwise equal."""
+    X, op, params, tab, E = stiffness_inputs(name, "linear", "ragged")
+    d = X.shape[2]
+    general = _Constant(op.contraction(torch.zeros((d, d), dtype=torch.float64), params).numpy(), False)
+    assert tsk.launch_layout(op, params, tab)["form"] == "isotropic"
+    assert tsk.launch_layout(general, None, tab)["form"] == "matrix"
+    iso = tsk.stiffness_pairs(X, op, params, tab).reshape(d, d, -1, E)
+    full = tsk.stiffness_pairs(X, general, None, tab).reshape(d, d, -1, E)
+    for i in range(d):
+        for j in range(i, d):
+            assert torch.equal(iso[i, j], full[i, j]), (i, j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "laplace"])
+@pytest.mark.parametrize("name, strength", [("hex20", 6), ("hex27", 12), ("tet20", 10), ("quad9", 11)])
+def test_stiffness_kernel_large_rules_on_card(name, strength, kind, cuda_device):
+    """Total-order rules past the canonical ones (hex20 34 points, hex27 343, tet20 81, quad9 28): the 3D
+    tables take several chunks of points in the matrix form (``launch_layout``), three tiles and five
+    elements."""
+    X, op, params, _, E = stiffness_inputs(name, kind, "ragged")
+    tab = tabulate(element(name), total_order.for_domain(element(name).geometry.domain, strength))
+    lay = tsk.launch_layout(op, params, tab)
+    if name != "quad9" and kind == "linear":
+        assert lay["chunk_points"] < tab.num_points, lay
+    check_stiffness_launch(X, op, params, tab, E)
+
+
+def _keast_tab(name):
+    """A rule with a negative weight: Keast's 5-point tetrahedron rule (degree 3), on the tets as it is and
+    on hex8 mapped to [-1, 1]^3 with a sixth point of weight 0."""
+    a, b = 0.5, 1 / 6
+    pts = np.array([[0.25] * 3, [b, b, b], [a, b, b], [b, a, b], [b, b, a]])
+    w = np.array([-2 / 15, 3 / 40, 3 / 40, 3 / 40, 3 / 40])
+    if name == "hex8":
+        pts, w = np.concatenate([2 * pts - 1, [[0.1, 0.2, 0.3]]]), np.concatenate([8 * w, [0.0]])
+    return tabulate(element(name), Rule(w, pts))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "laplace"])
+@pytest.mark.parametrize("name", ["tet4", "tet10", "tet20", "hex8"])
+def test_stiffness_kernel_negative_weights_on_card(name, kind, cuda_device):
+    """A rule with a negative weight (``_keast_tab``): its point's products are subtracted (in tet20's reference
+    sums for Laplace, as they are)."""
+    X, op, params, _, E = stiffness_inputs(name, kind, "ragged")
+    check_stiffness_launch(X, op, params, _keast_tab(name), E)
+
+
 # -- band sweep (csrc/dia_sweep.cu) ---------------------------------------------------------
 
 _PLANE_SWAP = np.arange(7**3)  # node renumbering of the plane-swapped res-6 box
@@ -222,9 +387,8 @@ def element_mesh(name, res):
 @pytest.mark.parametrize("kind", ["linear", "laplace"])
 @pytest.mark.parametrize("name", ["tet4", "tet10", "tet20", "hex20", "hex27"])
 def test_stiffness_kernel_on_3d_elements_on_card(name, kind, cuda_device):
-    """The higher-order and tet elements (hex20/hex27 take their points in chunks), 77 elements (a
-    ragged last tile) of a perturbed box: against the plain version, bitwise repeats, the launch
-    count and exact mirror blocks."""
+    """The higher-order and tet elements, 77 elements (a ragged last tile) of a perturbed box: against the
+    plain version, bitwise repeats, the launch count and exact mirror blocks."""
     op, params = stiffness_case(kind)
     mesh = element_mesh(name, 3)
     m, n = mesh.element.geometry.num_nodes, mesh.element.num_nodes

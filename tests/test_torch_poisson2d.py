@@ -252,16 +252,20 @@ def test_stiffness_plain_and_kernel_emulation_match_jax_pairs_2d(name, kind):
 
 
 def test_stiffness_kernel_takes_every_2d_element_in_one_chunk():
-    """Every 2D element's gradient table fits one block at s = 1 and 2 (no point chunks at d = 2);
-    quad8's emulation against the plain version."""
+    """Every 2D element's gradient table fits one block at s = 1 and 2, built once (no point chunks), as
+    many blocks an SM as its launch bound asks for; quad8's emulation against the plain version."""
     for name in ELEMENTS_2D:
         tab = tabulate(element(name), canonical_stiffness(name))
         q, m, d = tab.geo_dphi.shape
         assert d == 2
         for kind in ("linear", "laplace"):
-            assert tsk._fits(operator2d(kind)[1][0], tab), (name, kind)
-        assert tsk._chunk_points(m, tab.dphi.shape[1], q, d) == q, name
-        assert 0 < tsk._smem_bytes(m, tab.dphi.shape[1], q, d) <= tsk._MAX_SMEM
+            op, params = operator2d(kind)[1]
+            assert tsk._fits(op, tab), (name, kind)
+            lay = tsk.launch_layout(op, params, tab)
+            assert lay["form"] == ("scalar" if kind == "laplace" else "isotropic") and lay["tile"] > 0
+            assert 0 < lay["shared_bytes"] <= tsk._MAX_SMEM and lay["blocks_per_sm"] >= lay["launch_bound"], lay
+        assert tsk._smem_bytes(m, tab.dphi.shape[1], q, d) == 4 * (q * ((2 * tab.dphi.shape[1]) | 1) * 32 + 2 * m * 32
+                                                                 + (5 * 32 if m == 3 else 0))
     X = element_coordinates_2d("quad8", seed=1)
     op, params = operator2d("linear")[1]
     tab = tabulate(element("quad8"), canonical_stiffness("quad8"))
