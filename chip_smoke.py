@@ -203,9 +203,12 @@ calls), and its bound: the larger of its bytes over 3.35 TB/s and its f32
 operations over 67 TFLOP/s (H100 SXM peaks), from this run's inputs.  The
 gather's and scatter's records also carry ``card_ms`` and
 ``library_card_ms``: the calls captured in a CUDA graph, cycling through
-copies of the inputs that hold 3x the L2 between two uses of one copy.  ``ptxas`` lines (registers, shared memory, spills) of the
-stencil, gather (s = 1, 2, 3, any s), scatter (s = 1, 2, any s) and
-stiffness kernels (each element's three forms: matrix, its isotropic terms
+copies of the inputs that hold 3x the L2 between two uses of one copy; each
+s = 3 scatter record (C2, tet10, hex20, T4-MG, MSH) is held bitwise to its
+plain version and logs the walk its plan took, the row-count inflation of
+its warps in node order and in sorted windows, and that walk's registers.  ``ptxas`` lines (registers, shared memory, spills) of the
+stencil, gather (s = 1, 2, 3, any s), scatter (s = 1, 2, any s, and s = 3's
+three walks) and stiffness kernels (each element's three forms: matrix, its isotropic terms
 and scalar, with each form's launch layout, and any rule's matrix and scalar forms; tet20's scalar form is
 its reference sums) and all 132 element-sweep
 instantiations (11 elements x 3 materials x 4 modes) are printed, and a
@@ -525,7 +528,11 @@ def timed(fn, times):
 PTXAS_LABELS = {"nh_marchILb1E": "neo_hookean_hvp (nh_march<true>)",
                 "nh_marchILb0E": "neo_hookean_residual (nh_march<false>)",
                 **{f"banded_{k}_kernelILi{s}E": f"banded_{k} ({'any s' if s == 0 else f's = {s}'})"
-                   for k, top in (("gather", 3), ("scatter", 2)) for s in range(top + 1)}}
+                   for k, top in (("gather", 3), ("scatter", 2)) for s in range(top + 1)},
+                "banded_scatter_kernelILi3ELb1E": "banded_scatter (s = 3, rows walk)",
+                "banded_scatter3_kernelILi1E": "banded_scatter (s = 3, 1 lane a node)",
+                "banded_scatter3_kernelILi4E": "banded_scatter (s = 3, 4 lanes a node)"}
+PTXAS = {}  # ptxas_report's {label: ptxas text} of the loaded library, kept for the phases' logs
 
 
 def stiffness_label(mangled):
@@ -1163,7 +1170,9 @@ def banded_kernel_checks(kernels, model, shape_txt, dev, seed, smi=None):
     del got, again, ref, cells_perm
     got, again, ref = bd.banded_scatter(plan, f_el), bd.banded_scatter(plan, f_el), bd.banded_scatter_plain(plan, f_el)
     errs["banded_scatter"] = compare("banded_scatter", shape_txt, got, again, ref)
-    log(f"banded_scatter {shape_txt}: bitwise equal to the plain version (same row order): {bool(torch.equal(got, ref))}")
+    exact = bool(torch.equal(got, ref))
+    log(f"banded_scatter {shape_txt}: bitwise equal to the plain version (same row order): {exact}")
+    check(exact, f"banded_scatter {shape_txt}: not bitwise equal to the plain version")
     del got, again, ref
     # the fused tangent sweep (the main path's CG operator) on the node vectors
     fused = lambda: es.banded_tangent_sweep(plan, X, u, v, op, params, tab, tables)  # noqa: E731
@@ -1266,8 +1275,10 @@ def gather_scatter_runs(plan, w, f_el, dev, names):
     sets = [(plan, w, f_el, idx, idx_spare)]
     for _ in range(l2_copies(min(gather_bytes, scatter_bytes)) - 1):
         p = dataclasses.replace(plan, **{k: getattr(plan, k).clone() for k in
-                                         ("nodes_padded", "block_rows", "row_ptr", "node_rows")})
+                                         ("nodes_padded", "block_rows", "row_ptr", "node_rows", "window_order")})
         sets.append((p, w.clone(), f_el.clone(), idx.clone(), idx_spare.clone()))
+    if s == 3:
+        scatter_walk_log(plan, names[1])
     return {
         names[0]: (lambda: bd.banded_gather(plan, w), lambda: bd.banded_gather_plain(plan, w),
                    lambda: torch.index_select(w, 0, idx), gather_bytes, 0, 20,
@@ -1280,6 +1291,25 @@ def gather_scatter_runs(plan, w, f_el, dev, names):
                     [lambda a=a, i=i: torch.zeros((N + 4096, s), device=dev).index_add_(0, i, a.reshape(-1, s))
                      for _, _, a, _, i in sets])),
     }
+
+
+def scatter_walk_log(plan, record):
+    """Log the walk the s = 3 scatter takes on ``plan`` (record ``record``): the rows walk or one or four lanes
+    a node, sorted windows or node order, the row-count inflation of warps of 32 nodes in node order and
+    sorted (``ops/banded.walk_inflation``), rows a node, and the walk's registers and spills from the build
+    log."""
+    import torch
+
+    import fenris_tpu_torch.ops.banded as bd
+
+    counts = torch.diff(plan.row_ptr.long())
+    before, after = (bd.walk_inflation(counts, order) for order in (None, plan.window_order))
+    label = PTXAS_LABELS["banded_scatter_kernelILi3ELb1E" if plan.walk == bd.WALK_ROWS
+                         else f"banded_scatter3_kernelILi{plan.walk}E"]
+    log(f"scatter walk {record}: {label[len('banded_scatter (s = 3, '):-1]}, "
+        f"{'sorted windows' if plan.sorted_walk else 'node order'}; row-count inflation {before:.3f} in node order, "
+        f"{after:.3f} in windows of {bd.SCATTER_WINDOW} sorted; rows a node {int(counts.min())}-"
+        f"{int(counts.max())}, mean {float(counts.double().mean()):.2f}; ptxas: {PTXAS.get(label, 'not in the log')}")
 
 
 def l2_copies(nbytes, most=20):
@@ -2002,7 +2032,10 @@ def element_sweep_checks(kernels, model, cell, dev, smi, materials=None, key=Non
     names = (f"banded_gather (s={d}, {key})", f"banded_scatter (s={d}, {key})")
     for rec, fn, plain, arg in zip(names, (bd.banded_gather, bd.banded_scatter),
                                    (bd.banded_gather_plain, bd.banded_scatter_plain), (w, f_el)):
-        kernels[rec]["max_abs_err"] = compare(fn.__name__, shape_txt, fn(plan, arg), fn(plan, arg), plain(plan, arg))
+        got, ref = fn(plan, arg), plain(plan, arg)
+        kernels[rec]["max_abs_err"] = compare(fn.__name__, shape_txt, got, fn(plan, arg), ref)
+        check(bool(torch.equal(got, ref)), f"{fn.__name__} {shape_txt}: not bitwise equal to the plain version")
+        del got, ref
     runs = gather_scatter_runs(plan, w, f_el, dev, names)
     for material, cls in es.MATERIALS.items():
         if materials is not None and material not in materials:
@@ -4510,6 +4543,7 @@ def main() -> int:
     load_library()
     log(f"build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, {len(SOURCES)} sources in parallel)")
     found = ptxas_report(build_log())
+    PTXAS.update(found)
     for prefix in ("stiffness_pairs", "em_sweep", *PTXAS_LABELS.values()):
         entries = {n: t for n, t in found.items() if n.startswith(prefix)}
         check(len(entries) > 0 and all("0 bytes spill stores, 0 bytes spill loads" in t for t in entries.values()),

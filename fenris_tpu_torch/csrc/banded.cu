@@ -32,20 +32,38 @@
 //            written as zeros without reading u.  Other s (no caller) take a
 //            scalar body.  (8 rows a thread, two int4 loads, measured no
 //            faster: PERF.md section 6.)
-//   scatter: one thread per (node, component) walks its node's rows in
-//            ascending order and writes once, with no atomics, so repeats
-//            are bitwise equal and equal to the plain version's layered
-//            index_add_.  At s = 1 and 2 it loads kScatterBatch row indices,
-//            then their values, before it adds any, so a node's rows cost two
-//            load latencies a batch instead of two a row; at s = 3 (hex8's
-//            uniform 8 rows a node) the one-row walk is the faster, measured.
-//            (A block-cooperative walk that staged each node range's rows in
-//            shared memory ran 21-40% slower at the res-149 layouts: PERF.md
-//            section 6.)
+//   scatter: no atomics: each node's rows are added in ascending order into
+//            registers and the node is written once, so repeats are bitwise
+//            equal and equal to the plain version's layered index_add_.  At
+//            s = 1 and 2 one thread per (node, component) walks its CSR rows in
+//            batches of kScatterBatch: the batch's row indices, then their
+//            values, then the adds, so a node's rows cost two load latencies a
+//            batch instead of two a row.  At s = 3 no one walk wins on every
+//            mesh (PERF.md section 6), so the plan picks one of three:
+//            - rows: a thread per (node, component), one row at a time, s
+//              compiled in (hex8, whose nodes have 8 rows alike, and small
+//              meshes);
+//            - one lane a node, batches of kScatter3Batch rows (meshes whose
+//              neighbouring nodes' row counts differ: tet10 2-24, hex20 1-8),
+//              each row's 12 bytes as a float and a float2;
+//            - four lanes a node, kScatter3Batch rows a lane, 32 rows a step
+//              (tet4: 23 rows a node), the step's values shuffled to every
+//              lane of the node, never partial sums.
+//            The lane walks take a window of kScatterWindow nodes a block, in
+//            node order or in the plan's window_order (each window sorted by
+//            row count: warps of like nodes), and store it from shared memory
+//            as one contiguous float4 run.  Sorted windows cut the rows a warp
+//            waits on (tet10: 3.25x its mean node's to 1.06x) but ran 2-8%
+//            slower on every mesh measured: neighbouring nodes share elements,
+//            so their rows share sectors.  (A block-cooperative walk, staging
+//            a node range's rows in shared memory, ran 21-40% slower
+//            at the res-149 layouts: the rows of 85 consecutive nodes span
+//            45,000-186,000 rows.)
 // What bounds them on the H100: bytes.  The gather reads 4 B of index per
 // valid row and writes 4 s B per row (u itself, 4 s B per node, mostly hits
 // L2); the scatter reads 4 s B of element data and 4 B of row index per
-// row, the element reads landing in 32 B sectors of which it uses 4 s B.
+// row, the element reads landing in 32 B sectors of which it uses 4 s B
+// (a sorted walk reads 4 B of order table a node besides).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see fenris_tpu_torch/ops/_build.py).
@@ -59,6 +77,8 @@ constexpr int kThreads = 256;
 constexpr int kGroupRows = 4;                      // rows a thread gathers: one int4 of indices
 constexpr int kGatherTile = kThreads * kGroupRows;  // rows of one gather thread block
 constexpr int kScatterBatch = 8;                   // rows a scatter thread loads before it adds them (s = 1, 2)
+constexpr int kScatterWindow = 256;  // nodes of one s = 3 lane-walk block; the plan sorts each window by row count
+constexpr int kScatter3Batch = 8;    // rows a lane loads before the node's lanes add them (s = 3 lane walks)
 
 // S = 1, 2, 3: the tiled body (rows_per_block % 4 == 0, nodes and out 16-byte
 // aligned, u aligned to its rows at s = 2); S = 0: any s, scalar.
@@ -121,11 +141,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One thread per (node, component).  S = 1, 2: the thread walks its node's
-// CSR rows in batches of kScatterBatch: the batch's row indices, then their
-// f values, then the adds in ascending row order.  S = 0 (any s, s = 3
-// included): one row at a time.
-template <int S>
+// One thread per (node, component).  Batched (S = 1, 2): the thread walks
+// its node's CSR rows in batches of kScatterBatch: the batch's row indices,
+// then their f values, then the adds in ascending row order.  ONE_ROW (S = 3,
+// the rows walk; S = 0, any s but 1, 2, 3): one row at a time.
+template <int S, bool ONE_ROW = S == 0>
 __global__ void __launch_bounds__(kThreads)
     banded_scatter_kernel(const float* __restrict__ f, const int32_t* __restrict__ row_ptr,
                           const int32_t* __restrict__ node_rows, float* __restrict__ out, int64_t num_nodes,
@@ -137,7 +157,7 @@ __global__ void __launch_bounds__(kThreads)
   const int c = (int)(t - node * s);
   const int begin = __ldg(row_ptr + node), end = __ldg(row_ptr + node + 1);
   float acc = 0.0f;
-  if constexpr (S == 0) {
+  if constexpr (ONE_ROW) {
     for (int i = begin; i < end; ++i) acc += __ldg(f + (int64_t)__ldg(node_rows + i) * s + c);
   } else {
     for (int i0 = begin; i0 < end; i0 += kScatterBatch) {
@@ -156,6 +176,77 @@ __global__ void __launch_bounds__(kThreads)
   out[t] = acc;
 }
 
+// The s = 3 lane walks: one block a window of kScatterWindow nodes, L lanes a
+// node.  The block's position p takes node order[base + p] (base + p without
+// a table).  A step of the node's walk covers L * kScatter3Batch rows: lane q
+// loads rows i0 + j L + q (their indices, then the rows), then every lane of
+// the node adds the step's rows in ascending order.  Row r of f starts at
+// 12 r bytes, so a float and a float2 (f 8-byte aligned) cover it: odd r the
+// float first, even r the float2 first.
+__device__ __forceinline__ void load_row3(const float* __restrict__ f, int row, float& x, float& y, float& z) {
+  const float* p = f + 3 * (int64_t)row;
+  const bool odd = row & 1;
+  const float a = __ldg(p + (odd ? 0 : 2));
+  const float2 b = __ldg(reinterpret_cast<const float2*>(p + (odd ? 1 : 0)));
+  x = odd ? a : b.x;
+  y = odd ? b.x : b.y;
+  z = odd ? b.y : a;
+}
+
+template <int L>
+__global__ void __launch_bounds__(kScatterWindow * L, 4 / L)
+    banded_scatter3_kernel(const float* __restrict__ f, const int32_t* __restrict__ row_ptr,
+                           const int32_t* __restrict__ node_rows, const int32_t* __restrict__ order,
+                           float* __restrict__ out, int num_nodes) {
+  constexpr int B = kScatter3Batch;
+  __shared__ __align__(16) float s_out[kScatterWindow * 3];
+  const int base = blockIdx.x * kScatterWindow;
+  const int count = min(kScatterWindow, num_nodes - base);
+  const int pos = threadIdx.x / L, q = threadIdx.x % L;
+  if (pos < count) {
+    const int node = order ? __ldg(order + base + pos) : base + pos;
+    const int begin = __ldg(row_ptr + node), end = __ldg(row_ptr + node + 1);
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+    for (int i0 = begin; i0 < end; i0 += L * B) {
+      int row[B];
+      float x[B], y[B], z[B];
+#pragma unroll
+      for (int j = 0; j < B; ++j) row[j] = i0 + j * L + q < end ? __ldg(node_rows + i0 + j * L + q) : -1;
+#pragma unroll
+      for (int j = 0; j < B; ++j) {
+        x[j] = y[j] = z[j] = 0.0f;
+        if (row[j] >= 0) load_row3(f, row[j], x[j], y[j], z[j]);
+      }
+      if constexpr (L == 1) {
+#pragma unroll
+        for (int j = 0; j < B; ++j)
+          if (row[j] >= 0) a0 += x[j], a1 += y[j], a2 += z[j];
+      } else {
+        const unsigned lanes = ((1u << L) - 1) << ((threadIdx.x & 31) & ~(L - 1));
+#pragma unroll
+        for (int j = 0; j < B; ++j)
+#pragma unroll
+          for (int p = 0; p < L; ++p) {
+            const float vx = __shfl_sync(lanes, x[j], p, L), vy = __shfl_sync(lanes, y[j], p, L),
+                        vz = __shfl_sync(lanes, z[j], p, L);
+            if (i0 + j * L + p < end) a0 += vx, a1 += vy, a2 += vz;
+          }
+      }
+    }
+    if (q == 0) {
+      float* o = s_out + 3 * (node - base);
+      o[0] = a0, o[1] = a1, o[2] = a2;
+    }
+  }
+  __syncthreads();
+  // the window's 3 count floats, one contiguous run from out + 3 base (16-byte aligned: base % 4 == 0)
+  const int nf = 3 * count, n4 = nf / 4;
+  float* dst = out + 3 * (int64_t)base;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x)
+    reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(s_out)[i];
+  for (int i = 4 * n4 + threadIdx.x; i < nf; i += blockDim.x) dst[i] = s_out[i];
+}
+
 template <int S>
 int launch_gather(dim3 grid, cudaStream_t st, const void* u, const void* nodes, const void* block_rows, void* out,
                   int rows_per_block, int s) {
@@ -164,12 +255,22 @@ int launch_gather(dim3 grid, cudaStream_t st, const void* u, const void* nodes, 
   return (int)cudaGetLastError();
 }
 
-template <int S>
+template <int S, bool ONE_ROW = S == 0>
 int launch_scatter(cudaStream_t st, const void* f, const void* row_ptr, const void* node_rows, void* out,
                    long long num_nodes, int s) {
   const int64_t threads = (int64_t)num_nodes * s;
-  banded_scatter_kernel<S><<<(unsigned int)((threads + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+  banded_scatter_kernel<S, ONE_ROW><<<(unsigned int)((threads + kThreads - 1) / kThreads), kThreads, 0, st>>>(
       (const float*)f, (const int32_t*)row_ptr, (const int32_t*)node_rows, (float*)out, num_nodes, s);
+  return (int)cudaGetLastError();
+}
+
+template <int L>
+int launch_scatter3(cudaStream_t st, const void* f, const void* row_ptr, const void* node_rows, const void* order,
+                    void* out, long long num_nodes) {
+  const unsigned int blocks = (unsigned int)((num_nodes + kScatterWindow - 1) / kScatterWindow);
+  banded_scatter3_kernel<L><<<blocks, kScatterWindow * L, 0, st>>>(
+      (const float*)f, (const int32_t*)row_ptr, (const int32_t*)node_rows, (const int32_t*)order, (float*)out,
+      (int)num_nodes);
   return (int)cudaGetLastError();
 }
 
@@ -179,13 +280,18 @@ int launch_scatter(cudaStream_t st, const void* f, const void* row_ptr, const vo
 // contiguous device arrays: u f32 [N, s], nodes int32 [rows_total],
 // block_rows int32 [rows_total / rows_per_block], out f32 [rows_total, s]
 // (gather); f f32 [rows, s], row_ptr int32 [num_nodes + 1], node_rows int32
-// [row_ptr[num_nodes]], out f32 [num_nodes, s] (scatter).  Each returns
-// cudaGetLastError() after its launch (0 = success).  The gather returns
-// cudaErrorInvalidValue without launching when rows_total * s >= 2^31,
-// rows_total is not a multiple of rows_per_block, rows_per_block exceeds
-// 65535 tiles, or, at s = 1, 2, 3, rows_per_block is not a multiple of 4 or
-// nodes, out (16 bytes) or u (its row, at s = 2) is not aligned; the scatter
-// when s < 1.
+// [row_ptr[num_nodes]], order int32 [num_nodes] or NULL, out f32 [num_nodes,
+// s] (scatter; walk and order are read at s = 3 only: walk 0 the rows walk,
+// 1 one lane a node, 4 four lanes a node; order, where given, holds each
+// window of kScatterWindow nodes permuted within itself and is read by the
+// lane walks).  Each returns cudaGetLastError() after its launch (0 =
+// success).  The gather returns cudaErrorInvalidValue without launching when
+// rows_total * s >= 2^31, rows_total is not a multiple of rows_per_block,
+// rows_per_block exceeds 65535 tiles, or, at s = 1, 2, 3, rows_per_block is
+// not a multiple of 4 or nodes, out (16 bytes) or u (its row, at s = 2) is
+// not aligned; the scatter when s < 1, or at s = 3 when walk is not 0, 1 or
+// 4, or a lane walk has num_nodes >= 2^31, f not 8-byte or out not 16-byte
+// aligned.
 
 extern "C" int fenris_banded_gather(const void* u, const void* nodes, const void* block_rows,
                                     void* out, long long rows_total, int rows_per_block, int s,
@@ -210,14 +316,23 @@ extern "C" int fenris_banded_gather(const void* u, const void* nodes, const void
   }
 }
 
-extern "C" int fenris_banded_scatter(const void* f, const void* row_ptr, const void* node_rows,
-                                     void* out, long long num_nodes, int s, void* stream) {
+extern "C" int fenris_banded_scatter(const void* f, const void* row_ptr, const void* node_rows, const void* order,
+                                     void* out, long long num_nodes, int s, int walk, void* stream) {
   if (s <= 0) return (int)cudaErrorInvalidValue;
+  if (s == 3 && walk != 0 && (num_nodes >= (1LL << 31) || (uintptr_t)out % 16 != 0 || (uintptr_t)f % 8 != 0))
+    return (int)cudaErrorInvalidValue;
   if (num_nodes == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (s) {
     case 1: return launch_scatter<1>(st, f, row_ptr, node_rows, out, num_nodes, s);
     case 2: return launch_scatter<2>(st, f, row_ptr, node_rows, out, num_nodes, s);
+    case 3:
+      switch (walk) {
+        case 0: return launch_scatter<3, true>(st, f, row_ptr, node_rows, out, num_nodes, s);
+        case 1: return launch_scatter3<1>(st, f, row_ptr, node_rows, order, out, num_nodes);
+        case 4: return launch_scatter3<4>(st, f, row_ptr, node_rows, order, out, num_nodes);
+        default: return (int)cudaErrorInvalidValue;
+      }
     default: return launch_scatter<0>(st, f, row_ptr, node_rows, out, num_nodes, s);
   }
 }

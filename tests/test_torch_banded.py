@@ -22,7 +22,9 @@ from fenris_tpu.mesh.procedural import create_unit_box_uniform_hex_mesh_3d as ja
 from fenris_tpu.mesh.reorder import reorder_mesh as jax_reorder_mesh
 from fenris_tpu.mesh.reorder import reverse_cuthill_mckee as jax_rcm
 from fenris_tpu.ops import banded as jb
+from fenris_tpu_torch.mesh.convert import convert_mesh
 from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_hex_mesh_3d as torch_box
+from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_tet_mesh_3d as torch_tet_box
 from fenris_tpu_torch.mesh.reorder import reorder_mesh, reverse_cuthill_mckee
 
 # (mesh, s, r_nodes, rowt): a box, an RCM-reordered box with one component,
@@ -153,34 +155,152 @@ def _star(m):
     return np.stack([np.zeros(m, np.int64), rim, np.roll(rim, -1)], axis=1)
 
 
-@pytest.mark.parametrize("name", [*CASES, "star_s1", "star_s2"])
-def test_scatter_kernel_batches_reproduce_the_plain_version(name):
-    """Numpy emulation of the scatter kernel's walk (csrc/banded.cu): a thread takes one node's CSR rows at
-    one component, at s = 1, 2 in batches of ``kScatterBatch`` rows (the batch's row indices, then their
-    element values, then the adds), at other s one row at a time, always adding in ascending row order
-    from 0.0 in f32.  Equal to the plain scatter bitwise; the star's centre has many batches of rows."""
-    if name.startswith("star"):
-        s = int(name[-1])
-        tp = tb.make_banded_plan(_star(200), 201, s=s, r_nodes=1024, rowt=256, device="cpu")
-    else:
-        _, _, tp = _plans(name)
-        s = tp.s
-    batch = _kernel_constant("kScatterBatch") if s <= 2 else 1
+# s = 3 layouts of the port alone (small, RCM'd where the element is converted or simplicial): rows a node
+# vary (tet4, tet10, hex20), node 5 has no rows (gap), the node count is not a multiple of the scatter's
+# window (ragged: 1,000 nodes)
+SCATTER_CASES = {
+    "tet4_s3": lambda: reorder_mesh(torch_tet_box(5), device="cpu")[0].cells,
+    "tet10_s3": lambda: reorder_mesh(convert_mesh(torch_tet_box(3), "tet10"), device="cpu")[0].cells,
+    "hex20_s3": lambda: reorder_mesh(convert_mesh(torch_box(4), "hex20"), device="cpu")[0].cells,
+    "gap_s3": lambda: (lambda c: c + (c >= 5))(torch_box(3).cells),
+    "ragged_s3": lambda: torch_box(9).cells,
+    "star_s1": lambda: _star(200),
+    "star_s2": lambda: _star(200),
+    "star_s3": lambda: _star(200),
+}
+
+
+def _scatter_plan(name):
+    if name in CASES:
+        return _plans(name)[2]
+    if name not in _PLANS:
+        cells = np.asarray(SCATTER_CASES[name]())
+        _PLANS[name] = tb.make_banded_plan(cells, int(cells.max()) + 1, s=int(name[-1]), r_nodes=1024, rowt=256,
+                                           device="cpu")
+    return _PLANS[name]
+
+
+def _emulate_lane_walk(tp, rows, order, lanes):
+    """The s = 3 lane walks: block b takes window ``[b W, b W + W)`` (W = kScatterWindow); its position p takes
+    node ``order[b W + p]`` with ``lanes`` lanes; a step of the node's walk covers ``lanes * B`` rows (B =
+    kScatter3Batch), lane q loading rows ``i0 + j lanes + q`` (their indices, then their 12-byte rows), then the
+    node's lanes adding the step's rows in ascending order into three f32 accumulators from 0.0; the node's
+    sums go to shared memory at slot ``node - b W``, and the window's ``3 count`` floats leave as one run from
+    ``out + 3 b W``."""
+    W, B = _kernel_constant("kScatterWindow"), _kernel_constant("kScatter3Batch")
+    ptr, node_rows, N = to_numpy(tp.row_ptr), to_numpy(tp.node_rows), tp.num_nodes
+    out = np.full(3 * N, np.nan, np.float32)
+    for base in range(0, N, W):
+        count = min(W, N - base)
+        smem = np.full(3 * W, np.nan, np.float32)
+        for p in range(count):
+            node = order[base + p]
+            assert base <= node < base + count
+            acc = np.zeros(3, np.float32)
+            begin, end = ptr[node], ptr[node + 1]
+            for i0 in range(begin, end, lanes * B):
+                slot = i0 + np.arange(B)[:, None] * lanes + np.arange(lanes)  # [j, q]: lane q's j-th row
+                idx = np.where(slot < end, node_rows[np.minimum(slot, len(node_rows) - 1)], -1)
+                vals = rows[np.maximum(idx, 0)]  # [j, q, 3]
+                for j in range(B):
+                    for q in range(lanes):  # row i0 + j lanes + q: ascending
+                        if idx[j, q] >= 0:
+                            acc += vals[j, q]
+            assert np.isnan(smem[3 * (node - base)])
+            smem[3 * (node - base):3 * (node - base) + 3] = acc
+        out[3 * base:3 * (base + count)] = smem[:3 * count]
+    assert not np.isnan(out).any()
+    return out.reshape(N, 3)
+
+
+def _emulate_component_walk(tp, rows, batch):
+    """A thread per (node, component) takes the node's CSR rows in batches of ``batch`` rows (the batch's row
+    indices, then their element values, then the adds, in ascending row order from 0.0 in f32)."""
     ptr, node_rows = to_numpy(tp.row_ptr), to_numpy(tp.node_rows)
-    if name.startswith("star"):
-        assert ptr[1] - ptr[0] == 200 > 10 * _kernel_constant("kScatterBatch")
-    f = rng(15).standard_normal((tp.padded_elements, tp.n, s)).astype(np.float32)
-    rows = f.reshape(-1, s)
-    out = np.full((tp.num_nodes, s), np.nan, np.float32)
+    out = np.full((tp.num_nodes, rows.shape[1]), np.nan, np.float32)
     for node in range(tp.num_nodes):
-        acc = np.zeros(s, np.float32)
+        acc = np.zeros(rows.shape[1], np.float32)
         for i0 in range(ptr[node], ptr[node + 1], batch):
             idx = node_rows[i0:min(i0 + batch, ptr[node + 1])]  # the batch's row indices
             vals = rows[idx]  # then their values
             for v in vals:  # then the adds, in order
                 acc += v
         out[node] = acc
-    assert np.array_equal(out, to_numpy(tb.banded_scatter_plain(tp, torch.as_tensor(f))))
+    return out
+
+
+@pytest.mark.parametrize("name", [*CASES, *SCATTER_CASES])
+def test_scatter_kernel_batches_reproduce_the_plain_version(name):
+    """Numpy emulation of the scatter kernel's walks (csrc/banded.cu), always adding each node's rows in
+    ascending row order from 0.0 in f32.  At s = 1, 2 a thread takes one node's CSR rows at one component in
+    batches of ``kScatterBatch`` rows (the batch's row indices, then their element values, then the adds).  At
+    s = 3 the plan's walk first, then the others: the rows walk (a thread per (node, component), one row at a
+    time) and the two lane walks of :func:`_emulate_lane_walk` (1 and 4 lanes a node) in node order and in
+    ``window_order``.  Equal to the plain scatter bitwise; the star's centre has many batches of rows."""
+    tp = _scatter_plan(name)
+    s = tp.s
+    ptr = to_numpy(tp.row_ptr)
+    if name.startswith("star"):
+        assert ptr[1] - ptr[0] == 200 > 10 * _kernel_constant("kScatterBatch")
+    if name == "gap_s3":
+        assert ptr[6] == ptr[5]  # node 5 has no rows
+    if name == "ragged_s3":
+        assert tp.num_nodes % _kernel_constant("kScatterWindow") != 0
+    f = rng(15).standard_normal((tp.padded_elements, tp.n, s)).astype(np.float32)
+    rows = f.reshape(-1, s)
+    plain = to_numpy(tb.banded_scatter_plain(tp, torch.as_tensor(f)))
+    if s != 3:
+        assert np.array_equal(_emulate_component_walk(tp, rows, _kernel_constant("kScatterBatch") if s <= 2 else 1),
+                              plain)
+        return
+    identity, window_order = np.arange(tp.num_nodes), to_numpy(tp.window_order)
+    walks = [(tb.WALK_ROWS, None)] + [(w, o) for w in (tb.WALK_LANE, tb.WALK_LANES) for o in (identity, window_order)]
+    plans_walk = (tp.walk, None if tp.walk == tb.WALK_ROWS else window_order if tp.sorted_walk else identity)
+    walks.sort(key=lambda wo: (wo[0], wo[1] is window_order) != (plans_walk[0], plans_walk[1] is window_order))
+    for walk, order in walks:
+        got = (_emulate_component_walk(tp, rows, 1) if walk == tb.WALK_ROWS
+               else _emulate_lane_walk(tp, rows, order, walk))
+        assert np.array_equal(got, plain), walk
+
+
+@pytest.mark.parametrize("name", ["box12_s3_blocks", "tet10_s3", "gap_s3", "ragged_s3", "star_s3"])
+def test_window_order_invariants(name):
+    """``window_order``: each window of ``SCATTER_WINDOW`` (= csrc/banded.cu's kScatterWindow) nodes is a
+    permutation of its own nodes, row counts do not decrease within it, ties keep ascending node order, and its
+    warps wait on no more rows than in node order; the plan walks in node order with the walk
+    ``scatter_walk`` picks from its row counts."""
+    tp = _scatter_plan(name)
+    W, N = tb.SCATTER_WINDOW, tp.num_nodes
+    assert W == _kernel_constant("kScatterWindow") and tb.SCATTER_BATCH == _kernel_constant("kScatter3Batch")
+    order, counts = to_numpy(tp.window_order), np.diff(to_numpy(tp.row_ptr))
+    assert order.dtype == np.int32 and order.shape == (N,)
+    for base in range(0, N, W):
+        win = order[base:base + W]
+        np.testing.assert_array_equal(np.sort(win), np.arange(base, min(base + W, N)))
+        c = counts[win]
+        assert np.all(np.diff(c) >= 0)
+        assert np.all(np.diff(win)[np.diff(c) == 0] > 0)
+    counts_t = torch.as_tensor(counts)
+    assert tb.walk_inflation(counts_t, tp.window_order) <= tb.walk_inflation(counts_t)
+    assert not tp.sorted_walk and tp.walk == tb.scatter_walk(counts_t)
+
+
+def test_scatter_walk_rule():
+    """The s = 3 walk from row counts: nodes of like counts take the rows walk (hex8: 8 rows a node, the
+    boundary's fewer in runs); warps of unlike counts (tet10's vertices beside its edge nodes) one lane a node;
+    more than two batches of rows a node on a launch of at least four waves, four lanes; the same counts on
+    fewer nodes, the walk their warps pick."""
+    uniform = torch.full((4096,), 8)
+    uniform[:64] = 4
+    unlike = torch.tensor([2, 2, 24, 2, 8, 2, 2, 2] * 512)
+    many = 4 * 132 * tb.SCATTER_WINDOW
+    tet4_like = torch.tensor([23, 22, 24, 21] * (many // 4))
+    assert tb.walk_inflation(uniform) < 1.5 < tb.walk_inflation(unlike)
+    assert tb.scatter_walk(uniform) == tb.WALK_ROWS
+    assert tb.scatter_walk(unlike) == tb.WALK_LANE
+    assert tb.scatter_walk(tet4_like) == tb.WALK_LANES
+    assert tb.scatter_walk(tet4_like[:-4]) == tb.WALK_ROWS
+    assert tb.scatter_walk(torch.zeros(0, dtype=torch.int64)) == tb.WALK_ROWS
 
 
 def test_kernels_refuse_layouts_past_32_bit_indices():
@@ -301,6 +421,18 @@ def test_gather_alignment_is_checked_before_the_launch():
         tb._check_aligned(nodes, torch.zeros(2 * N + 1)[1:].view(N, 2))
     with pytest.raises(ValueError, match="16-byte aligned"):
         tb._check_aligned(torch.zeros(nodes.numel() + 1, dtype=torch.int32)[1:], torch.zeros((N, 2)))
+
+
+def test_scatter_alignment_is_checked_before_the_launch():
+    """The s = 3 lane walks load a row as a float and a float2: element rows at an odd float offset raise a
+    ValueError that says so; the rows walk (scalar loads), other s and aligned rows pass."""
+    f = torch.zeros(3 * 8 + 1)[1:].view(8, 3)
+    tb._check_rows_aligned(f, tb.WALK_ROWS)
+    tb._check_rows_aligned(torch.zeros((8, 3)), tb.WALK_LANES)
+    tb._check_rows_aligned(torch.zeros(2 * 8 + 1)[1:].view(8, 2), tb.WALK_LANE)
+    for walk in (tb.WALK_LANE, tb.WALK_LANES):
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            tb._check_rows_aligned(f, walk)
 
 
 @pytest.mark.parametrize("shuffle", [False, True], ids=["box", "shuffled"])

@@ -12,6 +12,8 @@ roundoff: FMA contraction and summation order), with two launches bitwise
 equal where the kernel promises it.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -462,6 +464,13 @@ BANDED_CASES = {
     "star_s1": ("star", 2548, 1, 1024, 256),
     "star_s2": ("star", 2548, 2, 1024, 256),
     "star_s3": ("star", 2548, 3, 1024, 256),
+    # the s = 3 walk on RCM'd meshes whose rows a node vary: tet4 (559 nodes), tet10 (559), hex20 (1,225)
+    "tet4_s3": ("tet4", 6, 3, 1024, 256),
+    "tet10_s3": ("tet10", 3, 3, 1024, 256),
+    "hex20_s3": ("hex20", 6, 3, 1024, 256),
+    # node 5 with no rows (a box of 730 nodes); 1,000 nodes, not a multiple of the scatter's 256-node window
+    "gap_s3": ("gap", 8, 3, 1024, 256),
+    "ragged_s3": ("box", 9, 3, 1024, 256),
 }
 
 
@@ -474,6 +483,12 @@ def star_cells(m):
 def banded_cells(kind, res):
     if kind == "star":
         return star_cells(res)
+    if kind == "gap":  # node 5 is in no cell
+        cells = box(res).cells
+        return cells + (cells >= 5)
+    if kind in ("tet4", "tet10", "hex20"):
+        mesh = tet_box(res) if kind.startswith("tet") else box(res)
+        return reorder_mesh(mesh if kind == "tet4" else convert_mesh(mesh, kind))[0].cells
     if kind == "quad4":
         return square_mesh("quad4", res).cells
     if kind == "tri6":
@@ -485,7 +500,8 @@ def banded_cells(kind, res):
 @pytest.mark.parametrize("name", list(BANDED_CASES))
 def test_banded_kernels_match_plain_on_card(name, cuda_device):
     """Gather and scatter bitwise equal to their plain versions and to their own repeats (the star: one node
-    with thousands of rows)."""
+    with thousands of rows); at s = 3 the scatter also in every walk a plan could take (the rows walk, one
+    and four lanes a node in node order and in sorted windows)."""
     kind, res, s, r_nodes, rowt = BANDED_CASES[name]
     cells = banded_cells(kind, res)
     N = int(cells.max()) + 1
@@ -503,8 +519,17 @@ def test_banded_kernels_match_plain_on_card(name, cuda_device):
     got = tb.banded_scatter(tp, f)
     again = tb.banded_scatter(tp, f)
     torch.cuda.synchronize()
-    assert torch.equal(got, again) and torch.equal(got, tb.banded_scatter_plain(tp, f))
+    ref = tb.banded_scatter_plain(tp, f)
+    assert torch.equal(got, again) and torch.equal(got, ref)
     assert (tb.banded_gather.launches, tb.banded_scatter.launches) == (before[0] + 2, before[1] + 2)
+    if kind == "gap":
+        assert int(tp.row_ptr[6] - tp.row_ptr[5]) == 0 and not bool(got[5].any())
+    walks = [(tb.WALK_ROWS, False)] + [(w, o) for w in (tb.WALK_LANE, tb.WALK_LANES) for o in (False, True)]
+    for walk, sorted_walk in walks if s == 3 else ():
+        other = dataclasses.replace(tp, walk=walk, sorted_walk=sorted_walk)
+        got, again = tb.banded_scatter(other, f), tb.banded_scatter(other, f)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref) and torch.equal(again, ref), (walk, sorted_walk)
 
 
 @pytest.mark.cuda
@@ -522,6 +547,26 @@ def test_banded_launch_route_on_card(cuda_device):
     graph = make_fx(lambda a: seen.append(tb._eager(a)) or tb.banded_gather(tp, a))(u)
     assert tb._eager(u) and seen == [False]
     assert "banded_gather_kernel" in str(graph.graph) and tb.banded_gather.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_banded_scatter_refuses_misaligned_rows_on_card(cuda_device):
+    """The s = 3 lane walks load a row as a float and a float2: element rows at an odd float offset are refused
+    with a ValueError that names the alignment, before any launch; the rows walk and a copy pass."""
+    cells = banded_cells("tet4", 3)
+    N = int(cells.max()) + 1
+    tp = tb.make_banded_plan(cells, N, s=3, r_nodes=1024, rowt=256, device=cuda_device)
+    size = tp.padded_elements * tp.n * 3
+    f = torch.as_tensor(rng(15).standard_normal(size + 1), dtype=torch.float32, device=cuda_device)[1:]
+    f = f.view(tp.padded_elements, tp.n, 3)
+    ref = tb.banded_scatter_plain(tp, f)
+    before = tb.banded_scatter.launches
+    for walk in (tb.WALK_LANE, tb.WALK_LANES):
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            tb.banded_scatter(dataclasses.replace(tp, walk=walk), f)
+    assert tb.banded_scatter.launches == before
+    assert torch.equal(tb.banded_scatter(dataclasses.replace(tp, walk=tb.WALK_ROWS), f), ref)
+    assert torch.equal(tb.banded_scatter(dataclasses.replace(tp, walk=tb.WALK_LANES), f.clone()), ref)
 
 
 @pytest.mark.cuda

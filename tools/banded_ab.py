@@ -12,6 +12,8 @@ cell takes one), and saves their cells under ``fenris_tpu_torch/_build/``:
 
 * C2 (s = 3): hex8, tools/solve_assembled.py's res-149 box;
 * M10, M20 (s = 3): tet10 on the BCC res-40 box, hex20 on the res-64 box;
+* T4-MG (s = 3): tet4, the BCC res-8 box refined three times (``rcm_refined_hierarchy``, RCM'd);
+* MSH (s = 3): tet4, ``tests/assets/meshes/sphere_tet4_593.msh`` refined three times, RCM'd;
 * P149 (s = 1): the res-149 box; P2D quad9 and tri6 (s = 1): the res-512 square;
 * M2D (s = 2): quad4 and tri3 at res 1024, quad8, quad9 and tri6 at res 512.
 
@@ -32,14 +34,20 @@ host's time per call where that is longer), with ``index_select`` and
 same ways in the same process.  The last lines give, for each layout, each
 checkout's lowest times, and each kernel's share of its bound (the bytes
 the function needs over 3.35 TB/s, as ``chip_smoke.py`` counts them).
+Where a checkout's plan carries the s = 3 scatter's walk (``walk``,
+``sorted_walk``), each s = 3 layout also logs the plan's choice, the
+row-count inflation of warps of 32 nodes in node order and sorted
+(``ops/banded.walk_inflation``), and the scatter's card time in every
+walk: the rows walk, one and four lanes a node in node order and in
+sorted windows.
 Compare two versions only inside one call.
 
 With ``--solves`` each checkout instead runs, with its own ``chip_smoke.py``
 functions, the matrix-free solves whose CG iterations launch the scatter
 (``--cells``, default all): S2D quad9 and S2D tri6 (res 128, s = 2), S10
-(tet10, s = 3) and PE10 (S10 with two materials), each ``solve_mixed`` to
-1e-10 as ``chip_smoke.py`` runs it, ``--repeat`` times (default 1) on one
-model, and prints Newton steps, CG iterations, wall time and ms a CG
+(tet10, s = 3), PE10 (S10 with two materials) and T4-MG (tet4, s = 3,
+under Jacobi), each ``solve_mixed`` to 1e-10 as ``chip_smoke.py`` runs it,
+``--repeat`` times (default 1) on one model, and prints Newton steps, CG iterations, wall time and ms a CG
 iteration (CG time without the Jacobi diagonals, over the iterations).
 Then, once a cell, it runs the first Newton step's CG call again under
 ``torch.profiler`` and prints the card's busy time a CG iteration (kernel
@@ -62,11 +70,14 @@ REPS = 50
 TIMES = tuple(f"{k}{e}_ms" for k in ("gather", "scatter", "index_select", "index_add") for e in ("", "_eager"))
 HBM_BYTES_PER_S = 3.35e12
 
-# (layout, element, mesh resolution, RCM, s)
+# (layout, element, mesh resolution, RCM, s); "tet4" is T4-MG's BCC box refined chip_smoke.T4_LEVELS times,
+# "sphere" MSH's Gmsh sphere refined chip_smoke.MSH_LEVELS times
 LAYOUTS = (
     ("C2", "hex8", 149, False, 3),
     ("M10 tet10", "tet10", 40, True, 3),
     ("M20 hex20", "hex20", 64, True, 3),
+    ("T4-MG tet4", "tet4", 8, True, 3),
+    ("MSH tet4 sphere", "sphere", 0, True, 3),
     ("P149", "hex8", 149, False, 1),
     ("P2D quad9", "quad9", 512, True, 1),
     ("P2D tri6", "tri6", 512, True, 1),
@@ -150,10 +161,10 @@ for name, s in layouts:
     gather_bytes = (idx.numel() * s + nv + plan.block_rows.numel() + N * s) * 4
     scatter_bytes = (nv * s + N + 1 + nv + N * s) * 4
     # copies of the inputs, cycled so that 3x the 50 MB L2 passes between two uses of one copy
+    tables = [k for k in ("nodes_padded", "block_rows", "row_ptr", "node_rows", "window_order") if hasattr(plan, k)]
     sets = [(plan, u, f, idx, idx_spare)]
     for _ in range(min(reps, max(1, -(-3 * L2_BYTES // min(gather_bytes, scatter_bytes)))) - 1):
-        p = dataclasses.replace(plan, **{k: getattr(plan, k).clone() for k in
-                                         ("nodes_padded", "block_rows", "row_ptr", "node_rows")})
+        p = dataclasses.replace(plan, **{k: getattr(plan, k).clone() for k in tables})
         sets.append((p, u.clone(), f.clone(), idx.clone(), idx_spare.clone()))
     calls = dict(gather=[lambda p=p, a=a: bd.banded_gather(p, a) for p, a, _, _, _ in sets],
                  scatter=[lambda p=p, a=a: bd.banded_scatter(p, a) for p, _, a, _, _ in sets],
@@ -164,6 +175,18 @@ for name, s in layouts:
                copies=len(sets), **{f"{k}_ms": device_ms(fn) for k, fn in calls.items()},
                **{f"{k}_eager_ms": eager_ms(fn) for k, fn in calls.items()},
                gather_bytes=gather_bytes, scatter_bytes=scatter_bytes)
+    if s == 3 and hasattr(plan, "walk"):
+        counts = torch.diff(plan.row_ptr.long())
+        names = {bd.WALK_ROWS: "rows", bd.WALK_LANE: "1 lane", bd.WALK_LANES: "4 lanes"}
+        walks = {}
+        for wk, srt in [(bd.WALK_ROWS, False)] + [(w, o) for w in (bd.WALK_LANE, bd.WALK_LANES) for o in (False, True)]:
+            ps = [dataclasses.replace(p, sorted_walk=srt, walk=wk) for p, *_ in sets]
+            rec["exact"] = rec["exact"] and torch.equal(bd.banded_scatter(ps[0], f), bd.banded_scatter_plain(plan, f))
+            walks[f"{names[wk]}{', sorted' if srt else ''}"] = device_ms(
+                [lambda q=q, a=a: bd.banded_scatter(q, a) for q, (_, _, a, _, _) in zip(ps, sets)])
+        rec["walk"] = dict(walk=names[plan.walk], sorted=plan.sorted_walk,
+                           inflation=[bd.walk_inflation(counts), bd.walk_inflation(counts, plan.window_order)],
+                           card_ms=walks)
     print("record " + json.dumps(rec), flush=True)
     del plan, u, f, idx, idx_spare, sets, calls
     torch.cuda.empty_cache()
@@ -248,6 +271,12 @@ if "S10" in cells:
 if "PE10" in cells:
     run("PE10", cs.assembled_model(None, torch.float32, dev, None, mesh=mesh, params=cs.two_material_params(mesh),
                                    banded=True, fused_kernels=True), repeat)
+if "T4-MG" in cells:
+    from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_tet_mesh_3d
+    from fenris_tpu_torch.multigrid import rcm_refined_hierarchy
+
+    fine, _ = rcm_refined_hierarchy(create_unit_box_uniform_tet_mesh_3d(cs.RES_T4_COARSE), cs.T4_LEVELS, device=dev)
+    run("T4-MG", cs.assembled_model(0, torch.float32, dev, None, mesh=fine, banded=True, fused_kernels=True), repeat)
 """
 
 
@@ -291,6 +320,7 @@ def build_layouts(smi):
     import torch
 
     sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
     from fenris_tpu_torch.mesh.convert import convert_mesh
     from fenris_tpu_torch.mesh.procedural import (
         create_unit_box_uniform_hex_mesh_3d,
@@ -298,13 +328,26 @@ def build_layouts(smi):
         create_unit_square_uniform_quad_mesh_2d,
         create_unit_square_uniform_tri_mesh_2d,
     )
+    from fenris_tpu_torch.io import load_msh
+    from fenris_tpu_torch.mesh.refinement import refine_uniformly_repeat
     from fenris_tpu_torch.mesh.reorder import reorder_mesh
+    from fenris_tpu_torch.multigrid import rcm_refined_hierarchy
 
     LAYOUT_DIR.mkdir(parents=True, exist_ok=True)
     meshes = {}
+    dev = torch.device("cuda", 0)
     for name, element, res, rcm, _ in LAYOUTS:
         key = (element, res, rcm)
-        if key not in meshes:
+        if key in meshes:
+            pass
+        elif element == "tet4":  # T4-MG's: refined, then the RCM of the finest mesh
+            mesh, _ = rcm_refined_hierarchy(create_unit_box_uniform_tet_mesh_3d(res), cs.T4_LEVELS, device=dev)
+            meshes[key] = np.asarray(mesh.cells, dtype=np.int32)
+        elif element == "sphere":  # MSH's
+            sphere = refine_uniformly_repeat(load_msh(ROOT / "tests/assets/meshes/sphere_tet4_593.msh"),
+                                             cs.MSH_LEVELS)
+            meshes[key] = np.asarray(reorder_mesh(sphere, device=dev)[0].cells, dtype=np.int32)
+        else:
             if element.startswith(("quad", "tri")):
                 base = (create_unit_square_uniform_tri_mesh_2d if element.startswith("tri") else
                         create_unit_square_uniform_quad_mesh_2d)(res)
@@ -314,7 +357,7 @@ def build_layouts(smi):
                         create_unit_box_uniform_hex_mesh_3d)(res)
                 mesh = base if element == "hex8" else convert_mesh(base, element)
             if rcm:
-                mesh, _ = reorder_mesh(mesh, device=torch.device("cuda", 0))
+                mesh, _ = reorder_mesh(mesh, device=dev)
             meshes[key] = np.asarray(mesh.cells, dtype=np.int32)
         np.save(LAYOUT_DIR / f"{name.replace(' ', '_')}.npy", meshes[key])
         print(f"layout {name}: {meshes[key].shape[0]} cells of {element} ({smi})", flush=True)
@@ -332,7 +375,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     if "--solves" in args:
-        cells = opts.get("--cells", "S2D quad9,S2D tri6,S10,PE10").split(",")
+        cells = opts.get("--cells", "S2D quad9,S2D tri6,S10,PE10,T4-MG").split(",")
         return solves(roots, smi, cells, int(opts.get("--repeat", 1)))
     build_layouts(smi)
     layouts = json.dumps([(name, s) for name, *_, s in LAYOUTS])
@@ -351,6 +394,12 @@ def main() -> int:
                   f"index_select {rec['index_select_ms']:.4f} ({rec['index_select_eager_ms']:.4f}), index_add_ "
                   f"{rec['index_add_ms']:.4f} ({rec['index_add_eager_ms']:.4f}), bitwise equal to the plain versions: "
                   f"{rec['exact']}", flush=True)
+            if "walk" in rec:
+                w = rec["walk"]
+                print(f"walk {rec['layout']}: the plan's {w['walk']}, {'sorted' if w['sorted'] else 'node order'}; "
+                      f"row-count inflation {w['inflation'][0]:.3f} in node order, {w['inflation'][1]:.3f} sorted; "
+                      f"scatter card ms by walk {', '.join(f'{k} {v:.4f}' for k, v in w['card_ms'].items())}",
+                      flush=True)
             failed |= not rec["exact"]
             prev = best.setdefault((str(root), rec["layout"]), rec)
             for key in TIMES:
