@@ -204,9 +204,10 @@ operations over 67 TFLOP/s (H100 SXM peaks), from this run's inputs.  The
 gather's and scatter's records also carry ``card_ms`` and
 ``library_card_ms``: the calls captured in a CUDA graph, cycling through
 copies of the inputs that hold 3x the L2 between two uses of one copy; each
-s = 3 scatter record (C2, tet10, hex20, T4-MG, MSH) is held bitwise to its
-plain version and logs the walk its plan took, the row-count inflation of
-its warps in node order and in sorted windows, and that walk's registers.  ``ptxas`` lines (registers, shared memory, spills) of the
+s = 3 scatter record (C2, tet10, hex20, T4-MG, MSH) and GEO's plan are held
+bitwise to the plain version and log the walk the plan took, the row-count
+inflation of its warps in node order and in sorted windows, and that walk's
+registers.  ``ptxas`` lines (registers, shared memory, spills) of the
 stencil, gather (s = 1, 2, 3, any s), scatter (s = 1, 2, any s, and s = 3's
 three walks) and stiffness kernels (each element's three forms: matrix, its isotropic terms
 and scalar, with each form's launch layout, and any rule's matrix and scalar forms; tet20's scalar form is
@@ -1275,7 +1276,7 @@ def gather_scatter_runs(plan, w, f_el, dev, names):
     sets = [(plan, w, f_el, idx, idx_spare)]
     for _ in range(l2_copies(min(gather_bytes, scatter_bytes)) - 1):
         p = dataclasses.replace(plan, **{k: getattr(plan, k).clone() for k in
-                                         ("nodes_padded", "block_rows", "row_ptr", "node_rows", "window_order")})
+                                         ("nodes_padded", "block_rows", "row_ptr", "node_rows")})
         sets.append((p, w.clone(), f_el.clone(), idx.clone(), idx_spare.clone()))
     if s == 3:
         scatter_walk_log(plan, names[1])
@@ -1295,21 +1296,21 @@ def gather_scatter_runs(plan, w, f_el, dev, names):
 
 def scatter_walk_log(plan, record):
     """Log the walk the s = 3 scatter takes on ``plan`` (record ``record``): the rows walk or one or four lanes
-    a node, sorted windows or node order, the row-count inflation of warps of 32 nodes in node order and
-    sorted (``ops/banded.walk_inflation``), rows a node, and the walk's registers and spills from the build
-    log."""
+    a node, the row-count inflation of warps of 32 nodes in node order (what the walk reads) and with each
+    window sorted by row count (``ops/banded.walk_inflation``), rows a node, and the walk's registers and
+    spills from the build log."""
     import torch
 
     import fenris_tpu_torch.ops.banded as bd
 
     counts = torch.diff(plan.row_ptr.long())
-    before, after = (bd.walk_inflation(counts, order) for order in (None, plan.window_order))
+    before, after = (bd.walk_inflation(counts, sorted_windows) for sorted_windows in (False, True))
     label = PTXAS_LABELS["banded_scatter_kernelILi3ELb1E" if plan.walk == bd.WALK_ROWS
                          else f"banded_scatter3_kernelILi{plan.walk}E"]
-    log(f"scatter walk {record}: {label[len('banded_scatter (s = 3, '):-1]}, "
-        f"{'sorted windows' if plan.sorted_walk else 'node order'}; row-count inflation {before:.3f} in node order, "
-        f"{after:.3f} in windows of {bd.SCATTER_WINDOW} sorted; rows a node {int(counts.min())}-"
-        f"{int(counts.max())}, mean {float(counts.double().mean()):.2f}; ptxas: {PTXAS.get(label, 'not in the log')}")
+    log(f"scatter walk {record}: {label[len('banded_scatter (s = 3, '):-1]}, {plan.num_nodes} nodes; row-count "
+        f"inflation {before:.3f} in node order, {after:.3f} in windows of {bd.SCATTER_WINDOW} sorted; rows a node "
+        f"{int(counts.min())}-{int(counts.max())}, mean {float(counts.double().mean()):.2f}; ptxas: "
+        f"{PTXAS.get(label, 'not in the log')}")
 
 
 def l2_copies(nbytes, most=20):
@@ -3926,6 +3927,18 @@ def geo_phase(kernels, dev, smi):
     log(f"GEO mesh: {levels} refinements to {mesh.num_cells} tet4, {mesh.num_vertices} nodes, {model.space.num_dofs} "
         f"dofs, {len(clamped)} nodes clamped (z < {GEO_CAP_Z}); refinement {refine_s:.3f} s, RCM and fused model "
         f"{setup_s:.3f} s ({smi})")
+    # the scatter's walk on GEO's plan, held bitwise to the plain version (before the solve resets the counts)
+    import fenris_tpu_torch.ops.banded as bd
+
+    plan = model._plan
+    scatter_walk_log(plan, "banded_scatter (GEO)")
+    f_el = torch.randn((plan.padded_elements, plan.n, 3), generator=torch.Generator(device=dev).manual_seed(20),
+                       device=dev)
+    got, again, ref = bd.banded_scatter(plan, f_el), bd.banded_scatter(plan, f_el), bd.banded_scatter_plain(plan, f_el)
+    exact = bool(torch.equal(got, ref) and torch.equal(again, ref))
+    log(f"banded_scatter (GEO): two launches bitwise equal to the plain version: {exact}")
+    check(exact, "banded_scatter (GEO): not bitwise equal to the plain version")
+    del got, again, ref, f_el
     sources = {"tangent": "em_vector_tangent_sweep", "vector": "em_vector_sweep", "gather": "banded_gather",
                "scatter": "banded_scatter"}
     view = {f"{role} (GEO)": {"fn": kernels[name]["fn"]} for role, name in sources.items()}

@@ -49,21 +49,19 @@
 //            - four lanes a node, kScatter3Batch rows a lane, 32 rows a step
 //              (tet4: 23 rows a node), the step's values shuffled to every
 //              lane of the node, never partial sums.
-//            The lane walks take a window of kScatterWindow nodes a block, in
-//            node order or in the plan's window_order (each window sorted by
-//            row count: warps of like nodes), and store it from shared memory
-//            as one contiguous float4 run.  Sorted windows cut the rows a warp
-//            waits on (tet10: 3.25x its mean node's to 1.06x) but ran 2-8%
-//            slower on every mesh measured: neighbouring nodes share elements,
-//            so their rows share sectors.  (A block-cooperative walk, staging
-//            a node range's rows in shared memory, ran 21-40% slower
-//            at the res-149 layouts: the rows of 85 consecutive nodes span
-//            45,000-186,000 rows.)
+//            The lane walks take a window of kScatterWindow consecutive nodes
+//            a block and store it from shared memory as one contiguous float4
+//            run.  Walking each window sorted by row count (warps of like
+//            nodes) cut the rows a warp waits on (tet10: 3.25x its mean
+//            node's to 1.06x) but ran 2-8% slower on every mesh measured:
+//            neighbouring nodes share elements, so their rows share sectors.
+//            (A block-cooperative walk, staging a node range's rows in shared
+//            memory, ran 21-40% slower at the res-149 layouts: the rows of 85
+//            consecutive nodes span 45,000-186,000 rows.)
 // What bounds them on the H100: bytes.  The gather reads 4 B of index per
 // valid row and writes 4 s B per row (u itself, 4 s B per node, mostly hits
 // L2); the scatter reads 4 s B of element data and 4 B of row index per
-// row, the element reads landing in 32 B sectors of which it uses 4 s B
-// (a sorted walk reads 4 B of order table a node besides).
+// row, the element reads landing in 32 B sectors of which it uses 4 s B.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //             -Xcompiler -fPIC (see fenris_tpu_torch/ops/_build.py).
@@ -77,7 +75,7 @@ constexpr int kThreads = 256;
 constexpr int kGroupRows = 4;                      // rows a thread gathers: one int4 of indices
 constexpr int kGatherTile = kThreads * kGroupRows;  // rows of one gather thread block
 constexpr int kScatterBatch = 8;                   // rows a scatter thread loads before it adds them (s = 1, 2)
-constexpr int kScatterWindow = 256;  // nodes of one s = 3 lane-walk block; the plan sorts each window by row count
+constexpr int kScatterWindow = 256;  // consecutive nodes of one s = 3 lane-walk block
 constexpr int kScatter3Batch = 8;    // rows a lane loads before the node's lanes add them (s = 3 lane walks)
 
 // S = 1, 2, 3: the tiled body (rows_per_block % 4 == 0, nodes and out 16-byte
@@ -176,13 +174,12 @@ __global__ void __launch_bounds__(kThreads)
   out[t] = acc;
 }
 
-// The s = 3 lane walks: one block a window of kScatterWindow nodes, L lanes a
-// node.  The block's position p takes node order[base + p] (base + p without
-// a table).  A step of the node's walk covers L * kScatter3Batch rows: lane q
-// loads rows i0 + j L + q (their indices, then the rows), then every lane of
-// the node adds the step's rows in ascending order.  Row r of f starts at
-// 12 r bytes, so a float and a float2 (f 8-byte aligned) cover it: odd r the
-// float first, even r the float2 first.
+// The s = 3 lane walks: one block a window of kScatterWindow consecutive
+// nodes, L lanes a node.  A step of the node's walk covers L * kScatter3Batch
+// rows: lane q loads rows i0 + j L + q (their indices, then the rows), then
+// every lane of the node adds the step's rows in ascending order.  Row r of f
+// starts at 12 r bytes, so a float and a float2 (f 8-byte aligned) cover it:
+// odd r the float first, even r the float2 first.
 __device__ __forceinline__ void load_row3(const float* __restrict__ f, int row, float& x, float& y, float& z) {
   const float* p = f + 3 * (int64_t)row;
   const bool odd = row & 1;
@@ -196,15 +193,14 @@ __device__ __forceinline__ void load_row3(const float* __restrict__ f, int row, 
 template <int L>
 __global__ void __launch_bounds__(kScatterWindow * L, 4 / L)
     banded_scatter3_kernel(const float* __restrict__ f, const int32_t* __restrict__ row_ptr,
-                           const int32_t* __restrict__ node_rows, const int32_t* __restrict__ order,
-                           float* __restrict__ out, int num_nodes) {
+                           const int32_t* __restrict__ node_rows, float* __restrict__ out, int num_nodes) {
   constexpr int B = kScatter3Batch;
   __shared__ __align__(16) float s_out[kScatterWindow * 3];
   const int base = blockIdx.x * kScatterWindow;
   const int count = min(kScatterWindow, num_nodes - base);
   const int pos = threadIdx.x / L, q = threadIdx.x % L;
   if (pos < count) {
-    const int node = order ? __ldg(order + base + pos) : base + pos;
+    const int node = base + pos;
     const int begin = __ldg(row_ptr + node), end = __ldg(row_ptr + node + 1);
     float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
     for (int i0 = begin; i0 < end; i0 += L * B) {
@@ -234,7 +230,7 @@ __global__ void __launch_bounds__(kScatterWindow * L, 4 / L)
       }
     }
     if (q == 0) {
-      float* o = s_out + 3 * (node - base);
+      float* o = s_out + 3 * pos;
       o[0] = a0, o[1] = a1, o[2] = a2;
     }
   }
@@ -265,12 +261,11 @@ int launch_scatter(cudaStream_t st, const void* f, const void* row_ptr, const vo
 }
 
 template <int L>
-int launch_scatter3(cudaStream_t st, const void* f, const void* row_ptr, const void* node_rows, const void* order,
-                    void* out, long long num_nodes) {
+int launch_scatter3(cudaStream_t st, const void* f, const void* row_ptr, const void* node_rows, void* out,
+                    long long num_nodes) {
   const unsigned int blocks = (unsigned int)((num_nodes + kScatterWindow - 1) / kScatterWindow);
   banded_scatter3_kernel<L><<<blocks, kScatterWindow * L, 0, st>>>(
-      (const float*)f, (const int32_t*)row_ptr, (const int32_t*)node_rows, (const int32_t*)order, (float*)out,
-      (int)num_nodes);
+      (const float*)f, (const int32_t*)row_ptr, (const int32_t*)node_rows, (float*)out, (int)num_nodes);
   return (int)cudaGetLastError();
 }
 
@@ -280,11 +275,8 @@ int launch_scatter3(cudaStream_t st, const void* f, const void* row_ptr, const v
 // contiguous device arrays: u f32 [N, s], nodes int32 [rows_total],
 // block_rows int32 [rows_total / rows_per_block], out f32 [rows_total, s]
 // (gather); f f32 [rows, s], row_ptr int32 [num_nodes + 1], node_rows int32
-// [row_ptr[num_nodes]], order int32 [num_nodes] or NULL, out f32 [num_nodes,
-// s] (scatter; walk and order are read at s = 3 only: walk 0 the rows walk,
-// 1 one lane a node, 4 four lanes a node; order, where given, holds each
-// window of kScatterWindow nodes permuted within itself and is read by the
-// lane walks).  Each returns cudaGetLastError() after its launch (0 =
+// [row_ptr[num_nodes]], out f32 [num_nodes, s] (scatter; walk is read at
+// s = 3 only: 0 the rows walk, 1 one lane a node, 4 four lanes a node).  Each returns cudaGetLastError() after its launch (0 =
 // success).  The gather returns cudaErrorInvalidValue without launching when
 // rows_total * s >= 2^31, rows_total is not a multiple of rows_per_block,
 // rows_per_block exceeds 65535 tiles, or, at s = 1, 2, 3, rows_per_block is
@@ -316,8 +308,8 @@ extern "C" int fenris_banded_gather(const void* u, const void* nodes, const void
   }
 }
 
-extern "C" int fenris_banded_scatter(const void* f, const void* row_ptr, const void* node_rows, const void* order,
-                                     void* out, long long num_nodes, int s, int walk, void* stream) {
+extern "C" int fenris_banded_scatter(const void* f, const void* row_ptr, const void* node_rows, void* out,
+                                     long long num_nodes, int s, int walk, void* stream) {
   if (s <= 0) return (int)cudaErrorInvalidValue;
   if (s == 3 && walk != 0 && (num_nodes >= (1LL << 31) || (uintptr_t)out % 16 != 0 || (uintptr_t)f % 8 != 0))
     return (int)cudaErrorInvalidValue;
@@ -329,8 +321,8 @@ extern "C" int fenris_banded_scatter(const void* f, const void* row_ptr, const v
     case 3:
       switch (walk) {
         case 0: return launch_scatter<3, true>(st, f, row_ptr, node_rows, out, num_nodes, s);
-        case 1: return launch_scatter3<1>(st, f, row_ptr, node_rows, order, out, num_nodes);
-        case 4: return launch_scatter3<4>(st, f, row_ptr, node_rows, order, out, num_nodes);
+        case 1: return launch_scatter3<1>(st, f, row_ptr, node_rows, out, num_nodes);
+        case 4: return launch_scatter3<4>(st, f, row_ptr, node_rows, out, num_nodes);
         default: return (int)cudaErrorInvalidValue;
       }
     default: return launch_scatter<0>(st, f, row_ptr, node_rows, out, num_nodes, s);

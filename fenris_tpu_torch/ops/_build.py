@@ -62,8 +62,8 @@ _SIGNATURES = {
     "fenris_stiffness_pairs": ((_P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _P), _I),
     # u, nodes, block_rows, out, rows_total, rows_per_block, s, stream
     "fenris_banded_gather": ((_P, _P, _P, _P, _L, _I, _I, _P), _I),
-    # f, row_ptr, node_rows, order (NULL: node order), out, num_nodes, s, walk, stream
-    "fenris_banded_scatter": ((_P, _P, _P, _P, _P, _L, _I, _I, _P), _I),
+    # f, row_ptr, node_rows, out, num_nodes, s, walk, stream
+    "fenris_banded_scatter": ((_P, _P, _P, _P, _L, _I, _I, _P), _I),
     # X, u, v (NULL: vector sweep), out, strides[12], E, tables, q, d, m, n, material, then mu and lam each
     # as (pointer or NULL, element stride, value), stream
     "fenris_em_sweep": ((_P, _P, _P, _P, _LP, _L, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _I, _F, _P), _I),

@@ -26,10 +26,7 @@ halo combine) is TPU structure and is not carried over: on the card a row
 reads its node directly, and the scatter walks a node→rows map (CSR,
 rows ascending) that the plan builds once on its device.  At s = 3 the plan
 also picks the scatter's walk from its row counts (``walk``,
-:func:`scatter_walk`) and holds each window of :data:`SCATTER_WINDOW`
-consecutive nodes sorted by row count (``window_order``), which the lane
-walks read where ``sorted_walk`` is set (no plan sets it: it ran slower on
-every mesh measured).
+:func:`scatter_walk`).
 
 :func:`gather` and :func:`scatter_add` are the autodiff-transparent pair
 (each the other's transpose, as ``linear_call`` makes them in JAX), so
@@ -63,18 +60,25 @@ __all__ = [
     "walk_inflation",
     "scatter_walk",
     "SCATTER_WINDOW",
+    "H100_SMS",
     "WALK_ROWS",
     "WALK_LANE",
     "WALK_LANES",
 ]
 
-# nodes of one window of the s = 3 lane walks (csrc/banded.cu's kScatterWindow): one thread block, and the
-# span within which the plan sorts nodes by row count
+# consecutive nodes of one block of the s = 3 lane walks (csrc/banded.cu's kScatterWindow)
 SCATTER_WINDOW = 256
 SCATTER_BATCH = 8  # rows a lane loads before the node's lanes add them (kScatter3Batch)
 # the s = 3 scatter's walks (csrc/banded.cu): a thread per (node, component) one row at a time; one lane a
 # node in batches of SCATTER_BATCH rows; four lanes a node, 4 * SCATTER_BATCH rows a step
 WALK_ROWS, WALK_LANE, WALK_LANES = 0, 1, 4
+# streaming multiprocessors of the NVIDIA H100 SXM5 (its data sheet), on which the walks were measured: the
+# count that scatter_walk takes for a plan made off the card
+H100_SMS = 132
+# four lanes a node from this many waves of their 1,024-thread blocks (SCATTER_WINDOW nodes a block, one
+# block an SM at a time): tet4 boxes on the H100 crossed over between 68,705 nodes (2.0 waves, the rows
+# walk 7% faster) and 82,179 (2.4, four lanes 1% faster; 9-10% from 97,309 on)
+LANES_WAVES = 2.4
 
 
 @dataclass(frozen=True, eq=False)
@@ -106,8 +110,6 @@ class BandedPlan:
     node_rows: torch.Tensor  # [nnz] int32 valid rows per node, ascending
     node_scatter: ScatterPlan  # layered scatter of the valid rows (plain version)
     valid_idx: torch.Tensor  # [nnz] int64 valid rows in ascending order
-    window_order: torch.Tensor  # [num_nodes] int32 each SCATTER_WINDOW-node window, stably sorted by row count
-    sorted_walk: bool  # the s = 3 lane walks take the nodes in window_order (else in node order)
     walk: int  # the s = 3 scatter's walk: WALK_ROWS, WALK_LANE or WALK_LANES
 
     @property
@@ -194,9 +196,6 @@ def make_banded_plan(
     per_node = torch.bincount(valid_nodes, minlength=num_nodes)
     row_ptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=dev)
     row_ptr[1:] = torch.cumsum(per_node, 0)
-    # the s = 3 scatter's walk: windows sorted by row count (ties in node order)
-    window = torch.arange(num_nodes, device=dev) // SCATTER_WINDOW
-    window_order = torch.sort(window * (int(per_node.max()) + 1 if num_nodes else 1) + per_node, stable=True).indices
     return BandedPlan(
         num_nodes=int(num_nodes),
         s=int(s),
@@ -218,35 +217,38 @@ def make_banded_plan(
         node_rows=valid_idx[order].to(torch.int32),
         node_scatter=scatter_plan(valid_nodes),
         valid_idx=valid_idx,
-        window_order=window_order.to(torch.int32),
-        sorted_walk=False,  # node order: sorted windows ran 2-8% slower on every mesh measured
-        walk=scatter_walk(per_node),
+        walk=scatter_walk(per_node, torch.cuda.get_device_properties(dev).multi_processor_count
+                          if dev.type == "cuda" else H100_SMS),
     )
 
 
-def scatter_walk(row_counts: torch.Tensor) -> int:
-    """The s = 3 scatter's walk for nodes of ``row_counts`` rows, as measured on the H100 (``PERF.md`` §6):
-    four lanes a node where nodes average more than two batches of rows and the launch holds at least four
-    waves of 1,024-thread blocks on the H100's 132 SMs (tet4 at T4-MG: 23 rows a node, 537,000 nodes; the
-    55,000-node tet4 sphere ran slower that way); one lane a node where node
-    order puts unlike row counts side by side, warps of 32 nodes walking more than 1.5x the rows of their mean
-    node (tet10 3.2x, hex20 1.6x), which the rows walk pays for in long one-row chains; else the rows walk
-    (hex8 1.01x, the 55,000-node tet4 sphere)."""
+def scatter_walk(row_counts: torch.Tensor, sms: int = H100_SMS) -> int:
+    """The s = 3 scatter's walk for nodes of ``row_counts`` rows on a card of ``sms`` SMs, as measured on the
+    H100 (``PERF.md`` §6): four lanes a node where nodes average more than two batches of rows and the launch
+    holds at least ``LANES_WAVES`` waves of 1,024-thread blocks (tet4: 22-23 rows a node; fewer nodes ran
+    faster on the rows walk, which keeps three threads a node and so more of them at once); one lane a node
+    where node order puts unlike row counts side by side, warps of 32 nodes walking more than 1.5x the rows
+    of their mean node (tet10 3.2x, hex20 1.6x), which the rows walk pays for in long one-row chains; else
+    the rows walk (hex8 1.01x, small tet4 meshes)."""
     n = row_counts.numel()
-    if n >= 4 * 132 * SCATTER_WINDOW and float(row_counts.double().mean()) > 2 * SCATTER_BATCH:
+    if n >= LANES_WAVES * sms * SCATTER_WINDOW and float(row_counts.double().mean()) > 2 * SCATTER_BATCH:
         return WALK_LANES
     return WALK_LANE if walk_inflation(row_counts) > 1.5 else WALK_ROWS
 
 
-def walk_inflation(row_counts: torch.Tensor, order=None, warp_nodes: int = 32) -> float:
+def walk_inflation(row_counts: torch.Tensor, sorted_windows: bool = False, warp_nodes: int = 32) -> float:
     """Rows a warp of the s = 3 scatter walks over the rows of its mean node: a warp takes ``warp_nodes``
-    consecutive positions of ``order`` (``None``: node order), walks as many rows as its longest node, and
-    the ratio is the sum of those longest walks over the sum of the warps' mean walks (1.0: no warp waits
-    on a longer node)."""
-    counts = (row_counts if order is None else row_counts[order.long()]).double()
+    consecutive nodes (with ``sorted_windows``, of each ``SCATTER_WINDOW``-node window sorted by row count),
+    walks as many rows as its longest node, and the ratio is the sum of those longest walks over the sum of
+    the warps' mean walks (1.0: no warp waits on a longer node)."""
+    counts = row_counts.double()
     if counts.numel() == 0 or not bool(counts.any()):
         return 1.0
-    warp = torch.arange(counts.numel(), device=counts.device) // warp_nodes
+    position = torch.arange(counts.numel(), device=counts.device)
+    if sorted_windows:
+        key = (position // SCATTER_WINDOW) * (float(counts.max()) + 1.0)
+        counts = torch.sort(key + counts).values - key
+    warp = position // warp_nodes
     longest = torch.zeros(int(warp[-1]) + 1, dtype=counts.dtype, device=counts.device)
     longest.scatter_reduce_(0, warp, counts, "amax")
     mean = torch.bincount(warp, counts) / torch.bincount(warp)
@@ -333,15 +335,14 @@ def _launch_gather(u: torch.Tensor, nodes: torch.Tensor, block_rows: torch.Tenso
     return out
 
 
-def _launch_scatter(f: torch.Tensor, row_ptr: torch.Tensor, node_rows: torch.Tensor, order: torch.Tensor,
-                    sorted_walk: bool, walk: int) -> torch.Tensor:
+def _launch_scatter(f: torch.Tensor, row_ptr: torch.Tensor, node_rows: torch.Tensor, walk: int) -> torch.Tensor:
     _check_rows_aligned(f, walk)
     lib = load_library()
     s = f.shape[1]
     num_nodes = row_ptr.numel() - 1
     out = f.new_empty((num_nodes, s))
     code = _on_stream(lib.fenris_banded_scatter, f, f.data_ptr(), row_ptr.data_ptr(), node_rows.data_ptr(),
-                      order.data_ptr() if sorted_walk else None, out.data_ptr(), num_nodes, s, walk)
+                      out.data_ptr(), num_nodes, s, walk)
     check(lib, code, "banded_scatter")
     banded_scatter.launches += 1
     return out
@@ -358,7 +359,7 @@ def _(u, nodes, block_rows, rows):
 
 
 @_scatter_kernel.register_fake
-def _(f, row_ptr, node_rows, order, sorted_walk, walk):
+def _(f, row_ptr, node_rows, walk):
     return f.new_empty((row_ptr.numel() - 1, f.shape[1]))
 
 
@@ -391,15 +392,14 @@ def banded_scatter(plan: BandedPlan, f_el: torch.Tensor) -> torch.Tensor:
 
     Padding rows are dropped; each node's rows are added in ascending row
     order, so the result is bitwise reproducible.  At s = 3 the kernel takes
-    the plan's walk (``plan.walk``, ``plan.sorted_walk``).  Not
-    differentiable (see :func:`scatter_add`).
+    the plan's walk (``plan.walk``).  Not differentiable (see
+    :func:`scatter_add`).
     """
     if f_el.device.type == "cpu":
         return banded_scatter_plain(plan, f_el)
     _check(plan, f_el, "f_el", (plan.padded_elements, plan.n))
     launch = _launch_scatter if _eager(f_el) else _scatter_kernel
-    return launch(f_el.reshape(-1, f_el.shape[-1]), plan.row_ptr, plan.node_rows, plan.window_order,
-                  plan.sorted_walk, plan.walk)
+    return launch(f_el.reshape(-1, f_el.shape[-1]), plan.row_ptr, plan.node_rows, plan.walk)
 
 
 banded_gather.launches = 0

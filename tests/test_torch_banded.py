@@ -6,6 +6,7 @@ kernels' index tables (the node -> rows CSR map, the per-block valid row
 counts) are checked here by emulating the kernels in numpy.
 """
 
+import math
 import re
 from pathlib import Path
 from types import SimpleNamespace
@@ -180,12 +181,12 @@ def _scatter_plan(name):
     return _PLANS[name]
 
 
-def _emulate_lane_walk(tp, rows, order, lanes):
-    """The s = 3 lane walks: block b takes window ``[b W, b W + W)`` (W = kScatterWindow); its position p takes
-    node ``order[b W + p]`` with ``lanes`` lanes; a step of the node's walk covers ``lanes * B`` rows (B =
+def _emulate_lane_walk(tp, rows, lanes):
+    """The s = 3 lane walks: block b takes nodes ``[b W, b W + W)`` (W = kScatterWindow); its position p takes
+    node ``b W + p`` with ``lanes`` lanes; a step of the node's walk covers ``lanes * B`` rows (B =
     kScatter3Batch), lane q loading rows ``i0 + j lanes + q`` (their indices, then their 12-byte rows), then the
     node's lanes adding the step's rows in ascending order into three f32 accumulators from 0.0; the node's
-    sums go to shared memory at slot ``node - b W``, and the window's ``3 count`` floats leave as one run from
+    sums go to shared memory at slot p, and the window's ``3 count`` floats leave as one run from
     ``out + 3 b W``."""
     W, B = _kernel_constant("kScatterWindow"), _kernel_constant("kScatter3Batch")
     ptr, node_rows, N = to_numpy(tp.row_ptr), to_numpy(tp.node_rows), tp.num_nodes
@@ -194,8 +195,7 @@ def _emulate_lane_walk(tp, rows, order, lanes):
         count = min(W, N - base)
         smem = np.full(3 * W, np.nan, np.float32)
         for p in range(count):
-            node = order[base + p]
-            assert base <= node < base + count
+            node = base + p
             acc = np.zeros(3, np.float32)
             begin, end = ptr[node], ptr[node + 1]
             for i0 in range(begin, end, lanes * B):
@@ -206,8 +206,8 @@ def _emulate_lane_walk(tp, rows, order, lanes):
                     for q in range(lanes):  # row i0 + j lanes + q: ascending
                         if idx[j, q] >= 0:
                             acc += vals[j, q]
-            assert np.isnan(smem[3 * (node - base)])
-            smem[3 * (node - base):3 * (node - base) + 3] = acc
+            assert np.isnan(smem[3 * p])
+            smem[3 * p:3 * p + 3] = acc
         out[3 * base:3 * (base + count)] = smem[:3 * count]
     assert not np.isnan(out).any()
     return out.reshape(N, 3)
@@ -235,8 +235,7 @@ def test_scatter_kernel_batches_reproduce_the_plain_version(name):
     ascending row order from 0.0 in f32.  At s = 1, 2 a thread takes one node's CSR rows at one component in
     batches of ``kScatterBatch`` rows (the batch's row indices, then their element values, then the adds).  At
     s = 3 the plan's walk first, then the others: the rows walk (a thread per (node, component), one row at a
-    time) and the two lane walks of :func:`_emulate_lane_walk` (1 and 4 lanes a node) in node order and in
-    ``window_order``.  Equal to the plain scatter bitwise; the star's centre has many batches of rows."""
+    time) and the two lane walks of :func:`_emulate_lane_walk` (1 and 4 lanes a node).  Equal to the plain scatter bitwise; the star's centre has many batches of rows."""
     tp = _scatter_plan(name)
     s = tp.s
     ptr = to_numpy(tp.row_ptr)
@@ -253,53 +252,51 @@ def test_scatter_kernel_batches_reproduce_the_plain_version(name):
         assert np.array_equal(_emulate_component_walk(tp, rows, _kernel_constant("kScatterBatch") if s <= 2 else 1),
                               plain)
         return
-    identity, window_order = np.arange(tp.num_nodes), to_numpy(tp.window_order)
-    walks = [(tb.WALK_ROWS, None)] + [(w, o) for w in (tb.WALK_LANE, tb.WALK_LANES) for o in (identity, window_order)]
-    plans_walk = (tp.walk, None if tp.walk == tb.WALK_ROWS else window_order if tp.sorted_walk else identity)
-    walks.sort(key=lambda wo: (wo[0], wo[1] is window_order) != (plans_walk[0], plans_walk[1] is window_order))
-    for walk, order in walks:
-        got = (_emulate_component_walk(tp, rows, 1) if walk == tb.WALK_ROWS
-               else _emulate_lane_walk(tp, rows, order, walk))
+    walks = sorted((tb.WALK_ROWS, tb.WALK_LANE, tb.WALK_LANES), key=lambda walk: walk != tp.walk)
+    for walk in walks:
+        got = _emulate_component_walk(tp, rows, 1) if walk == tb.WALK_ROWS else _emulate_lane_walk(tp, rows, walk)
         assert np.array_equal(got, plain), walk
 
 
 @pytest.mark.parametrize("name", ["box12_s3_blocks", "tet10_s3", "gap_s3", "ragged_s3", "star_s3"])
-def test_window_order_invariants(name):
-    """``window_order``: each window of ``SCATTER_WINDOW`` (= csrc/banded.cu's kScatterWindow) nodes is a
-    permutation of its own nodes, row counts do not decrease within it, ties keep ascending node order, and its
-    warps wait on no more rows than in node order; the plan walks in node order with the walk
-    ``scatter_walk`` picks from its row counts."""
+def test_walk_inflation_counts_warps(name):
+    """``walk_inflation`` against warps counted in numpy: warps of 32 consecutive nodes, each walking its
+    longest node's rows, over their mean nodes' rows; with ``sorted_windows`` each ``SCATTER_WINDOW`` (=
+    csrc/banded.cu's kScatterWindow) nodes sorted by row count first, which waits on no more rows.  A plan
+    made off the card takes the walk ``scatter_walk`` picks from its row counts for the H100's SMs."""
     tp = _scatter_plan(name)
-    W, N = tb.SCATTER_WINDOW, tp.num_nodes
+    W = tb.SCATTER_WINDOW
     assert W == _kernel_constant("kScatterWindow") and tb.SCATTER_BATCH == _kernel_constant("kScatter3Batch")
-    order, counts = to_numpy(tp.window_order), np.diff(to_numpy(tp.row_ptr))
-    assert order.dtype == np.int32 and order.shape == (N,)
-    for base in range(0, N, W):
-        win = order[base:base + W]
-        np.testing.assert_array_equal(np.sort(win), np.arange(base, min(base + W, N)))
-        c = counts[win]
-        assert np.all(np.diff(c) >= 0)
-        assert np.all(np.diff(win)[np.diff(c) == 0] > 0)
+    counts = np.diff(to_numpy(tp.row_ptr)).astype(np.float64)
+    windows_sorted = np.concatenate([np.sort(counts[b:b + W]) for b in range(0, len(counts), W)])
+    for c, sorted_windows in ((counts, False), (windows_sorted, True)):
+        warps = [c[i:i + 32] for i in range(0, len(c), 32)]
+        want = sum(w.max() for w in warps) / sum(w.mean() for w in warps)
+        got = tb.walk_inflation(torch.as_tensor(counts), sorted_windows=sorted_windows)
+        assert got == pytest.approx(want, rel=1e-12)
     counts_t = torch.as_tensor(counts)
-    assert tb.walk_inflation(counts_t, tp.window_order) <= tb.walk_inflation(counts_t)
-    assert not tp.sorted_walk and tp.walk == tb.scatter_walk(counts_t)
+    assert 1.0 <= tb.walk_inflation(counts_t, sorted_windows=True) <= tb.walk_inflation(counts_t)
+    assert tp.walk == tb.scatter_walk(counts_t) == tb.scatter_walk(counts_t, tb.H100_SMS)
 
 
 def test_scatter_walk_rule():
     """The s = 3 walk from row counts: nodes of like counts take the rows walk (hex8: 8 rows a node, the
     boundary's fewer in runs); warps of unlike counts (tet10's vertices beside its edge nodes) one lane a node;
-    more than two batches of rows a node on a launch of at least four waves, four lanes; the same counts on
-    fewer nodes, the walk their warps pick."""
+    more than two batches of rows a node on a launch of at least ``LANES_WAVES`` waves of the card's SMs, four
+    lanes; the same counts on fewer nodes, the walk their warps pick; a card of half the SMs takes four lanes
+    from half the nodes."""
     uniform = torch.full((4096,), 8)
     uniform[:64] = 4
     unlike = torch.tensor([2, 2, 24, 2, 8, 2, 2, 2] * 512)
-    many = 4 * 132 * tb.SCATTER_WINDOW
+    many = -(-math.ceil(tb.LANES_WAVES * tb.H100_SMS * tb.SCATTER_WINDOW) // 4) * 4  # the first multiple of 4 past it
     tet4_like = torch.tensor([23, 22, 24, 21] * (many // 4))
     assert tb.walk_inflation(uniform) < 1.5 < tb.walk_inflation(unlike)
     assert tb.scatter_walk(uniform) == tb.WALK_ROWS
     assert tb.scatter_walk(unlike) == tb.WALK_LANE
     assert tb.scatter_walk(tet4_like) == tb.WALK_LANES
     assert tb.scatter_walk(tet4_like[:-4]) == tb.WALK_ROWS
+    assert tb.scatter_walk(tet4_like[:many // 2], tb.H100_SMS // 2) == tb.WALK_LANES
+    assert tb.scatter_walk(tet4_like[:many // 2 - 4], tb.H100_SMS // 2) == tb.WALK_ROWS
     assert tb.scatter_walk(torch.zeros(0, dtype=torch.int64)) == tb.WALK_ROWS
 
 

@@ -501,7 +501,7 @@ def banded_cells(kind, res):
 def test_banded_kernels_match_plain_on_card(name, cuda_device):
     """Gather and scatter bitwise equal to their plain versions and to their own repeats (the star: one node
     with thousands of rows); at s = 3 the scatter also in every walk a plan could take (the rows walk, one
-    and four lanes a node in node order and in sorted windows)."""
+    and four lanes a node)."""
     kind, res, s, r_nodes, rowt = BANDED_CASES[name]
     cells = banded_cells(kind, res)
     N = int(cells.max()) + 1
@@ -524,12 +524,11 @@ def test_banded_kernels_match_plain_on_card(name, cuda_device):
     assert (tb.banded_gather.launches, tb.banded_scatter.launches) == (before[0] + 2, before[1] + 2)
     if kind == "gap":
         assert int(tp.row_ptr[6] - tp.row_ptr[5]) == 0 and not bool(got[5].any())
-    walks = [(tb.WALK_ROWS, False)] + [(w, o) for w in (tb.WALK_LANE, tb.WALK_LANES) for o in (False, True)]
-    for walk, sorted_walk in walks if s == 3 else ():
-        other = dataclasses.replace(tp, walk=walk, sorted_walk=sorted_walk)
+    for walk in (tb.WALK_ROWS, tb.WALK_LANE, tb.WALK_LANES) if s == 3 else ():
+        other = dataclasses.replace(tp, walk=walk)
         got, again = tb.banded_scatter(other, f), tb.banded_scatter(other, f)
         torch.cuda.synchronize()
-        assert torch.equal(got, ref) and torch.equal(again, ref), (walk, sorted_walk)
+        assert torch.equal(got, ref) and torch.equal(again, ref), walk
 
 
 @pytest.mark.cuda

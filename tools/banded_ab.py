@@ -2,7 +2,7 @@
 
 Usage, from the root of a checkout on a machine with a card:
 
-    python3 tools/banded_ab.py OLD NEW NEW OLD
+    python3 tools/banded_ab.py [--layouts "T4 res 5 x3,GEO tet4 sphere"] OLD NEW NEW OLD
     python3 tools/banded_ab.py --solves [--cells S10,PE10] [--repeat 3] OLD NEW NEW OLD
 
 Each argument is the root of a checkout (e.g. a ``git archive`` of the
@@ -14,6 +14,9 @@ cell takes one), and saves their cells under ``fenris_tpu_torch/_build/``:
 * M10, M20 (s = 3): tet10 on the BCC res-40 box, hex20 on the res-64 box;
 * T4-MG (s = 3): tet4, the BCC res-8 box refined three times (``rcm_refined_hierarchy``, RCM'd);
 * MSH (s = 3): tet4, ``tests/assets/meshes/sphere_tet4_593.msh`` refined three times, RCM'd;
+* T4 res r xl (s = 3): tet4, BCC res-r boxes refined l times as T4-MG's (68,705 to 360,809 nodes: the
+  sizes between MSH's and T4-MG's, where the s = 3 walk changes);
+* GEO (s = 3): tet4, ``chip_smoke.py``'s procedural sphere, welded and refined to 1,081,344 tets, RCM'd;
 * P149 (s = 1): the res-149 box; P2D quad9 and tri6 (s = 1): the res-512 square;
 * M2D (s = 2): quad4 and tri3 at res 1024, quad8, quad9 and tri6 at res 512.
 
@@ -34,12 +37,12 @@ host's time per call where that is longer), with ``index_select`` and
 same ways in the same process.  The last lines give, for each layout, each
 checkout's lowest times, and each kernel's share of its bound (the bytes
 the function needs over 3.35 TB/s, as ``chip_smoke.py`` counts them).
-Where a checkout's plan carries the s = 3 scatter's walk (``walk``,
-``sorted_walk``), each s = 3 layout also logs the plan's choice, the
-row-count inflation of warps of 32 nodes in node order and sorted
+``--layouts`` (names of ``LAYOUTS``, comma-separated) runs only those.
+Where a checkout's plan carries the s = 3 scatter's walk (``walk``), each
+s = 3 layout also logs the plan's choice, its node count, the row-count
+inflation of warps of 32 nodes in node order and with each window sorted
 (``ops/banded.walk_inflation``), and the scatter's card time in every
-walk: the rows walk, one and four lanes a node in node order and in
-sorted windows.
+walk: the rows walk, one and four lanes a node.
 Compare two versions only inside one call.
 
 With ``--solves`` each checkout instead runs, with its own ``chip_smoke.py``
@@ -70,14 +73,22 @@ REPS = 50
 TIMES = tuple(f"{k}{e}_ms" for k in ("gather", "scatter", "index_select", "index_add") for e in ("", "_eager"))
 HBM_BYTES_PER_S = 3.35e12
 
-# (layout, element, mesh resolution, RCM, s); "tet4" is T4-MG's BCC box refined chip_smoke.T4_LEVELS times,
-# "sphere" MSH's Gmsh sphere refined chip_smoke.MSH_LEVELS times
+# (layout, element, mesh resolution, RCM, s); "tet4" is a BCC box of resolution (coarse res, levels) refined
+# as T4-MG's, "sphere" MSH's Gmsh sphere refined chip_smoke.MSH_LEVELS times, "geo" GEO's procedural sphere
 LAYOUTS = (
     ("C2", "hex8", 149, False, 3),
     ("M10 tet10", "tet10", 40, True, 3),
     ("M20 hex20", "hex20", 64, True, 3),
-    ("T4-MG tet4", "tet4", 8, True, 3),
+    ("T4-MG tet4", "tet4", (8, 3), True, 3),
     ("MSH tet4 sphere", "sphere", 0, True, 3),
+    ("T4 res 4 x3", "tet4", (4, 3), True, 3),
+    ("T4 res 17 x1", "tet4", (17, 1), True, 3),
+    ("T4 res 9 x2", "tet4", (9, 2), True, 3),
+    ("T4 res 19 x1", "tet4", (19, 1), True, 3),
+    ("T4 res 5 x3", "tet4", (5, 3), True, 3),
+    ("GEO tet4 sphere", "geo", 0, True, 3),
+    ("T4 res 6 x3", "tet4", (6, 3), True, 3),
+    ("T4 res 7 x3", "tet4", (7, 3), True, 3),
     ("P149", "hex8", 149, False, 1),
     ("P2D quad9", "quad9", 512, True, 1),
     ("P2D tri6", "tri6", 512, True, 1),
@@ -161,10 +172,10 @@ for name, s in layouts:
     gather_bytes = (idx.numel() * s + nv + plan.block_rows.numel() + N * s) * 4
     scatter_bytes = (nv * s + N + 1 + nv + N * s) * 4
     # copies of the inputs, cycled so that 3x the 50 MB L2 passes between two uses of one copy
-    tables = [k for k in ("nodes_padded", "block_rows", "row_ptr", "node_rows", "window_order") if hasattr(plan, k)]
     sets = [(plan, u, f, idx, idx_spare)]
     for _ in range(min(reps, max(1, -(-3 * L2_BYTES // min(gather_bytes, scatter_bytes)))) - 1):
-        p = dataclasses.replace(plan, **{k: getattr(plan, k).clone() for k in tables})
+        p = dataclasses.replace(plan, **{k: getattr(plan, k).clone() for k in
+                                         ("nodes_padded", "block_rows", "row_ptr", "node_rows")})
         sets.append((p, u.clone(), f.clone(), idx.clone(), idx_spare.clone()))
     calls = dict(gather=[lambda p=p, a=a: bd.banded_gather(p, a) for p, a, _, _, _ in sets],
                  scatter=[lambda p=p, a=a: bd.banded_scatter(p, a) for p, _, a, _, _ in sets],
@@ -179,14 +190,13 @@ for name, s in layouts:
         counts = torch.diff(plan.row_ptr.long())
         names = {bd.WALK_ROWS: "rows", bd.WALK_LANE: "1 lane", bd.WALK_LANES: "4 lanes"}
         walks = {}
-        for wk, srt in [(bd.WALK_ROWS, False)] + [(w, o) for w in (bd.WALK_LANE, bd.WALK_LANES) for o in (False, True)]:
-            ps = [dataclasses.replace(p, sorted_walk=srt, walk=wk) for p, *_ in sets]
+        for wk in (bd.WALK_ROWS, bd.WALK_LANE, bd.WALK_LANES):
+            ps = [dataclasses.replace(p, walk=wk) for p, *_ in sets]
             rec["exact"] = rec["exact"] and torch.equal(bd.banded_scatter(ps[0], f), bd.banded_scatter_plain(plan, f))
-            walks[f"{names[wk]}{', sorted' if srt else ''}"] = device_ms(
-                [lambda q=q, a=a: bd.banded_scatter(q, a) for q, (_, _, a, _, _) in zip(ps, sets)])
-        rec["walk"] = dict(walk=names[plan.walk], sorted=plan.sorted_walk,
-                           inflation=[bd.walk_inflation(counts), bd.walk_inflation(counts, plan.window_order)],
-                           card_ms=walks)
+            walks[names[wk]] = device_ms([lambda q=q, a=a: bd.banded_scatter(q, a)
+                                          for q, (_, _, a, _, _) in zip(ps, sets)])
+        rec["walk"] = dict(walk=names[plan.walk], card_ms=walks,
+                           inflation=[bd.walk_inflation(counts), bd.walk_inflation(counts, True)])
     print("record " + json.dumps(rec), flush=True)
     del plan, u, f, idx, idx_spare, sets, calls
     torch.cuda.empty_cache()
@@ -314,8 +324,8 @@ def solves(roots, smi, cells, repeat) -> int:
     return 0
 
 
-def build_layouts(smi):
-    """Save each layout's cells (int32, after the RCM where the cell takes one) under LAYOUT_DIR."""
+def build_layouts(smi, layouts):
+    """Save each of ``layouts``' cells (int32, after the RCM where the cell takes one) under LAYOUT_DIR."""
     import numpy as np
     import torch
 
@@ -323,30 +333,36 @@ def build_layouts(smi):
     import chip_smoke as cs
     from fenris_tpu_torch.mesh.convert import convert_mesh
     from fenris_tpu_torch.mesh.procedural import (
+        create_simple_stupid_sphere,
         create_unit_box_uniform_hex_mesh_3d,
         create_unit_box_uniform_tet_mesh_3d,
         create_unit_square_uniform_quad_mesh_2d,
         create_unit_square_uniform_tri_mesh_2d,
     )
     from fenris_tpu_torch.io import load_msh
-    from fenris_tpu_torch.mesh.refinement import refine_uniformly_repeat
+    from fenris_tpu_torch.mesh.refinement import refine_uniformly, refine_uniformly_repeat
     from fenris_tpu_torch.mesh.reorder import reorder_mesh
     from fenris_tpu_torch.multigrid import rcm_refined_hierarchy
 
     LAYOUT_DIR.mkdir(parents=True, exist_ok=True)
     meshes = {}
     dev = torch.device("cuda", 0)
-    for name, element, res, rcm, _ in LAYOUTS:
+    for name, element, res, rcm, _ in layouts:
         key = (element, res, rcm)
         if key in meshes:
             pass
-        elif element == "tet4":  # T4-MG's: refined, then the RCM of the finest mesh
-            mesh, _ = rcm_refined_hierarchy(create_unit_box_uniform_tet_mesh_3d(res), cs.T4_LEVELS, device=dev)
+        elif element == "tet4":  # as T4-MG's: refined, then the RCM of the finest mesh
+            mesh, _ = rcm_refined_hierarchy(create_unit_box_uniform_tet_mesh_3d(res[0]), res[1], device=dev)
             meshes[key] = np.asarray(mesh.cells, dtype=np.int32)
         elif element == "sphere":  # MSH's
             sphere = refine_uniformly_repeat(load_msh(ROOT / "tests/assets/meshes/sphere_tet4_593.msh"),
                                              cs.MSH_LEVELS)
             meshes[key] = np.asarray(reorder_mesh(sphere, device=dev)[0].cells, dtype=np.int32)
+        elif element == "geo":  # GEO's, as chip_smoke.geo_phase builds it
+            mesh = cs.weld(create_simple_stupid_sphere([0.0, 0.0, 0.0], 1.0, cs.GEO_SWEEPS).triangulate(), 1e-12)[0]
+            while mesh.num_cells < cs.GEO_MIN_TETS:
+                mesh = refine_uniformly(mesh)
+            meshes[key] = np.asarray(reorder_mesh(mesh, device=dev)[0].cells, dtype=np.int32)
         else:
             if element.startswith(("quad", "tri")):
                 base = (create_unit_square_uniform_tri_mesh_2d if element.startswith("tri") else
@@ -366,7 +382,7 @@ def build_layouts(smi):
 
 def main() -> int:
     args = sys.argv[1:]
-    opts = {a: args[i + 1] for i, a in enumerate(args) if a in ("--cells", "--repeat")}
+    opts = {a: args[i + 1] for i, a in enumerate(args) if a in ("--cells", "--repeat", "--layouts")}
     roots = [Path(a).resolve() for i, a in enumerate(args)
              if not a.startswith("--") and (i == 0 or args[i - 1] not in opts)]
     if not roots:
@@ -377,8 +393,12 @@ def main() -> int:
     if "--solves" in args:
         cells = opts.get("--cells", "S2D quad9,S2D tri6,S10,PE10,T4-MG").split(",")
         return solves(roots, smi, cells, int(opts.get("--repeat", 1)))
-    build_layouts(smi)
-    layouts = json.dumps([(name, s) for name, *_, s in LAYOUTS])
+    names = opts["--layouts"].split(",") if "--layouts" in opts else [name for name, *_ in LAYOUTS]
+    chosen = [lay for lay in LAYOUTS if lay[0] in names]
+    if len(chosen) != len(names):
+        raise SystemExit(f"--layouts: not in LAYOUTS: {sorted(set(names) - {lay[0] for lay in chosen})}")
+    build_layouts(smi, chosen)
+    layouts = json.dumps([(name, s) for name, *_, s in chosen])
     best = {}  # (root, layout) -> record of the lowest times
     failed = False
     for root in roots:
@@ -396,20 +416,23 @@ def main() -> int:
                   f"{rec['exact']}", flush=True)
             if "walk" in rec:
                 w = rec["walk"]
-                print(f"walk {rec['layout']}: the plan's {w['walk']}, {'sorted' if w['sorted'] else 'node order'}; "
-                      f"row-count inflation {w['inflation'][0]:.3f} in node order, {w['inflation'][1]:.3f} sorted; "
-                      f"scatter card ms by walk {', '.join(f'{k} {v:.4f}' for k, v in w['card_ms'].items())}",
-                      flush=True)
+                print(f"walk {rec['layout']}: {rec['nodes']} nodes, {rec['valid_rows'] / rec['nodes']:.2f} rows a "
+                      f"node, the plan's {w['walk']}; row-count inflation {w['inflation'][0]:.3f} in node order, "
+                      f"{w['inflation'][1]:.3f} with windows sorted; scatter card ms by walk "
+                      f"{', '.join(f'{k} {v:.4f}' for k, v in w['card_ms'].items())}", flush=True)
             failed |= not rec["exact"]
             prev = best.setdefault((str(root), rec["layout"]), rec)
             for key in TIMES:
                 prev[key] = min(prev[key], rec[key])
+            if "walk" in rec:
+                walk_ms = prev["walk"]["card_ms"]
+                walk_ms.update({k: min(v, walk_ms[k]) for k, v in rec["walk"]["card_ms"].items()})
         if proc.returncode != 0:
             print(proc.stderr[-3000:], flush=True)
             return proc.returncode
     print(f"lowest of each checkout's runs, card ms (eager ms) ({smi}); share = bound / card time, bound = bytes / "
           "3.35 TB/s:", flush=True)
-    for name, *_ in LAYOUTS:
+    for name, *_ in chosen:
         for root in dict.fromkeys(str(r) for r in roots):
             r = best[(root, name)]
             gb, sb = r["gather_bytes"] / HBM_BYTES_PER_S * 1e3, r["scatter_bytes"] / HBM_BYTES_PER_S * 1e3
@@ -418,6 +441,10 @@ def main() -> int:
                   f"{r['index_select_ms']:.4f} ({r['index_select_eager_ms']:.4f})), scatter {r['scatter_ms']:.4f} "
                   f"({r['scatter_eager_ms']:.4f}; {sb / r['scatter_ms'] * 100:.1f}% of {sb:.4f}; index_add_ "
                   f"{r['index_add_ms']:.4f} ({r['index_add_eager_ms']:.4f}))", flush=True)
+            if "walk" in r:
+                w = r["walk"]
+                print(f"walks {name} [{Path(root).name}]: {r['nodes']} nodes, the plan's {w['walk']}; scatter card ms "
+                      f"{', '.join(f'{k} {v:.4f} ({sb / v * 100:.1f}%)' for k, v in w['card_ms'].items())}", flush=True)
     return 1 if failed else 0
 
 
