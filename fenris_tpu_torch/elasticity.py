@@ -124,11 +124,11 @@ class HyperelasticModel:
     dirichlet_nodes: Any = None
     body_force: Any = None
     dtype: torch.dtype = DEFAULT_DTYPE
-    device: Any = "cuda"
     chunk_size: Optional[int] = None
     banded: bool = False
     banded_r_nodes: int = 4096
     fused_kernels: bool = False
+    device: Any = "cuda"  # after the JAX package's fields: its positional calls carry over
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -354,7 +354,8 @@ class HyperelasticModel:
         elementwise op through ``make_fx``: for the unfused banded model at
         250,047 cells its one trace costs more than it saves at the CG
         iterations a Newton step that solve takes (``chip_smoke.py`` path C3
-        times both on the card; PERF.md section 5 keeps the numbers).
+        times both on the card; PERF.md section 6 keeps the numbers under
+        "jvp against linearize at C3").
         """
         return lambda v: self.hessian_vector_product(u, v)
 

@@ -18,7 +18,7 @@ import numpy as np
 
 from ..reference_elements import TRI3, ReferenceElement, element
 
-__all__ = ["Mesh", "unique_rows"]
+__all__ = ["Mesh", "unique_rows", "procedural", "convert", "refinement", "reorder"]
 
 
 def unique_rows(rows: np.ndarray, num_vertices: int, return_inverse: bool = False, return_counts: bool = False):
@@ -202,3 +202,6 @@ class Mesh:
         second = np.where(has_concave, np.concatenate([c + 2, c, c + 1], 1) % 4, [0, 2, 3])
         tris = np.stack([np.take_along_axis(self.cells, first, 1), np.take_along_axis(self.cells, second, 1)], 1)
         return Mesh(self.points, tris.reshape(-1, 3), TRI3)
+
+
+from . import convert, procedural, refinement, reorder  # noqa: E402  (they import Mesh)

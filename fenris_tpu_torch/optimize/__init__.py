@@ -71,6 +71,7 @@ def newton_line_search(
     max_iterations: int = 50,
     line_search: bool = True,
     c: float = 1e-4,
+    alpha_min: float = 1e-6,
     max_backtracks: int = 14,
     callback: Optional[Callable[[int, float], None]] = None,
 ) -> NewtonResult:
@@ -80,7 +81,10 @@ def newton_line_search(
     ``J(x) d = F`` (the step is ``-d``).  Stops when ``||F|| <= tolerance``;
     if no trial step decreases g enough, the iterate is kept and the status
     is ``NEWTON_LINE_SEARCH_FAILED``.  ``callback(k, ||F||)`` is called for
-    the initial point (k = 0) and after every iteration.
+    the initial point (k = 0) and after every iteration.  The parameters
+    take the JAX package's positional order; ``alpha_min`` is accepted and,
+    as there, not read: the ``max_backtracks`` steps of
+    :func:`backtracking_alphas` bound the search.
     """
     return _newton_line_search(residual, solve_jacobian, x0, tolerance, max_iterations, line_search, c,
                                max_backtracks, callback, torch.dot, _norm)

@@ -1,9 +1,10 @@
 """Multi-process execution over ``torch.distributed``: element-sharded assembly.
 
 Counterpart of ``fenris_tpu/parallel/__init__.py``.  A device mesh is a 1-D
-``torch.distributed.device_mesh.DeviceMesh`` with the dim ``"dp"`` over the
-process group the caller has initialised (:func:`make_device_mesh`), one
-rank a process; the sharded classes run in every rank alike.
+``torch.distributed.device_mesh.DeviceMesh`` (its dim named ``"dp"`` unless
+the caller names it otherwise) over the process group the caller has
+initialised (:func:`make_device_mesh`), one rank a process; the sharded
+classes run in every rank alike.
 
 * **Elements are sharded** over the ranks (:class:`ShardedElasticity`): each
   rank sweeps its own run of elements, and the global dof vector is
@@ -52,10 +53,11 @@ from ..sparse.cg import CgResult, _dot, _norm, _pcg
 __all__ = ["make_device_mesh", "ShardedElasticity"]
 
 
-def make_device_mesh(num_devices: Optional[int] = None, device_type: str = "cuda") -> DeviceMesh:
-    """The 1-D mesh ``("dp",)`` over the initialised default process group.
+def make_device_mesh(num_devices: Optional[int] = None, axis: str = "dp", device_type: str = "cuda") -> DeviceMesh:
+    """The 1-D mesh ``(axis,)`` over the initialised default process group.
 
-    ``num_devices`` must be None or the world size.  With ``device_type``
+    ``num_devices`` must be None or the world size; ``axis`` names the
+    mesh's one dimension, as in the JAX package.  With ``device_type``
     ``"cuda"`` (the default) the process's current card becomes
     ``rank % device_count``, so two ranks on a one-card machine share
     ``cuda:0``; raises without a card.
@@ -69,21 +71,21 @@ def make_device_mesh(num_devices: Optional[int] = None, device_type: str = "cuda
     if device_type == "cuda":
         resolve_device("cuda")
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
-    return init_device_mesh(device_type, (world,), mesh_dim_names=("dp",))
+    return init_device_mesh(device_type, (world,), mesh_dim_names=(axis,))
 
 
 class _Comm:
-    """The rank's view of a mesh's ``"dp"`` group: its rank, the world size and the reductions the sharded
-    classes run.  With ``timed`` set, every collective waits for the card before and after it and adds its
-    seconds to ``seconds`` (``calls`` counts them either way)."""
+    """The rank's view of a 1-D mesh's group (its dimension ``axis``, a name or 0): its rank, the world size
+    and the reductions the sharded classes run.  With ``timed`` set, every collective waits for the card before
+    and after it and adds its seconds to ``seconds`` (``calls`` counts them either way)."""
 
-    def __init__(self, mesh: DeviceMesh, device: torch.device):
+    def __init__(self, mesh: DeviceMesh, device: torch.device, axis=0):
         if mesh.ndim != 1 or mesh.device_type != device.type:
             raise ValueError(
                 f"sharding a model on {device} needs a 1-D mesh of device type {device.type!r}, got {mesh}"
             )
-        self.group = mesh.get_group(0)
-        self.rank = mesh.get_local_rank(0)
+        self.group = mesh.get_group(axis)
+        self.rank = mesh.get_local_rank(axis)
         self.size = mesh.size()
         self.device = device
         self.timed = False

@@ -58,18 +58,20 @@ class ShardedBandedElasticity:
     Replicated-in, replicated-out ``internal_forces``, ``residual``,
     ``hessian_vector_product`` and ``solve``.  ``local_model`` is this
     rank's model over its node window ``[window_start, window_end)``
-    (None for a rank past the last block).
+    (None for a rank past the last block).  ``axis`` is the mesh dimension
+    the blocks are sharded over, as in the JAX package.
     """
 
     model: HyperelasticModel
     mesh: DeviceMesh
+    axis: str = "dp"
 
     def __post_init__(self):
         m = self.model
         if m._plan is None:
             raise ValueError("model must be constructed with banded=True")
         plan = m._plan
-        self._comm = _Comm(self.mesh, m.device)
+        self._comm = _Comm(self.mesh, m.device, self.axis)
         self.n_dev, rank = self._comm.size, self._comm.rank
         K = plan.k_blocks
         self.Kd = -(-K // self.n_dev)

@@ -79,9 +79,9 @@ class StructuredHyperelasticModel:
     dirichlet_mask: Any = None
     body_force: Any = None
     dtype: torch.dtype = DEFAULT_DTYPE
-    device: Any = "cuda"
     z_chunk_planes: Optional[int] = None
     kernel: Any = "auto"
+    device: Any = "cuda"  # after the JAX package's fields: its positional calls carry over
 
     def __post_init__(self):
         self.device = resolve_device(self.device)

@@ -29,11 +29,13 @@ from fenris_tpu_torch.mesh.procedural import create_unit_box_uniform_tet_mesh_3d
 from fenris_tpu_torch.mesh.reorder import reorder_mesh, reverse_cuthill_mckee
 
 # (mesh, s, r_nodes, rowt): a box, an RCM-reordered box with one component,
-# and a box with several owner blocks (ragged counts)
+# a box with several owner blocks (ragged counts), and a box at s = 4 (the
+# kernels' any-s bodies)
 CASES = {
     "box5_s3": ("box", 5, 3, 1024, 256),
     "rcm6_s1": ("rcm", 6, 1, 1024, 256),
     "box12_s3_blocks": ("box", 12, 3, 1024, 256),
+    "box5_s4": ("box", 5, 4, 1024, 256),
 }
 
 

@@ -471,6 +471,9 @@ BANDED_CASES = {
     # node 5 with no rows (a box of 730 nodes); 1,000 nodes, not a multiple of the scatter's 256-node window
     "gap_s3": ("gap", 8, 3, 1024, 256),
     "ragged_s3": ("box", 9, 3, 1024, 256),
+    # the any-s bodies (s >= 4): one block, and three ragged blocks of 2,197 nodes
+    "box5_s4": ("box", 5, 4, 1024, 256),
+    "box12_s5_blocks": ("box", 12, 5, 1024, 256),
 }
 
 
